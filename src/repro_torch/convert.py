@@ -1,0 +1,112 @@
+"""Carry the reference's data into the port, and back.
+
+The reference (the JAX package ``repro``) and the port share field names
+and layouts, so a state moves over leaf by leaf as numpy arrays:
+
+* ``instance``: a reference instance dict (``sample_instance`` /
+  ``ideal_instance``, leaves as numpy) -> the port's;
+* ``core_state`` / ``experiment_state``: a reference ``AnnCoreState`` or
+  ``ExperimentState`` (numpy leaves) -> the port's; ``to_numpy`` goes
+  back to a nested tuple/dict of numpy arrays with the same structure;
+* ``draws``: injected per-trial event grids and xi walks -> ``Draws``;
+* ``replay_reference_draws``: the reference's ``jax.random`` key chain
+  replayed, so both packages consume the same numbers (PyTorch cannot
+  reproduce threefry streams). It takes the ``jax.random`` module as an
+  argument: this module imports no JAX itself.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import adex, correlation, stp, synapse
+from repro_torch.core.anncore import AnnCoreState
+from repro_torch.core.hybrid import (Draws, ExperimentState, RSTDPConfig,
+                                     events_from_background)
+
+
+def _t(x, device):
+    return torch.from_numpy(np.array(x, copy=True)).to(device)
+
+
+def instance(ref_inst: Dict, device=None) -> Dict:
+    """Reference instance dict -> the port's, on ``device``."""
+    device = resolve_device(device)
+    out = {k: _t(v, device) for k, v in ref_inst.items()
+           if k != "neuron_params"}
+    out["neuron_params"] = {k: _t(v, device) for k, v in
+                            ref_inst["neuron_params"].items()}
+    return out
+
+
+def core_state(ref, device=None) -> AnnCoreState:
+    """Reference ``AnnCoreState`` (numpy or array leaves) -> the port's."""
+    device = resolve_device(device)
+    return AnnCoreState(
+        neuron=adex.NeuronState(*(_t(x, device) for x in ref.neuron)),
+        stp=stp.STPState(*(_t(x, device) for x in ref.stp)),
+        corr=correlation.CorrelationState(
+            *(_t(x, device) for x in ref.corr)),
+        syn=synapse.SynapseArray(*(_t(x, device) for x in ref.syn)),
+        rate_counters=_t(ref.rate_counters, device))
+
+
+def experiment_state(ref, device=None) -> ExperimentState:
+    """Reference ``ExperimentState`` -> the port's. The reference's PRNG
+    key, telemetry and wafer slots are dropped: replay the key with
+    ``replay_reference_draws`` instead."""
+    device = resolve_device(device)
+    return ExperimentState(core=core_state(ref.core, device),
+                           w_signed=_t(ref.w_signed, device),
+                           mean_reward=_t(ref.mean_reward, device))
+
+
+def to_numpy(tree):
+    """Port state (any nesting of NamedTuples, dicts and tensors) -> the
+    same structure with numpy leaves, comparable field by field with the
+    reference's."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        vals = [to_numpy(v) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    return tree
+
+
+def draws(events, xi, device=None) -> Draws:
+    """Injected draws: events [n_trials, T, *prefix, 2I], xi
+    [n_trials, *prefix, I, C]."""
+    device = resolve_device(device)
+    return Draws(events=_t(np.asarray(events, np.float32), device),
+                 xi=_t(np.asarray(xi, np.float32), device))
+
+
+def replay_reference_draws(jax_random, key, stims,
+                           ecfg: RSTDPConfig = RSTDPConfig(), prefix=(),
+                           device=None) -> Draws:
+    """The draws the reference's ``scanned_training`` consumes from
+    ``key`` for the stimuli ``stims`` (``repro/core/hybrid.py:460-466``
+    for the events, ``:446`` then ``:481-482`` for xi), as ``Draws``.
+
+    ``jax_random`` is the ``jax.random`` module; ``key`` the reference's
+    run key (``PRNGKey(seed + 1)`` in ``run_training``, or a state's
+    ``key`` to continue a run)."""
+    T, I, C = ecfg.trial_steps, ecfg.n_inputs, ecfg.n_neurons
+    bgs, xis = [], []
+    k = key
+    for _ in range(len(stims)):
+        k, k_ev, k_rule = jax_random.split(k, 3)
+        kb, _kp = jax_random.split(k_ev)
+        u = np.asarray(jax_random.uniform(kb, (T, *prefix, I)))
+        bgs.append((u < np.float32(ecfg.bg_prob)).astype(np.float32))
+        _key, sub = jax_random.split(k_rule)
+        xis.append(np.asarray(
+            ecfg.noise * jax_random.normal(sub, (*prefix, I, C))))
+    bg = torch.from_numpy(np.stack(bgs))
+    ev = events_from_background(bg, np.asarray(stims), ecfg)
+    return draws(ev.numpy(), np.stack(xis), device)

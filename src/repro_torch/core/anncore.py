@@ -1,0 +1,230 @@
+"""The assembled analog network core (anncore).
+
+One object holds the machine's parameters (config + virtual instance) and
+``run`` integrates the state (neurons, synapses, STP, correlation sensors)
+over a time window. Everything broadcasts over a leading instance prefix,
+so a fleet of independent chips runs as one program.
+
+Backends (``repro/core/anncore.py`` has the same three):
+
+``oracle``
+    The literal per-dt loop of ``step``: every step recomputes the
+    address-match mask and updates the [.., R, C] correlation
+    accumulators. Ground truth for the equivalence tests.
+
+``fused`` (the ``auto`` pick on the CPU)
+    STP efficacy trajectory first (it depends only on the input events),
+    then the whole window's synaptic currents as one time-batched product
+    per Dale half (``synray``), a neuron-only dt loop, and the
+    correlation-sensor window replayed once (``corr``).
+
+``blocked`` (the ``auto`` pick on a CUDA device)
+    ``fused`` with the neuron loop replaced by the whole-window
+    ``neuron_scan`` (the CUDA kernel on the card, its plain version on the
+    CPU). Spikes are bit-identical to the oracle: the per-step op trees
+    are shared (``adex.integrate_currents`` / ``membrane_step``).
+
+Not ported yet: ``run_routed`` (wafer), fault overlays and telemetry;
+they are not accepted as arguments.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import torch
+
+from repro_torch.configs.bss2 import BSS2Config
+from repro_torch.core import adex, correlation, stp, synapse
+
+
+class AnnCoreState(NamedTuple):
+    neuron: adex.NeuronState
+    stp: stp.STPState
+    corr: correlation.CorrelationState
+    syn: synapse.SynapseArray
+    rate_counters: torch.Tensor    # [..., C] spike counts since last read
+
+
+class AnnCore:
+    """Integrator bound to a config and a virtual instance.
+
+    ``inst`` carries the mismatch realisation (``repro_torch.verif
+    .mismatch``), its tensors on the device the core runs on.
+    ``backend``: "auto" | "oracle" | "fused" | "blocked"; "auto" resolves
+    to "blocked" when the instance lies on a CUDA device and to "fused" on
+    the CPU. ``const_addr``: promise that within a window each row's event
+    address never changes (lets the CPU path resolve the mask once).
+    ``sparse_mode``: "never" or "auto" (dense below the reference's static
+    floor; the sparse route is not ported yet).
+    """
+
+    def __init__(self, cfg: BSS2Config, inst: Dict, backend: str = "auto",
+                 const_addr: bool = False, sparse_mode: str = "auto"):
+        self.cfg = cfg
+        self.inst = inst
+        self.device = inst["weight_gain"].device
+        if backend == "auto":
+            backend = "blocked" if self.device.type == "cuda" else "fused"
+        if backend not in ("oracle", "fused", "blocked"):
+            raise ValueError(f"unknown backend {backend!r}")
+        self.backend = backend
+        self.const_addr = const_addr
+        self.sparse_mode = sparse_mode
+        params = inst["neuron_params"]
+        # loop-invariant terms, computed once per core (bit-exact hoists:
+        # the op trees are the ones the per-step functions would run). The
+        # decays' exp runs on the host, so a core on the card and one on
+        # the CPU integrate with the same bits.
+        self.decays = {k: v.to(self.device) for k, v in adex.decay_factors(
+            {k: v.cpu() for k, v in params.items()}, cfg.dt).items()}
+        self.stp_scale = stp.efficacy_scale(inst["stp_offset"],
+                                            inst["stp_calib"])
+        self.stp_recovery = stp.recovery_factor(cfg.stp_tau_rec, cfg.dt)
+        self._packed = None
+
+    def init_state(self, prefix=()) -> AnnCoreState:
+        cfg, dev = self.cfg, self.device
+        r, c = cfg.n_rows, cfg.n_cols
+        return AnnCoreState(
+            neuron=adex.init_state((*prefix, c), self.inst["neuron_params"]),
+            stp=stp.init_state((*prefix, r), dev),
+            corr=correlation.init_state(prefix, r, c, dev),
+            syn=synapse.init_array(prefix, r, c, dev),
+            rate_counters=torch.zeros((*prefix, c), dtype=torch.float32,
+                                      device=dev),
+        )
+
+    def step(self, state: AnnCoreState, row_spikes, row_addr):
+        """One dt of the full core (the oracle semantics).
+
+        row_spikes: [..., R] float {0,1} events entering the drivers;
+        row_addr:   [..., R] int8 event addresses.
+        """
+        cfg = self.cfg
+        dt = cfg.dt
+        eff = stp.efficacy(state.stp, row_spikes, u=cfg.stp_u,
+                           scale=self.stp_scale)
+        new_stp = stp.update(state.stp, row_spikes, u=cfg.stp_u,
+                             recovery=self.stp_recovery)
+        # signed rows: even rows excitatory, odd rows inhibitory (Dale)
+        w = state.syn.weights
+        a = state.syn.addresses
+        gain = self.inst["weight_gain"]
+        i_exc = synapse.synaptic_current(w[..., 0::2, :], a[..., 0::2, :],
+                                         eff[..., 0::2], row_addr[..., 0::2],
+                                         gain)
+        i_inh = synapse.synaptic_current(w[..., 1::2, :], a[..., 1::2, :],
+                                         eff[..., 1::2], row_addr[..., 1::2],
+                                         gain)
+        new_neuron, out_spikes = adex.step(
+            state.neuron, i_exc * 60.0, i_inh * 60.0,
+            self.inst["neuron_params"], dt, adex=cfg.neuron.adex,
+            decays=self.decays)
+        new_corr = correlation.update(
+            state.corr, row_spikes, out_spikes,
+            tau_pre=cfg.neuron.tau_syn_exc,
+            tau_post=cfg.neuron.tau_syn_exc, dt=dt)
+        new_state = AnnCoreState(
+            neuron=new_neuron, stp=new_stp, corr=new_corr, syn=state.syn,
+            rate_counters=state.rate_counters + out_spikes)
+        return new_state, out_spikes
+
+    def run(self, state: AnnCoreState, row_spikes_t, row_addr_t,
+            record_v: bool = False):
+        """Integrate a [T, ..., R] event stream. Returns (state, outputs)
+        with outputs = dict(spikes=[T, ..., C], v=[T, ..., C] if
+        record_v)."""
+        if self.backend == "oracle":
+            return self._run_oracle(state, row_spikes_t, row_addr_t,
+                                    record_v)
+        return self._run_windowed(state, row_spikes_t, row_addr_t, record_v)
+
+    def _run_oracle(self, state, row_spikes_t, row_addr_t, record_v):
+        spikes, vs = [], []
+        for t in range(row_spikes_t.shape[0]):
+            state, out = self.step(state, row_spikes_t[t], row_addr_t[t])
+            spikes.append(out)
+            if record_v:
+                vs.append(state.neuron.v)
+        out = dict(spikes=torch.stack(spikes))
+        if record_v:
+            out["v"] = torch.stack(vs)
+        return state, out
+
+    def _window_currents(self, state: AnnCoreState, row_spikes_t,
+                         row_addr_t):
+        """Phases 1+2 of the fused and blocked backends: the STP efficacy
+        trajectory and the window's synaptic currents, one product per
+        Dale half on strided row views of the store."""
+        cfg = self.cfg
+        s = state.stp
+        eff = []
+        for t in range(row_spikes_t.shape[0]):
+            sp = row_spikes_t[t]
+            eff.append(stp.efficacy(s, sp, u=cfg.stp_u,
+                                    scale=self.stp_scale))
+            s = stp.update(s, sp, u=cfg.stp_u, recovery=self.stp_recovery)
+        eff_t = torch.stack(eff)
+
+        syn = state.syn
+        gain = self.inst["weight_gain"]
+        kw = dict(const_addr=self.const_addr, sparse=self.sparse_mode)
+        i_exc_t = synapse.synaptic_current_window(
+            syn.weights[..., 0::2, :], syn.addresses[..., 0::2, :],
+            eff_t[..., 0::2], row_addr_t[..., 0::2], gain, **kw)
+        i_inh_t = synapse.synaptic_current_window(
+            syn.weights[..., 1::2, :], syn.addresses[..., 1::2, :],
+            eff_t[..., 1::2], row_addr_t[..., 1::2], gain, **kw)
+        return s, i_exc_t * 60.0, i_inh_t * 60.0
+
+    def _neuron_window(self, neuron, rate_counters, i_exc_t, i_inh_t,
+                       record_v: bool):
+        """Phase 3: membrane integration over the currents. Returns
+        ``(new_neuron, rate_counters, recs)``."""
+        cfg, params = self.cfg, self.inst["neuron_params"]
+        if self.backend == "blocked":
+            from repro_torch.kernels.neuron_scan import ops as neuron_ops
+            cshape = tuple(i_exc_t.shape[1:])
+            if self._packed is None or self._packed[0] != cshape:
+                self._packed = (cshape, neuron_ops.pack_params(
+                    params, self.decays, cshape))
+            return neuron_ops.neuron_window(
+                neuron, rate_counters, i_exc_t, i_inh_t, params, dt=cfg.dt,
+                use_adex=cfg.neuron.adex, decays=self.decays,
+                record_v=record_v, packed_params=self._packed[1])
+        spikes, vs = [], []
+        for t in range(i_exc_t.shape[0]):
+            neuron, out = adex.step(neuron, i_exc_t[t], i_inh_t[t], params,
+                                    cfg.dt, adex=cfg.neuron.adex,
+                                    decays=self.decays)
+            rate_counters = rate_counters + out
+            spikes.append(out)
+            if record_v:
+                vs.append(neuron.v)
+        recs = (torch.stack(spikes),)
+        if record_v:
+            recs = (recs[0], torch.stack(vs))
+        return neuron, rate_counters, recs
+
+    def _run_windowed(self, state: AnnCoreState, row_spikes_t, row_addr_t,
+                      record_v: bool = False):
+        """Window currents (phases 1+2) -> neuron window (phase 3) ->
+        correlation window (phase 4: the sensors never feed back into the
+        dynamics within a window)."""
+        cfg = self.cfg
+        new_stp, i_exc_t, i_inh_t = self._window_currents(
+            state, row_spikes_t, row_addr_t)
+        new_neuron, rate_counters, recs = self._neuron_window(
+            state.neuron, state.rate_counters, i_exc_t, i_inh_t, record_v)
+        out_spikes_t = recs[0]
+        new_corr = correlation.window(
+            state.corr, row_spikes_t, out_spikes_t,
+            tau_pre=cfg.neuron.tau_syn_exc, tau_post=cfg.neuron.tau_syn_exc,
+            dt=cfg.dt)
+        new_state = AnnCoreState(neuron=new_neuron, stp=new_stp,
+                                 corr=new_corr, syn=state.syn,
+                                 rate_counters=rate_counters)
+        out = dict(spikes=out_spikes_t)
+        if record_v:
+            out["v"] = recs[1]
+        return new_state, out

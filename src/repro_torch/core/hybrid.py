@@ -1,0 +1,281 @@
+"""Hybrid plasticity: the §5 closed-loop experiment (paper §2.2, §5).
+
+The learning rule runs on the machine: the PPU reads rate counters and
+correlation sensors, joins them with the reward and writes 6-bit weights,
+with no host round trip. The experiment is §5's pattern-discrimination
+task: inputs with Poisson background, patterns A/B on overlapping
+channels; even neurons are rewarded for firing on A, odd ones on B.
+
+``run_training`` is a Python loop over trials on the device. Like the
+reference's ``scanned_training`` it draws every trial's events (and the
+exploration noise) in one batch before the loop. The draws come from a
+``torch.Generator``, or are injected (``Draws``): ``repro_torch.convert``
+replays the reference's ``jax.random`` key chain so both packages see the
+same numbers. Not ported yet: the PPU-VM rule (``rule_impl="vm"``),
+wafer mode, faults, telemetry, and the host-loop baseline.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.bss2 import BSS2, BSS2Config
+from repro_torch.core import synapse
+from repro_torch.core.anncore import AnnCore, AnnCoreState
+from repro_torch.core.ppu import VectorUnit
+from repro_torch.verif.mismatch import sample_instance
+
+
+@dataclass(frozen=True)
+class RSTDPConfig:
+    n_inputs: int = 16
+    n_neurons: int = 16
+    pattern_size: int = 5
+    overlap: float = 0.4          # fraction of shared channels (paper: 40%)
+    trial_steps: int = 256        # dt steps per trial
+    bg_prob: float = 0.008        # background spike prob / channel / dt
+    pattern_repeats: int = 4      # pattern burst repetitions per trial
+    eta: float = 16.0
+    eta_homeo: float = 0.4        # escape term only, well below the
+                                  # eligibility term
+    gamma: float = 0.3            # paper Eq. 2
+    noise: float = 0.1            # random-walk xi
+    w_init: float = 20.0
+    burst_width: int = 2          # consecutive dt steps per pattern burst
+    fire_thresh: float = 1.0      # spikes to count as "fired"
+
+
+class ExperimentState(NamedTuple):
+    """The reference's ``ExperimentState`` without the PRNG key (draws
+    come from a generator or are injected), telemetry or wafer slots."""
+    core: AnnCoreState
+    w_signed: torch.Tensor        # PPU-resident signed weights [.., I, C]
+    mean_reward: torch.Tensor     # [.., C]
+
+
+class Draws(NamedTuple):
+    """Every random number a run consumes after the instance."""
+    events: torch.Tensor          # [n_trials, T, *prefix, 2I] float32 {0,1}
+    xi: torch.Tensor              # [n_trials, *prefix, I, C] float32
+
+
+def _patterns(ecfg: RSTDPConfig) -> Tuple[np.ndarray, np.ndarray]:
+    """Channel sets for patterns A and B with the requested overlap."""
+    k = ecfg.pattern_size
+    n_shared = int(round(ecfg.overlap * k))
+    a = list(range(k))
+    b = a[:n_shared] + list(range(k, 2 * k - n_shared))
+    mask_a = np.zeros(ecfg.n_inputs, np.float32)
+    mask_b = np.zeros(ecfg.n_inputs, np.float32)
+    mask_a[a] = 1
+    mask_b[b] = 1
+    return mask_a, mask_b
+
+
+def _burst_schedule(ecfg: RSTDPConfig) -> np.ndarray:
+    """[T] float32: 1 on the dt steps of a pattern burst."""
+    T = ecfg.trial_steps
+    times = np.linspace(T // 8, T - T // 8, ecfg.pattern_repeats,
+                        dtype=np.float32).astype(np.int64)
+    d = np.arange(T)[:, None] - times[None, :]
+    return np.any((d >= 0) & (d < ecfg.burst_width), axis=1
+                  ).astype(np.float32)
+
+
+def events_from_background(bg, stims, ecfg: RSTDPConfig):
+    """Event grids [n, T, *prefix, 2I] from background spikes
+    [n, T, *prefix, I] and stimuli [n] in {0: none, 1: A, 2: B}: bursts
+    on the pattern channels, clipped to {0, 1}, and input i driving rows
+    2i (exc) and 2i+1 (inh) with the same events."""
+    mask_a, mask_b = _patterns(ecfg)
+    pats = np.stack([np.zeros_like(mask_a), mask_a, mask_b])
+    pat_mask = torch.as_tensor(pats[np.asarray(stims)], device=bg.device)
+    is_burst = torch.as_tensor(_burst_schedule(ecfg), device=bg.device)
+    n_prefix = bg.ndim - 3
+    pat = (is_burst.reshape(1, -1, *([1] * n_prefix), 1)
+           * pat_mask.reshape(-1, 1, *([1] * n_prefix), ecfg.n_inputs))
+    ch = torch.clamp(bg + pat, 0, 1)
+    return ch.repeat_interleave(2, dim=-1)
+
+
+def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
+                    inst: Dict = None, generator: torch.Generator = None,
+                    prefix=(), backend: str = "auto",
+                    sparse_mode: str = None, device=None):
+    """Build the experiment. Returns ``(init, trial, meta)``.
+
+    The machine uses 2 rows per input (exc/inh pair, Dale's law: the PPU
+    writes |w| to the row matching the sign — paper §5).
+
+    Args:
+      cfg: chip geometry; ``None`` derives the reduced §5 geometry
+        (``2*n_inputs`` rows x ``n_neurons`` cols) from ``ecfg``.
+      ecfg: the §5 experiment parameters.
+      inst: an injected virtual instance (e.g. the reference's, through
+        ``repro_torch.convert.instance``); ``None`` samples one from
+        ``generator`` (default: a CPU generator seeded with 7).
+      prefix: instance prefix of a fleet of independent chips.
+      backend: AnnCore backend ("auto" | "oracle" | "fused" | "blocked").
+      sparse_mode: synaptic path gate ("never" | "auto", see
+        ``synapse.synaptic_current_window``); ``None`` keeps AnnCore's.
+      device: where the experiment runs; ``None`` means ``cuda`` and
+        raises without a card.
+
+    ``trial(state, stim, events, xi)`` runs one trial with its draws;
+    ``meta["train"](state, stims, draws)`` runs a batch of them and
+    ``meta["draw"](generator, stims)`` draws them.
+    """
+    device = resolve_device(device)
+    if cfg is None:
+        cfg = dataclasses.replace(
+            BSS2.reduced(), n_rows=2 * ecfg.n_inputs, n_cols=ecfg.n_neurons)
+    if cfg.n_rows != 2 * ecfg.n_inputs or cfg.n_cols != ecfg.n_neurons:
+        raise ValueError("the §5 wiring needs n_rows == 2*n_inputs and "
+                         "n_cols == n_neurons")
+    prefix = tuple(prefix)
+    I, C, T = ecfg.n_inputs, ecfg.n_neurons, ecfg.trial_steps
+    mask_a, mask_b = _patterns(ecfg)
+    even = (torch.arange(C, device=device) % 2 == 0).to(torch.float32)
+    if inst is None:
+        if generator is None:
+            generator = torch.Generator().manual_seed(7)
+        inst = sample_instance(cfg, generator, prefix, device=device)
+    # const_addr: every driver row carries exactly one source here (input
+    # i -> rows 2i/2i+1, address 0 throughout)
+    core_kw = {} if sparse_mode is None else dict(sparse_mode=sparse_mode)
+    core = AnnCore(cfg, inst, backend=backend, const_addr=True, **core_kw)
+    ppu = VectorUnit(cfg, inst)
+    addr = torch.zeros((T, *prefix, 2 * I), dtype=torch.int8, device=device)
+
+    def _write_signed(syn, w_signed):
+        """interleave exc/inh rows: row 2i exc, 2i+1 inh"""
+        w_exc = torch.clamp(w_signed, min=0)
+        w_inh = torch.clamp(-w_signed, min=0)
+        w_rows = torch.stack([w_exc, w_inh], dim=-2)   # [.., I, 2, C]
+        w_rows = w_rows.reshape(*w_signed.shape[:-2], 2 * I, C)
+        return syn._replace(weights=synapse.quantize_weight(w_rows))
+
+    def init() -> ExperimentState:
+        st = core.init_state(prefix)
+        w0 = ecfg.w_init * torch.ones((*prefix, I, C), device=device)
+        st = st._replace(syn=_write_signed(st.syn, w0))
+        return ExperimentState(
+            core=st, w_signed=w0,
+            mean_reward=torch.zeros((*prefix, C), device=device))
+
+    def _reward(rates, stim: int):
+        fired = (rates >= ecfg.fire_thresh).to(torch.float32)
+        if stim == 0:
+            return 1.0 - fired
+        own_shown = even if stim == 1 else 1.0 - even
+        return torch.where(own_shown > 0, fired, 1.0 - fired)
+
+    def _signed_rule(w_rows, obs, rule_state, *, reward):
+        """R-STDP on the signed input-level weights; rewrite both rows."""
+        causal = obs["causal"][..., 0::2, :]       # exc rows carry the
+        acausal = obs["acausal"][..., 0::2, :]     # pre-spike correlations
+        elig = (causal - acausal).to(torch.float32) / 255.0
+        mod = (reward - rule_state["mean_reward"]).unsqueeze(-2)
+        dw = ecfg.eta * mod * elig
+        # homeostatic term (PPU rate counters): fired & unrewarded ->
+        # uniform depression; silent & unrewarded -> uniform potentiation
+        fired = (obs["rates"] >= ecfg.fire_thresh).to(torch.float32)
+        dw = dw + ecfg.eta_homeo * (
+            (1.0 - reward) * (1.0 - 2.0 * fired)).unsqueeze(-2)
+        w_signed = rule_state["w_signed"] + dw + rule_state["xi"]
+        w_signed = torch.clamp(w_signed, -45.0, 45.0)
+        mean_r = rule_state["mean_reward"] + ecfg.gamma * (
+            reward - rule_state["mean_reward"])                 # Eq. 2
+        new_syn = _write_signed(
+            synapse.SynapseArray(w_rows.to(torch.int8),
+                                 torch.zeros_like(w_rows,
+                                                  dtype=torch.int8)),
+            w_signed)
+        return new_syn.weights.to(torch.float32), dict(
+            mean_reward=mean_r, w_signed=w_signed)
+
+    def trial(state: ExperimentState, stim: int, events, xi):
+        """One training trial: emulate the window, reward, PPU update.
+        ``events`` [T, *prefix, 2I]; ``xi`` [*prefix, I, C]."""
+        stim = int(stim)
+        cs, _ = core.run(state.core, events, addr)
+        rates = cs.rate_counters
+        r = _reward(rates, stim)
+        cs2, rule_state, obs = ppu.apply_rule(
+            _signed_rule, cs,
+            dict(mean_reward=state.mean_reward, w_signed=state.w_signed,
+                 xi=xi),
+            reward=r)
+        new = ExperimentState(core=cs2, w_signed=rule_state["w_signed"],
+                              mean_reward=rule_state["mean_reward"])
+        elig = (obs["causal"][..., 0::2, :]
+                - obs["acausal"][..., 0::2, :]).to(torch.float32) / 255.0
+        metrics = dict(reward=r, mean_reward=rule_state["mean_reward"],
+                       rates=rates, elig=elig, w=rule_state["w_signed"])
+        return new, metrics
+
+    def draw(gen: torch.Generator, stims) -> Draws:
+        """Every trial's events and exploration noise in one batch, drawn
+        on the generator's device and moved to the experiment's."""
+        n = len(stims)
+        u = torch.rand((n, T, *prefix, I), generator=gen, device=gen.device)
+        bg = (u < ecfg.bg_prob).to(torch.float32)
+        xi = ecfg.noise * torch.randn((n, *prefix, I, C), generator=gen,
+                                      device=gen.device)
+        return Draws(events=events_from_background(bg, stims, ecfg
+                                                   ).to(device),
+                     xi=xi.to(device))
+
+    def train(state: ExperimentState, stims, draws: Draws):
+        """Run ``len(stims)`` trials; metrics stacked [n_trials, ...] on
+        the device."""
+        hist = []
+        for i, stim in enumerate(stims):
+            state, m = trial(state, stim, draws.events[i], draws.xi[i])
+            hist.append(m)
+        out = {k: torch.stack([h[k] for h in hist]) for k in hist[0]}
+        out["stim"] = torch.as_tensor(np.asarray(stims, np.int32))
+        return state, out
+
+    meta = dict(cfg=cfg, ecfg=ecfg, inst=inst, core=core, ppu=ppu,
+                mask_a=mask_a, mask_b=mask_b, even=even, train=train,
+                draw=draw)
+    return init, trial, meta
+
+
+def stimuli(n_trials: int) -> np.ndarray:
+    """The stimulus sequence of ``run_training``: A, B, none, A, ..."""
+    return np.resize(np.asarray([1, 2, 0], np.int32), n_trials)
+
+
+def run_training(n_trials: int = 300, ecfg: RSTDPConfig = RSTDPConfig(),
+                 seed: int = 0, cfg: BSS2Config = None,
+                 backend: str = "auto", sparse_mode: str = None,
+                 device=None, inst: Dict = None, draws: Draws = None):
+    """Full §5 experiment. Returns ``(out, state, meta)``: ``out`` the
+    metrics history as numpy arrays stacked [n_trials, ...] plus
+    ``w_signed_final``; ``state`` the final ``ExperimentState``.
+
+    ``seed`` seeds the instance generator (``seed``) and the run's draws
+    (``seed + 1``), both CPU ``torch.Generator``s, so a seed gives the same
+    run on every device. ``inst`` / ``draws`` inject the reference's
+    instance and draws instead (``repro_torch.convert``). ``device``:
+    ``None`` means ``cuda`` and raises without a card.
+    """
+    device = resolve_device(device)
+    init, _, meta = make_experiment(
+        cfg=cfg, ecfg=ecfg, inst=inst,
+        generator=torch.Generator().manual_seed(seed), backend=backend,
+        sparse_mode=sparse_mode, device=device)
+    stims = stimuli(n_trials)
+    if draws is None:
+        draws = meta["draw"](torch.Generator().manual_seed(seed + 1), stims)
+    state, hist = meta["train"](init(), stims, draws)
+    out = {k: v.cpu().numpy() for k, v in hist.items()}
+    out["w_signed_final"] = state.w_signed.cpu().numpy()
+    return out, state, meta

@@ -1,0 +1,64 @@
+"""Plasticity Processing Unit — vector-unit semantics (paper §2.2).
+
+A plasticity rule is a function over (weights, observables, rule state)
+applied to all rows and columns at once; weight writes saturate to 6 bit
+like the hardware store. Ported so far: the observable reads, the generic
+``apply_rule`` path that the §5 Dale-signed rule runs on, and the reset.
+The fused standard-rule path (``apply_rstdp``, the ``ppu_update`` kernel)
+and the PPU-VM (``run_program``) are later slices.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+from repro_torch.configs.bss2 import BSS2Config
+from repro_torch.core import cadc, synapse
+
+
+class VectorUnit:
+    def __init__(self, cfg: BSS2Config, inst: Dict):
+        self.cfg = cfg
+        self.inst = inst
+
+    # -- observable reads ------------------------------------------------
+    def read_correlation(self, corr_state):
+        """CADC-digitized causal/anti-causal codes [..., R, C] (int32)."""
+        oc = self.inst["cadc_offset"].unsqueeze(-2)
+        gc = self.inst["cadc_gain"].unsqueeze(-2)
+        qc = cadc.digitize(corr_state.a_causal, offset=oc, gain=gc,
+                           bits=self.cfg.cadc_bits, in_scale=8.0)
+        qa = cadc.digitize(corr_state.a_acausal, offset=oc, gain=gc,
+                           bits=self.cfg.cadc_bits, in_scale=8.0)
+        return qc, qa
+
+    def read_rates(self, state):
+        return state.rate_counters
+
+    # -- weight write-back -----------------------------------------------
+    def write_weights(self, syn: synapse.SynapseArray, w_new
+                      ) -> synapse.SynapseArray:
+        return syn._replace(weights=synapse.quantize_weight(w_new))
+
+    # -- rule application --------------------------------------------------
+    def apply_rule(self, rule: Callable, state, rule_state: Dict, **kw):
+        """rule(weights_f32, observables, rule_state, **kw) ->
+        (new_weights_f32, new_rule_state). All tensors are [..., R, C].
+        Returns (state with observables reset, rule_state, observables)."""
+        qc, qa = self.read_correlation(state.corr)
+        obs = dict(causal=qc, acausal=qa, rates=self.read_rates(state))
+        w = state.syn.weights.to(torch.float32)
+        w_new, rule_state = rule(w, obs, rule_state, **kw)
+        syn = self.write_weights(state.syn, w_new)
+        return (self._reset_observables(state._replace(syn=syn)),
+                rule_state, obs)
+
+    def _reset_observables(self, state):
+        """Post-read reset: rate counters and correlation capacitors."""
+        return state._replace(
+            rate_counters=torch.zeros_like(state.rate_counters),
+            corr=state.corr._replace(
+                a_causal=torch.zeros_like(state.corr.a_causal),
+                a_acausal=torch.zeros_like(state.corr.a_acausal)),
+        )

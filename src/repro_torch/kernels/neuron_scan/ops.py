@@ -1,0 +1,97 @@
+"""Wrapper of the neuron_scan kernel (``csrc/neuron_scan.cu``).
+
+``neuron_window`` integrates a whole [T, ..., C] current window of AdEx
+dynamics in one call, with the contract of scanning ``adex.step`` over
+it. CPU tensors run the plain version (``ref.py``); CUDA tensors launch
+the kernel, one thread per (instance, column) with the state in
+registers. The state and parameters are packed into the reference
+kernel's row layout:
+
+  state  [N, 6, C]:  v, w, i_exc, i_inh, refrac, rate_counters
+  params [N, 12, C]: e_leak, v_thres, delta_t, g_leak, a, b, e_reset,
+                     tau_refrac, de, di, alpha, aw
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.core import adex
+from repro_torch.kernels import fold_instance
+from repro_torch.kernels.neuron_scan.ref import neuron_window_ref
+
+PARAM_ROWS = ("e_leak", "v_thres", "delta_t", "g_leak", "a", "b",
+              "e_reset", "tau_refrac")
+DECAY_ROWS = ("de", "di", "alpha", "aw")
+STATE_ROWS = ("v", "w", "i_exc", "i_inh", "refrac")
+
+
+def pack_params(params, decays, cshape):
+    """[*prefix, 12, C] float32 parameter block of the kernel."""
+    rows = [params[k] for k in PARAM_ROWS] + [decays[k] for k in DECAY_ROWS]
+    return torch.stack([r.expand(cshape).to(torch.float32) for r in rows],
+                       dim=len(cshape) - 1)
+
+
+def neuron_window(state: adex.NeuronState, rate_counters, ie_t, ii_t,
+                  params, *, dt: float, use_adex: bool, decays=None,
+                  record_v: bool = False, packed_params=None):
+    """ie_t/ii_t: [T, ..., C] float32 currents; state/params broadcast over
+    the instance prefix. Returns ``(new_state, rate_counters, recs)`` with
+    ``recs = (spikes_t,)`` or ``(spikes_t, v_t)``.
+
+    ``packed_params`` may pass ``pack_params(...)`` precomputed (the
+    parameters are constant across windows)."""
+    if decays is None:
+        decays = adex.decay_factors(params, dt)
+    if ie_t.device.type == "cpu":
+        return neuron_window_ref(state, rate_counters, ie_t, ii_t, params,
+                                 dt=dt, use_adex=use_adex, decays=decays,
+                                 record_v=record_v)
+    from repro_torch.kernels import _build
+    dev = ie_t.device
+    if dev.type != "cuda":
+        raise ValueError(f"neuron_scan: unsupported device {dev}")
+    T = ie_t.shape[0]
+    cshape = tuple(ie_t.shape[1:])
+    prefix, C = cshape[:-1], cshape[-1]
+    N = math.prod(prefix)
+    for name, x in (("ie_t", ie_t), ("ii_t", ii_t)):
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"neuron_scan: {name} must be contiguous "
+                             "float32")
+    if tuple(ii_t.shape) != tuple(ie_t.shape):
+        raise ValueError(f"neuron_scan: shapes {tuple(ie_t.shape)} "
+                         f"{tuple(ii_t.shape)}")
+    leaves = [getattr(state, f) for f in STATE_ROWS] + [rate_counters]
+    if any(x.device != dev for x in leaves):
+        raise ValueError("neuron_scan: state not on the currents' device")
+    state6 = fold_instance(torch.stack(
+        [x.expand(cshape).to(torch.float32) for x in leaves],
+        dim=len(prefix)), 2)
+    if packed_params is None:
+        packed_params = pack_params(params, decays, cshape)
+    params12 = fold_instance(packed_params, 2)
+    if tuple(params12.shape) != (N, 12, C) or params12.device != dev \
+            or not params12.is_contiguous():
+        raise ValueError("neuron_scan: bad packed parameter block")
+    spikes = torch.empty((T, N, C), dtype=torch.float32, device=dev)
+    st_out = torch.empty((N, 6, C), dtype=torch.float32, device=dev)
+    v_rec = (torch.empty((T, N, C), dtype=torch.float32, device=dev)
+             if record_v else None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _build.lib().neuron_scan_launch(
+        ie_t.data_ptr(), ii_t.data_ptr(), state6.data_ptr(),
+        params12.data_ptr(), spikes.data_ptr(), st_out.data_ptr(),
+        None if v_rec is None else v_rec.data_ptr(), N, T, C, float(dt),
+        int(bool(use_adex)), stream)
+    _build.check(err, "neuron_scan")
+    kernels.LAUNCHES["neuron_scan"] += 1
+    st6 = st_out.reshape(*prefix, 6, C).unbind(len(prefix))
+    new_state = adex.NeuronState(*st6[:5])
+    recs = (spikes.reshape(T, *cshape),)
+    if record_v:
+        recs = (recs[0], v_rec.reshape(T, *cshape))
+    return new_state, st6[5], recs

@@ -1,0 +1,66 @@
+"""Wrapper of the synray kernel (``csrc/synray.cu``).
+
+``synaptic_current`` takes a time-major event window ``[T, ..., R]`` and
+an instance-prefixed store ``[..., R, C]`` and returns ``[T, ..., C]``.
+CPU tensors run the plain version (``ref.py``); CUDA tensors launch the
+kernel, which reads strided operands in place: the Dale halves
+``w[..., 0::2, :]`` and event views ``eff_t[..., 0::2]`` are not copied.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels.synray.ref import synaptic_current_ref
+
+
+def _check(cond, msg):
+    if not cond:
+        raise ValueError(f"synray: {msg}")
+
+
+def synaptic_current(events_t, event_addr_t, weights, addresses):
+    """i[t, ..., c] = sum_r ev[t, ..., r] * w[..., r, c]
+    * (addr[..., r, c] == ea[t, ..., r])."""
+    if events_t.device.type == "cpu":
+        return synaptic_current_ref(events_t, event_addr_t, weights,
+                                    addresses)
+    from repro_torch.kernels import _build
+    dev = events_t.device
+    _check(dev.type == "cuda", f"unsupported device {dev}")
+    for name, x in (("event_addr_t", event_addr_t), ("weights", weights),
+                    ("addresses", addresses)):
+        _check(x.device == dev, f"{name} on {x.device}, events on {dev}")
+    _check(events_t.dtype == torch.float32, "events must be float32")
+    for name, x in (("event_addr_t", event_addr_t), ("weights", weights),
+                    ("addresses", addresses)):
+        _check(x.dtype == torch.int8, f"{name} must be int8")
+    T = events_t.shape[0]
+    prefix = tuple(weights.shape[:-2])
+    R, C = weights.shape[-2:]
+    _check(tuple(events_t.shape) == (T, *prefix, R)
+           and tuple(event_addr_t.shape) == tuple(events_t.shape)
+           and tuple(addresses.shape) == tuple(weights.shape),
+           f"shapes {tuple(events_t.shape)} {tuple(event_addr_t.shape)} "
+           f"{tuple(weights.shape)} {tuple(addresses.shape)}")
+    N = math.prod(prefix)
+    ev = events_t.reshape(T, N, R)
+    ea = event_addr_t.reshape(T, N, R)
+    w = weights.reshape(N, R, C)
+    a = addresses.reshape(N, R, C)
+    _check(w.stride(2) == 1 and a.stride(2) == 1,
+           "weights/addresses need contiguous columns")
+    out = torch.empty((T, N, C), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _build.lib().synray_launch(
+        ev.data_ptr(), ea.data_ptr(), w.data_ptr(), a.data_ptr(),
+        out.data_ptr(), N, T, R, C,
+        ev.stride(1), ev.stride(0), ev.stride(2),
+        ea.stride(1), ea.stride(0), ea.stride(2),
+        w.stride(0), w.stride(1), a.stride(0), a.stride(1),
+        out.stride(1), out.stride(0), stream)
+    _build.check(err, "synray")
+    kernels.LAUNCHES["synray"] += 1
+    return out.reshape(T, *prefix, C)

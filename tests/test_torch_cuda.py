@@ -1,0 +1,137 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here needs a CUDA card (the kernels have no CPU mode) and
+skips where there is none. The file imports no JAX, so it runs on a
+machine that has only PyTorch: ``PYTHONPATH=src python -m pytest -q
+tests/test_torch_cuda.py``.
+
+Tolerances: ``neuron_scan`` and ``corr`` bit-equal (the kernels repeat the
+plain versions' operations in order, built without multiply-add
+contraction); ``synray`` within rtol = atol = 1e-4 (it sums rows with
+FMAs); the main path on the card against the CPU: spike counts equal and
+the signed weights within 1e-4.
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import close, t
+from repro_torch import kernels
+from repro_torch.configs.bss2 import BSS2
+from repro_torch.core import adex
+from repro_torch.core import hybrid as th
+from repro_torch.kernels.corr import ops as corr_ops
+from repro_torch.kernels.corr.ref import correlation_window_ref
+from repro_torch.kernels.neuron_scan import ops as neuron_ops
+from repro_torch.kernels.neuron_scan.ref import neuron_window_ref
+from repro_torch.kernels.synray import ops as synray_ops
+from repro_torch.kernels.synray.ref import synaptic_current_ref
+from repro_torch.verif.mismatch import sample_instance
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def test_synray_matches_plain(cuda):
+    rng = np.random.default_rng(7)
+    T, N, R, C = 37, 3, 256, 300            # ragged T, R and C blocks
+    ev = ((rng.random((T, N, R)) < 0.2)
+          * rng.uniform(0.2, 1.2, (T, N, R))).astype(np.float32)
+    ea = rng.integers(0, 4, (T, N, R)).astype(np.int8)
+    w = rng.integers(0, 64, (N, R, C)).astype(np.int8)
+    a = rng.integers(0, 4, (N, R, C)).astype(np.int8)
+    args = [t(x).to(cuda) for x in (ev, ea, w, a)]
+    for h in (0, 1):                         # strided Dale halves
+        view = (args[0][..., h::2], args[1][..., h::2], args[2][:, h::2],
+                args[3][:, h::2])
+        n0 = kernels.LAUNCHES["synray"]
+        got = synray_ops.synaptic_current(*view)
+        want = synaptic_current_ref(*view)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["synray"] == n0 + 1
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("use_adex", [True, False])
+def test_neuron_scan_bit_equal(cuda, use_adex):
+    cfg = BSS2.reduced()
+    inst = sample_instance(cfg, torch.Generator().manual_seed(9), (3,),
+                           device=cuda)
+    p = inst["neuron_params"]
+    rng = np.random.default_rng(9)
+    shape = (45, 3, cfg.n_cols)
+    ie = t(((rng.random(shape) < 0.15)
+            * rng.uniform(0, 600, shape)).astype(np.float32)).to(cuda)
+    ii = t(((rng.random(shape) < 0.05)
+            * rng.uniform(0, 100, shape)).astype(np.float32)).to(cuda)
+    st0 = adex.init_state((3, cfg.n_cols), p)
+    st0 = st0._replace(v=t(rng.uniform(-58, -45, shape[1:]).astype(
+        np.float32)).to(cuda))
+    rc0 = torch.zeros(shape[1:], device=cuda)
+    kw = dict(dt=cfg.dt, use_adex=use_adex,
+              decays=adex.decay_factors(p, cfg.dt), record_v=True)
+    n0 = kernels.LAUNCHES["neuron_scan"]
+    g = neuron_ops.neuron_window(st0, rc0, ie, ii, p, **kw)
+    r = neuron_window_ref(st0, rc0, ie, ii, p, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["neuron_scan"] == n0 + 1
+    assert float(g[2][0].sum()) > 0
+    for a, b in zip((*g[0], g[1], *g[2]), (*r[0], r[1], *r[2])):
+        assert torch.equal(a, b)
+
+
+def test_corr_bit_equal(cuda):
+    rng = np.random.default_rng(2)
+    T, N, R, C = 77, 3, 70, 200
+    ops = [(rng.random((T, N, R)) < 0.15).astype(np.float32),
+           (rng.random((T, N, C)) < 0.15).astype(np.float32),
+           rng.random((N, R)).astype(np.float32),
+           rng.random((N, C)).astype(np.float32),
+           rng.uniform(0, 1023, (N, R, C)).astype(np.float32),
+           rng.uniform(0, 3, (N, R, C)).astype(np.float32)]
+    ops = [t(x).to(cuda) for x in ops]
+    lam = math.exp(-0.2 / 5.0)
+    n0 = kernels.LAUNCHES["corr"]
+    got = corr_ops.correlation_window(*ops, lam=lam)
+    want = correlation_window_ref(*ops, lam=lam)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["corr"] == n0 + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_main_path_on_card_matches_cpu(cuda):
+    """A small fleet on the card: two synray, one neuron_scan and one corr
+    launch per trial, and the first trial equal to the CPU's."""
+    ecfg = th.RSTDPConfig(n_inputs=32, n_neurons=64, pattern_size=6,
+                          trial_steps=64)
+    kw = dict(ecfg=ecfg, prefix=(2,), backend="blocked",
+              sparse_mode="never")
+    init, trial, meta = th.make_experiment(
+        generator=torch.Generator().manual_seed(5), device=cuda, **kw)
+    stims = [1, 2, 0]
+    draws = meta["draw"](torch.Generator().manual_seed(6), stims)
+    kernels.reset_launches()
+    st = init()
+    for i, s in enumerate(stims):
+        st, m = trial(st, s, draws.events[i], draws.xi[i])
+        if i == 0:
+            first = (st, m)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"synray": 6, "neuron_scan": 3, "corr": 3}
+    inst_c = {k: (v.cpu() if torch.is_tensor(v) else
+                  {kk: vv.cpu() for kk, vv in v.items()})
+              for k, v in meta["inst"].items()}
+    init_c, trial_c, _ = th.make_experiment(inst=inst_c, device="cpu", **kw)
+    st_c, m_c = trial_c(init_c(), stims[0], draws.events[0].cpu(),
+                        draws.xi[0].cpu())
+    assert torch.equal(first[1]["rates"].cpu(), m_c["rates"])
+    close(first[0].w_signed.cpu(), st_c.w_signed)

@@ -1,0 +1,124 @@
+"""The §5 experiment in the port against the reference.
+
+- A teacher-forced trial: the reference's state after a few trials goes
+  into the port, both packages get the same draws (the reference's key
+  chain replayed by ``repro_torch.convert``), and one trial is compared.
+  The reference runs that trial with its synray and corr kernels in
+  interpret mode (``backend="fused"``), whose correlation window is per
+  step with the same decay constant as the port's. Spikes equal up to
+  flips at threshold; rate counters, CADC codes (eligibility), 6-bit weights and mean rewards exact; the signed float
+  weights within 1e-4.
+- The closed loop: 450 trials of the port at 32 x 16 with the reference's
+  draws meet the criteria of tests/test_rstdp.py::
+  test_fig11_reward_converges_to_one.
+"""
+import numpy as np
+import pytest
+import jax
+import torch
+
+from _torch_parity import assert_spikes_match, close, spike_threshold
+from repro.core import hybrid as jh
+from repro_torch import convert
+from repro_torch.core import hybrid as th
+
+K_TRIALS = 7
+
+
+def _trailing(mr, sel, n=150):
+    return float(np.mean(np.median(mr[-n:, sel], axis=1)))
+
+
+def test_teacher_forced_trial():
+    ecfg = jh.RSTDPConfig()
+    key0 = jax.random.PRNGKey(0)
+    init, _, meta = jh.make_experiment(ecfg=ecfg, instance_key=key0)
+    # copied first: the reference's initial state aliases instance arrays,
+    # and its scanned training donates that state
+    inst = jax.tree.map(np.array, meta["inst"])
+    stims = th.stimuli(K_TRIALS + 1)
+    state_k, _ = jh.make_scanned_training(meta["scanned_training"])(
+        init(jax.random.PRNGKey(1)), jax.numpy.asarray(stims[:K_TRIALS]))
+    stim = int(stims[K_TRIALS])
+    _, trial_i, meta_i = jh.make_experiment(
+        ecfg=ecfg, instance_key=key0, backend="fused",
+        kernel_impl="interpret")
+    j_new, j_m = jax.jit(trial_i)(state_k, stim)
+    ref = jax.tree.map(np.asarray, state_k)
+
+    _, trial, meta_t = th.make_experiment(
+        ecfg=th.RSTDPConfig(), inst=convert.instance(inst, "cpu"),
+        backend="blocked", device="cpu")
+    draws = convert.replay_reference_draws(
+        jax.random, state_k.key, [stim], th.RSTDPConfig(), device="cpu")
+    st = convert.experiment_state(ref, "cpu")
+    t_new, t_m = trial(st, stim, draws.events[0], draws.xi[0])
+
+    # spikes of the trial's window, with membranes for the flip rule
+    ev = draws.events[0]
+    addr = torch.zeros(ev.shape, dtype=torch.int8)
+    _, j_out = meta_i["core"].run(ref.core, ev.numpy(), addr.numpy(),
+                                  record_v=True)
+    _, t_out = meta_t["core"].run(st.core, ev, addr, record_v=True)
+    assert float(np.asarray(j_out["spikes"]).sum()) > 0
+    assert_spikes_match(t_out["spikes"], j_out["spikes"], t_out["v"],
+                        j_out["v"], spike_threshold(inst["neuron_params"]))
+
+    np.testing.assert_array_equal(t_m["rates"].numpy(),
+                                  np.asarray(j_m["rates"]))
+    np.testing.assert_array_equal(t_m["reward"].numpy(),
+                                  np.asarray(j_m["reward"]))
+    # eligibility = (causal - acausal CADC code) / 255: the codes exactly
+    # (XLA divides by a constant as a multiply by its reciprocal, so the
+    # float quotients may differ by an ulp)
+    np.testing.assert_array_equal(np.rint(t_m["elig"].numpy() * 255),
+                                  np.rint(np.asarray(j_m["elig"]) * 255))
+    close(t_m["elig"], j_m["elig"])
+    np.testing.assert_array_equal(t_new.core.syn.weights.numpy(),
+                                  np.asarray(j_new.core.syn.weights))
+    np.testing.assert_array_equal(t_new.mean_reward.numpy(),
+                                  np.asarray(j_new.mean_reward))
+    close(t_new.w_signed, j_new.w_signed)
+    assert not t_new.core.corr.a_causal.any()      # read resets sensors
+
+
+def test_closed_loop_with_reference_draws():
+    """450 trials, seed 0, the reference's instance and draws: the port
+    meets test_fig11_reward_converges_to_one's criteria."""
+    n, seed = 450, 0
+    inst = jax.tree.map(np.asarray, jh.sample_instance(
+        jh.dataclasses.replace(jh.BSS2.reduced(), n_rows=32, n_cols=16),
+        jax.random.PRNGKey(seed), ()))
+    draws = convert.replay_reference_draws(
+        jax.random, jax.random.PRNGKey(seed + 1), th.stimuli(n),
+        th.RSTDPConfig(), device="cpu")
+    out, _, meta = th.run_training(n, seed=seed, device="cpu",
+                                   inst=convert.instance(inst, "cpu"),
+                                   draws=draws)
+    even = meta["even"].numpy() > 0
+    te = _trailing(out["mean_reward"], even)
+    to = _trailing(out["mean_reward"], ~even)
+    assert te > 0.85, f"even population trailing <R> = {te}"
+    assert to > 0.85, f"odd population trailing <R> = {to}"
+    w = out["w_signed_final"]
+    ma = meta["mask_a"] > 0
+    assert w[ma][:, even].mean() > 5.0
+    assert w[ma][:, even].mean() > w[ma][:, ~even].mean() + 10.0
+
+
+def test_own_generator_is_deterministic():
+    a, _, _ = th.run_training(4, seed=3, device="cpu")
+    b, _, _ = th.run_training(4, seed=3, device="cpu")
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k])
+    assert a["w"].shape == (4, 16, 16) and a["stim"].tolist() == [1, 2, 0, 1]
+
+
+def test_run_training_needs_a_device(monkeypatch):
+    """With no card and no device given, the entry point raises instead of
+    carrying on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        th.run_training(1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        th.make_experiment()

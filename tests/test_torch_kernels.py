@@ -1,0 +1,217 @@
+"""The port's kernels: each plain version against the JAX kernel (Pallas in
+interpret mode, as tests/test_kernels.py runs it) and against the JAX
+reference; and each wrapper's dispatch by device. The CUDA kernels against
+their plain versions are in tests/test_torch_cuda.py.
+
+Tolerances (see tests/_torch_parity.py): floats rtol = atol = 1e-4;
+spikes equal up to flips at threshold.
+"""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import assert_spikes_match, close, spike_threshold, t
+from repro.configs.bss2 import BSS2 as J_BSS2
+from repro.core import adex as j_adex
+from repro.kernels.corr.kernel import correlation_window_pallas
+from repro.kernels.corr.ref import correlation_window_ref as j_corr_ref
+from repro.kernels.neuron_scan import ops as j_neuron_ops
+from repro.kernels.synray.kernel import synaptic_current_pallas
+from repro.kernels.synray.ref import synaptic_current_ref as j_syn_ref
+from repro.verif.mismatch import sample_instance
+from repro_torch import kernels
+from repro_torch.core import adex
+from repro_torch.kernels.corr import ops as corr_ops
+from repro_torch.kernels.corr.ref import correlation_window_ref
+from repro_torch.kernels.neuron_scan import ops as neuron_ops
+from repro_torch.kernels.neuron_scan.ref import neuron_window_ref
+from repro_torch.kernels.synray import ops as synray_ops
+from repro_torch.kernels.synray.ref import synaptic_current_ref
+
+
+# --------------------------------------------------------------- synray
+
+def _synray_operands(T, N, R, C, seed, const=False):
+    rng = np.random.default_rng(seed)
+    ev = ((rng.random((T, N, R)) < 0.2)
+          * rng.uniform(0.2, 1.2, (T, N, R))).astype(np.float32)
+    if const:
+        ea = np.broadcast_to(rng.integers(0, 4, (N, R)), (T, N, R))
+    else:
+        ea = rng.integers(0, 4, (T, N, R))
+    ea = np.ascontiguousarray(ea).astype(np.int8)
+    w = rng.integers(0, 64, (N, R, C)).astype(np.int8)
+    a = rng.integers(0, 4, (N, R, C)).astype(np.int8)
+    return ev, ea, w, a
+
+
+class TestSynray:
+    @pytest.mark.parametrize("T,N,R,C", [(13, 2, 32, 128), (8, 1, 64, 128),
+                                         (16, 3, 16, 16)])
+    def test_plain_matches_pallas_interpret_and_ref(self, T, N, R, C):
+        ev, ea, w, a = _synray_operands(T, N, R, C, seed=T + R)
+        got = synaptic_current_ref(t(ev), t(ea), t(w), t(a)).numpy()
+        # the Pallas kernel takes [N, B, R]: time is its batch axis
+        pal = synaptic_current_pallas(
+            jnp.moveaxis(ev, 0, 1), jnp.moveaxis(ea, 0, 1), w, a,
+            bb=1 if T % 8 else 8, rb=min(64, R), cb=min(128, C),
+            interpret=True)
+        close(got, np.moveaxis(np.asarray(pal), 1, 0))
+        for n in range(N):
+            close(got[:, n], j_syn_ref(ev[:, n], ea[:, n], w[n], a[n]))
+
+    def test_dale_half_views(self):
+        """The Dale halves are strided row views of the store, read in
+        place; the result equals that of a contiguous copy."""
+        ev, ea, w, a = _synray_operands(13, 2, 32, 16, seed=5)
+        tw, ta, tev, tea = t(w), t(a), t(ev), t(ea)
+        for h in (0, 1):
+            got = synray_ops.synaptic_current(
+                tev[..., h::2], tea[..., h::2], tw[:, h::2], ta[:, h::2])
+            want = j_syn_ref(ev[:, 0, h::2], ea[:, 0, h::2], w[0, h::2],
+                             a[0, h::2])
+            close(got[:, 0].numpy(), want)
+
+    def test_wrapper_dispatch(self):
+        ev, ea, w, a = _synray_operands(4, 2, 16, 16, seed=6)
+        before = dict(kernels.LAUNCHES)
+        got = synray_ops.synaptic_current(t(ev), t(ea), t(w), t(a))
+        assert kernels.LAUNCHES == before, "the CPU path launches nothing"
+        np.testing.assert_array_equal(
+            got.numpy(),
+            synaptic_current_ref(t(ev), t(ea), t(w), t(a)).numpy())
+        meta = [x.to("meta") for x in (t(ev), t(ea), t(w), t(a))]
+        with pytest.raises(ValueError, match="unsupported device"):
+            synray_ops.synaptic_current(*meta)
+
+
+def test_fold_helpers_match_reference():
+    from repro.kernels import fold_instance_time as j_fold_t
+    from repro_torch.kernels import (fold_instance, fold_instance_time,
+                                     unfold_instance, unfold_instance_time)
+    x = np.arange(5 * 2 * 3 * 4, dtype=np.float32).reshape(5, 2, 3, 4)
+    y = fold_instance_time(t(x), 1)                  # [T, 2, 3, C]
+    np.testing.assert_array_equal(y.numpy(), np.asarray(j_fold_t(x, 1)))
+    assert torch.equal(unfold_instance_time(y, (2, 3)), t(x))
+    z = fold_instance(t(x), 2)
+    assert z.shape == (10, 3, 4)
+    assert torch.equal(unfold_instance(z, (5, 2)), t(x))
+
+
+# ---------------------------------------------------------- neuron_scan
+
+def _neuron_operands(T, prefix, seed):
+    cfg = J_BSS2.reduced()
+    inst = jax.tree.map(np.asarray, sample_instance(
+        cfg, jax.random.PRNGKey(seed), prefix))
+    jp = inst["neuron_params"]
+    rng = np.random.default_rng(seed)
+    shape = (T, *prefix, cfg.n_cols)
+    ie = ((rng.random(shape) < 0.15)
+          * rng.uniform(0, 600, shape)).astype(np.float32)
+    ii = ((rng.random(shape) < 0.05)
+          * rng.uniform(0, 100, shape)).astype(np.float32)
+    v0 = rng.uniform(-60, -47, shape[1:]).astype(np.float32)
+    return cfg, jp, ie, ii, v0
+
+
+def _states(v0):
+    """The same initial neuron state in both packages (membranes spread
+    up to threshold so short windows spike too)."""
+    z = np.zeros_like(v0)
+    return (j_adex.NeuronState(*map(jnp.asarray, (v0, z, z, z, z))),
+            adex.NeuronState(*map(t, (v0, z, z, z, z))))
+
+
+class TestNeuronScan:
+    @pytest.mark.parametrize("T,prefix", [(13, (2,)), (64, ()),
+                                          (40, (2,))])
+    @pytest.mark.parametrize("impl", ["interpret", "ref"])
+    def test_plain_matches_reference(self, T, prefix, impl):
+        cfg, jp, ie, ii, v0 = _neuron_operands(T, prefix, seed=T)
+        tp = {k: t(v) for k, v in jp.items()}
+        j_st, t_st = _states(v0)
+        rc = np.zeros((*prefix, cfg.n_cols), np.float32)
+        j_new, j_rc, j_recs = j_neuron_ops.neuron_window(
+            j_st, rc, ie, ii, jp, dt=cfg.dt, use_adex=True, impl=impl,
+            kernel_block=8, record_v=True)
+        t_new, t_rc, t_recs = neuron_window_ref(
+            t_st, t(rc), t(ie), t(ii),
+            tp, dt=cfg.dt, use_adex=True,
+            decays=adex.decay_factors(tp, cfg.dt), record_v=True)
+        assert float(np.asarray(j_recs[0]).sum()) > 0
+        assert_spikes_match(t_recs[0], j_recs[0], t_recs[1], j_recs[1],
+                            spike_threshold(jp))
+        np.testing.assert_array_equal(t_rc.numpy(), np.asarray(j_rc))
+        close(t_recs[1], j_recs[1])
+        for a, b in zip(t_new, j_new):
+            close(a, b)
+
+    def test_wrapper_equals_adex_step_scan(self):
+        """The plain version is bit-identical to stepping ``adex.step``."""
+        cfg, jp, ie, ii, v0 = _neuron_operands(21, (2,), seed=3)
+        tp = {k: t(v) for k, v in jp.items()}
+        st0 = _states(v0)[1]
+        rc0 = torch.zeros((2, cfg.n_cols))
+        new, rc, recs = neuron_ops.neuron_window(st0, rc0, t(ie), t(ii), tp,
+                                                 dt=cfg.dt, use_adex=True)
+        st, acc, spk = st0, rc0, []
+        for k in range(21):
+            st, out = adex.step(st, t(ie[k]), t(ii[k]), tp, cfg.dt)
+            acc = acc + out
+            spk.append(out)
+        assert torch.equal(recs[0], torch.stack(spk))
+        assert torch.equal(rc, acc)
+        for a, b in zip(new, st):
+            assert torch.equal(a, b)
+
+
+# ----------------------------------------------------------------- corr
+
+def _corr_operands(T, N, R, C, seed):
+    rng = np.random.default_rng(seed)
+    pre = (rng.random((T, N, R)) < 0.15).astype(np.float32)
+    post = (rng.random((T, N, C)) < 0.15).astype(np.float32)
+    tp0 = rng.random((N, R)).astype(np.float32)
+    tq0 = rng.random((N, C)).astype(np.float32)
+    ac0 = rng.uniform(0, 1023, (N, R, C)).astype(np.float32)
+    aa0 = rng.uniform(0, 3, (N, R, C)).astype(np.float32)
+    return pre, post, tp0, tq0, ac0, aa0
+
+
+class TestCorr:
+    LAM = math.exp(-0.2 / 5.0)
+
+    @pytest.mark.parametrize("T,N,R,C", [(13, 2, 32, 128), (40, 1, 64, 128),
+                                         (32, 2, 16, 16)])
+    def test_plain_matches_pallas_interpret_and_ref(self, T, N, R, C):
+        ops = _corr_operands(T, N, R, C, seed=T + C)
+        got = correlation_window_ref(*map(t, ops), lam=self.LAM)
+        pre, post, *st = ops
+        pal = correlation_window_pallas(
+            np.moveaxis(pre, 0, 1), np.moveaxis(post, 0, 1), *st,
+            lam=self.LAM, rb=min(64, R), cb=min(128, C), interpret=True)
+        assert float(np.asarray(pal[0]).max()) == 1023.0   # clamp active
+        for g, p, name in zip(got, pal, ("ac", "aa", "tp", "tq")):
+            close(g, p, err_msg=name)
+        for n in range(N):
+            ref = j_corr_ref(pre[:, n], post[:, n], *(x[n] for x in st),
+                             lam=self.LAM)
+            for g, r in zip(got, ref):
+                close(g[n], r)
+
+    def test_wrapper_dispatch(self):
+        ops = [t(x) for x in _corr_operands(5, 1, 8, 8, seed=1)]
+        before = dict(kernels.LAUNCHES)
+        got = corr_ops.correlation_window(*ops, lam=self.LAM)
+        assert kernels.LAUNCHES == before
+        for a, b in zip(got, correlation_window_ref(*ops, lam=self.LAM)):
+            assert torch.equal(a, b)
+        with pytest.raises(ValueError, match="unsupported device"):
+            corr_ops.correlation_window(*(x.to("meta") for x in ops),
+                                        lam=self.LAM)
+
