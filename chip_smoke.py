@@ -9,19 +9,29 @@ Phases, each reported on its own line:
    then the CUDA kernels built from ``src/repro_torch/csrc`` (timed).
 2. Each kernel against its plain PyTorch version on the card, at the
    main-path shapes (16 instances of the full 256 x 512 chip, T = 128),
-   inputs from a numpy seed: ``neuron_scan`` and ``corr`` bit-equal,
-   ``synray`` within rtol = atol = 1e-4 (it sums rows with FMAs in another
-   order than the plain version's product). Times are medians of CUDA-event
-   timings; ``bound_ms`` is the larger of bytes over 3.35 TB/s and
-   operations over 67 TFLOP/s (float32, outside the tensor cores).
-3. The main path: the §5 experiment at full width (``BSS2``, 128 inputs x
-   512 neurons, 16 instances, 128 steps, ``backend="blocked"``,
-   ``sparse_mode="never"``) for 6 trials. The launch counts must rise by
-   exactly 2 (synray), 1 (neuron_scan) and 1 (corr) per trial; the state
-   must be finite with whole-number rate counters; the first trial, rerun
-   on the CPU from the same state and draws, must agree with the card
-   (spikes equal up to flips at threshold, see ``phase_main_path``).
-4. The §5 closed loop at the default 32 x 16 geometry on the card: 450
+   inputs from a numpy seed: ``neuron_scan``, ``corr`` and ``ppu_update``
+   bit-equal, ``synray`` and ``synray_sparse`` within rtol = atol = 1e-4
+   (they sum rows with FMAs in another order than the plain versions'
+   products), and ``synray_sparse`` equal to ``synray`` bit for bit on a
+   window that fits. Times are medians of CUDA-event timings;
+   ``bound_ms`` is the larger of bytes over 3.35 TB/s and operations over
+   67 TFLOP/s (float32, outside the tensor cores).
+3. Path A, the main path: the §5 experiment at full width (``BSS2``, 128
+   inputs x 512 neurons, 16 instances, 128 steps, ``backend="blocked"``,
+   ``sparse_mode`` left at its default) for 6 trials, stimuli A, B, none,
+   A, B, none. The census gate sends the no-stimulus windows to
+   ``synray_sparse`` and the pattern windows to ``synray``: the run must
+   count exactly 8 synray, 4 synray_sparse, 6 neuron_scan and 6 corr
+   launches. The census of every window is printed; the state must be
+   finite with whole-number rate counters; the first trial and the first
+   no-stimulus trial, rerun on the CPU from the same state and draws, must
+   take the same route and agree with the card (spikes equal up to flips
+   at threshold, see ``check_against_cpu``).
+4. Path B, the fixed-function R-STDP update: three windows of ``AnnCore
+   .run`` at 16 x 256 x 512, each followed by ``VectorUnit.apply_rstdp``
+   (3 ``ppu_update`` launches); the first update, rerun on the CPU from
+   the same state, must give the same codes (up to .5 ties).
+5. The §5 closed loop at the default 32 x 16 geometry on the card: 450
    trials, the port's own generator, seed 0; both populations' trailing
    median reward must exceed 0.75.
 
@@ -46,7 +56,14 @@ SRC = {
                     "src/repro/kernels/neuron_scan/kernel.py:96"),
     "corr": ("src/repro_torch/csrc/corr.cu",
              "src/repro/kernels/corr/kernel.py:56"),
+    "synray_sparse": ("src/repro_torch/csrc/synray_sparse.cu",
+                      "src/repro/kernels/synray_sparse/kernel.py:51"),
+    "ppu_update": ("src/repro_torch/csrc/ppu_update.cu",
+                   "src/repro/kernels/ppu_update/kernel.py:51"),
 }
+# the §5 background rate and the const_addr capacities of one Dale half
+# at full width (events.default_max_events / default_k_cap at 0.02)
+BG_PROB, MAX_EVENTS, K_CAP = 0.008, 328, 16
 
 
 def log(msg):
@@ -59,13 +76,18 @@ def bound_ms(n_bytes, n_ops):
 
 
 def time_ms(fn, reps):
-    """Median of CUDA-event timings of ``fn`` (after one warm-up call)."""
+    """Median of CUDA-event timings of ``fn`` (after one warm-up call).
+    Each timing starts behind a ~1 ms device-side sleep, so the host has
+    queued ``fn``'s launches before the card reaches them: a kernel's time
+    is its device time, not the host's launch overhead (a function with
+    more host work than that, or a device-to-host read, still counts it)."""
     import torch
     fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
         a.record()
         fn()
         b.record()
@@ -221,6 +243,8 @@ def phase_kernels():
             pre, post, tp0, tq0, ac0, aa0, lam=lam), 25),
         plain_ms=time_ms(lambda: correlation_window_ref(
             pre, post, tp0, tq0, ac0, aa0, lam=lam), 3))
+    rows["synray_sparse"] = _check_synray_sparse(rng, dev, N, T, R, C)
+    rows["ppu_update"] = _check_ppu_update(rng, dev, N, R, C)
     for name, r in rows.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"[2] {name}: kernel_ms={r['ms']:.4f} plain_ms="
@@ -228,6 +252,96 @@ def phase_kernels():
             f"{r['bound_ms']:.4f} ({r['bound_by']}) max_abs_err="
             f"{r['max_abs_err']:.3g}")
     return rows
+
+
+def _check_synray_sparse(rng, dev, N, T, R, C):
+    """synray_sparse on a no-stimulus window of one Dale half (the §5
+    background rate, row-constant addresses): equal to the dense synray
+    kernel bit for bit, and to its plain version within 1e-4."""
+    import torch
+    from repro_torch.core import events
+    from repro_torch.kernels.synray import ops as synray_ops
+    from repro_torch.kernels.synray_sparse import ops as sparse_ops
+    from repro_torch.kernels.synray_sparse.ref import sparse_window_ref
+    import numpy as np
+
+    Rh = R // 2
+    w = dev(rng.integers(0, 64, (N, R, C), dtype=np.int8))
+    st = dev(rng.integers(0, 4, (N, R, C), dtype=np.int8))
+    w_h, st_h = w[:, 0::2, :], st[:, 0::2, :]
+    ev = dev((rng.random((T, N, Rh)) < BG_PROB).astype(np.float32)
+             * rng.uniform(0.2, 1.2, (T, N, Rh)).astype(np.float32))
+    ea = dev(np.broadcast_to(rng.integers(0, 4, (N, Rh), dtype=np.int8),
+                             (T, N, Rh)))
+    n_ev, k_max = (int(x) for x in events.window_stats(ev))
+    if not (n_ev <= MAX_EVENTS and k_max <= K_CAP):
+        raise AssertionError(f"synray_sparse: the test window does not fit "
+                             f"({n_ev}, {k_max})")
+    ev_n = ev.permute(1, 0, 2).contiguous()                # [N, T, Rh]
+    ea_n = ea.permute(1, 0, 2).contiguous()
+    recs = events.regroup_window(ev_n, ea_n, MAX_EVENTS, K_CAP)
+    got = sparse_ops.sparse_window(*recs, w_h, st_h)
+    dense = synray_ops.synaptic_current(ev, ea, w_h, st_h)
+    want = sparse_window_ref(*recs, w_h, st_h)
+    torch.cuda.synchronize()
+    if not torch.equal(got, dense.permute(1, 0, 2)):
+        raise AssertionError("synray_sparse differs from the dense synray "
+                             "kernel on a window that fits")
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    err = float((got - want).abs().max())
+    # what this window needs: the records, the store rows that fired
+    # (weight and address bytes), the output; one FMA per matched column
+    rows_t, addr_t, eff_t = recs
+    live = eff_t != 0
+    n_rows = sum(int(torch.unique(rows_t[n][live[n]]).numel())
+                 for n in range(N))
+    nn = torch.arange(N, device=w.device).reshape(-1, 1, 1)
+    match = st_h[nn, rows_t.long()].to(torch.int32) == addr_t.unsqueeze(-1)
+    n_fma = float((match & live.unsqueeze(-1)).sum())
+    n_bytes = N * T * K_CAP * 12 + 2 * n_rows * C + N * T * C * 4
+    b_ms, b_by = bound_ms(n_bytes, 2 * n_fma)
+    row = dict(
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        ms=time_ms(lambda: sparse_ops.sparse_window(*recs, w_h, st_h), 25),
+        plain_ms=time_ms(lambda: sparse_window_ref(*recs, w_h, st_h), 5))
+    pack_ms = time_ms(lambda: events.regroup_window(ev_n, ea_n, MAX_EVENTS,
+                                                    K_CAP), 25)
+    dense_ms = time_ms(lambda: synray_ops.synaptic_current(ev, ea, w_h, st_h),
+                       25)
+    log(f"    synray_sparse window: {n_ev} events (worst instance), "
+        f"k_max={k_max}; pack (regroup_window)={pack_ms:.4f} ms, dense "
+        f"synray on the same window={dense_ms:.4f} ms, equal bit for bit")
+    return row
+
+
+def _check_ppu_update(rng, dev, N, R, C):
+    """ppu_update at 16 x 256 x 512: bit-equal to its plain version."""
+    import torch
+    from repro_torch.kernels.ppu_update import ops as ppu_ops
+    from repro_torch.kernels.ppu_update.ref import rstdp_update_ref
+    import numpy as np
+
+    shape = (N, R, C)
+    args = (dev(rng.integers(0, 64, shape, dtype=np.int8)),
+            dev(rng.uniform(0, 40, shape).astype(np.float32)),
+            dev(rng.uniform(0, 40, shape).astype(np.float32)),
+            dev(rng.uniform(-3, 12, (N, C)).astype(np.float32)),
+            dev(rng.uniform(0.8, 1.2, (N, C)).astype(np.float32)),
+            dev(rng.uniform(-1, 1, (N, C)).astype(np.float32)),
+            dev((0.3 * rng.standard_normal(shape)).astype(np.float32)))
+    got = ppu_ops.rstdp_update(*args, eta=4.0)
+    want = rstdp_update_ref(*args, eta=4.0)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("weights", "eligibility"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"ppu_update: {name} differ from the plain "
+                                 f"version")
+    n_syn = N * R * C
+    b_ms, b_by = bound_ms(18 * n_syn + 3 * 4 * N * C, 15 * n_syn)
+    return dict(
+        max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        ms=time_ms(lambda: ppu_ops.rstdp_update(*args, eta=4.0), 25),
+        plain_ms=time_ms(lambda: rstdp_update_ref(*args, eta=4.0), 5))
 
 
 def _to(tree, device):
@@ -239,66 +353,182 @@ def _to(tree, device):
     return type(tree)(*(_to(v, device) for v in tree))
 
 
+def _full_width(**kw):
+    """The §5 experiment at full width on the card: 16 instances of the
+    256 x 512 chip, 128 inputs x 512 neurons, T = 128."""
+    import torch
+    from repro_torch.configs.bss2 import BSS2
+    from repro_torch.core.hybrid import RSTDPConfig, make_experiment
+    ecfg = RSTDPConfig(n_inputs=128, n_neurons=512, pattern_size=24,
+                       trial_steps=128)
+    kw = dict(cfg=BSS2, ecfg=ecfg, prefix=(16,), backend="blocked", **kw)
+    init, trial, meta = make_experiment(
+        generator=torch.Generator().manual_seed(11), device="cuda", **kw)
+    return init, trial, meta, kw
+
+
+def _route_spy(log_to):
+    """Wrap ``synapse.window_route`` to keep each window's gate input and
+    decision (the census is computed from them after the timed run)."""
+    from repro_torch.core import synapse
+    real = synapse.window_route
+
+    def spy(row_events_t, C, **kw):
+        out = real(row_events_t, C, **kw)
+        log_to.append((row_events_t, out))
+        return out
+    synapse.window_route = spy
+    return lambda: setattr(synapse, "window_route", real)
+
+
 def phase_main_path():
-    """The full-width §5 slice: 6 trials of 16 instances of the chip."""
+    """Path A: the full-width §5 slice with the reference's default
+    ``sparse_mode``, 6 trials of 16 instances of the chip."""
     import numpy as np
     import torch
     from repro_torch import kernels
-    from repro_torch.configs.bss2 import BSS2
-    from repro_torch.core.hybrid import RSTDPConfig, make_experiment
+    from repro_torch.core import events
 
-    ecfg = RSTDPConfig(n_inputs=128, n_neurons=512, pattern_size=24,
-                       trial_steps=128)
-    kw = dict(cfg=BSS2, ecfg=ecfg, prefix=(16,), backend="blocked",
-              sparse_mode="never")
-    init, trial, meta = make_experiment(
-        generator=torch.Generator().manual_seed(11), device="cuda", **kw)
+    init, trial, meta, kw = _full_width()
     stims = [1, 2, 0, 1, 2, 0]
     draws = meta["draw"](torch.Generator().manual_seed(12), stims)
     state0 = init()
 
+    gate_log = []
+    restore = _route_spy(gate_log)
     kernels.reset_launches()
-    times, states, metrics = [], [], []
+    times, states, metrics, per_trial = [], [], [], []
     state = state0
-    for i, stim in enumerate(stims):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        state, m = trial(state, stim, draws.events[i], draws.xi[i])
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-        states.append(state)
-        metrics.append(m)
+    try:
+        for i, stim in enumerate(stims):
+            before = dict(kernels.LAUNCHES)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            state, m = trial(state, stim, draws.events[i], draws.xi[i])
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+            states.append(state)
+            metrics.append(m)
+            per_trial.append({k: kernels.LAUNCHES[k] - before[k]
+                              for k in before})
+    finally:
+        restore()
     counts = dict(kernels.LAUNCHES)
-    n = len(stims)
-    want = {"synray": 2 * n, "neuron_scan": n, "corr": n}
+    want = {"synray": 8, "synray_sparse": 4, "neuron_scan": 6, "corr": 6,
+            "ppu_update": 0}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
+    if len(gate_log) != 2 * len(stims):
+        raise AssertionError(f"{len(gate_log)} gated windows, expected "
+                             f"{2 * len(stims)}")
+    for i, stim in enumerate(stims):
+        routes = [out[0] for _, out in gate_log[2 * i:2 * i + 2]]
+        for h, (ev, (route, me, kc)) in enumerate(gate_log[2 * i:2 * i + 2]):
+            n_ev, k_max = (int(x) for x in events.window_stats(ev))
+            log(f"[3] trial {i} (stim {stim}) {('exc', 'inh')[h]} half: "
+                f"census n_events={n_ev} k_max={k_max} vs capacities "
+                f"({me}, {kc}) -> {route}")
+        expect = "sparse" if stim == 0 else "dense"
+        if routes != [expect, expect]:
+            raise AssertionError(f"trial {i} (stim {stim}) took {routes}")
+        if per_trial[i]["synray_sparse" if stim == 0 else "synray"] != 2:
+            raise AssertionError(f"trial {i}: launches {per_trial[i]}")
 
-    leaves = [x for x in _flatten(state)]
-    for x in leaves:
+    for x in _flatten(state):
         if x.is_floating_point() and not bool(torch.isfinite(x).all()):
             raise AssertionError("non-finite state after the full-width run")
     for m in metrics:
         if not bool((m["rates"] == torch.round(m["rates"])).all()):
             raise AssertionError("rate counters are not whole numbers")
     total_spikes = float(sum(m["rates"].sum() for m in metrics))
+    t_sparse = [t for t, s in zip(times, stims) if s == 0]
+    t_dense = [t for t, s in zip(times, stims) if s != 0]
     log(f"[3] full width 16 x 256 x 512, T=128: trial_ms="
-        f"{sorted(times)[len(times) // 2]:.3f} (median of {n}; first "
-        f"{times[0]:.3f}) launches={counts} spikes={total_spikes:.0f}")
+        f"{sorted(times)[len(times) // 2]:.3f} (median of {len(stims)}; "
+        f"first {times[0]:.3f}) launches={counts} spikes={total_spikes:.0f}")
+    log(f"[3] trial ms by route: no-stimulus (synray_sparse) "
+        f"{', '.join(f'{t:.3f}' for t in t_sparse)}; pattern (synray) "
+        f"{', '.join(f'{t:.3f}' for t in t_dense)}")
 
-    # the first trial again on the CPU (plain versions), same state/draws
+    # the first trial (pattern, dense) and the first no-stimulus trial
+    # (sparse) again on the CPU, from the same state and draws
+    for i in (0, stims.index(0)):
+        before = state0 if i == 0 else states[i - 1]
+        check_against_cpu(meta, kw, before, stims[i], draws.events[i],
+                          draws.xi[i], states[i], metrics[i],
+                          gate_log[2 * i][1][0], f"trial {i}")
+    addr = torch.zeros(draws.events[0].shape, dtype=torch.int8,
+                       device="cuda")
+    i0 = stims.index(0)
+    for i in (0, i0):
+        phase_breakdown(meta["core"], (state0 if i == 0 else states[i - 1]
+                                       ).core, draws.events[i], addr,
+                        times[i], f"trial {i} (stim {stims[i]})")
+    gate_cost(draws.events[i0])
+    route_ab(states[i0 - 1], stims[i0], draws.events[i0], draws.xi[i0])
+    return counts, states[-1], draws, meta
+
+
+def route_ab(state, stim, events_t, xi, pairs=6):
+    """The first no-stimulus trial run again, alternately with the
+    default census gate (sparse route) and with ``sparse_mode="never"``
+    (dense), on the same instance, state and draws: the end-to-end price
+    or gain of the route, within one call (dense, sparse, sparse, dense,
+    ...)."""
+    import numpy as np
+    import torch
+    trials = {"sparse": _full_width()[1],
+              "dense": _full_width(sparse_mode="never")[1]}
+    out = {k: trials[k](state, stim, events_t, xi)[0] for k in trials}
+    if not torch.equal(out["sparse"].core.syn.weights,
+                       out["dense"].core.syn.weights):
+        raise AssertionError("the sparse and dense routes give different "
+                             "weights on a window that fits")
+    times = {"sparse": [], "dense": []}
+    for i in range(pairs):
+        order = ("dense", "sparse") if i % 2 == 0 else ("sparse", "dense")
+        for k in order:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            trials[k](state, stim, events_t, xi)
+            b.record()
+            b.synchronize()
+            times[k].append(a.elapsed_time(b))
+    text = {k: f"median {np.median(v):.3f} ms ["
+            + ", ".join(f"{t:.3f}" for t in v) + "]"
+            for k, v in times.items()}
+    log(f"[3] no-stimulus trial, routes interleaved ({pairs} pairs): sparse "
+        f"{text['sparse']}, dense {text['dense']}; weights equal")
+
+
+def check_against_cpu(meta, kw, state_before, stim, events_t, xi, s_g, m_g,
+                      route_g, label):
+    """One trial rerun on the CPU (plain versions) from the card's state
+    before it, with the same draws: the same routes, and agreement."""
+    import torch
+    from repro_torch.core.hybrid import make_experiment
     cpu = torch.device("cpu")
     init_c, trial_c, meta_c = make_experiment(
         inst=_to(meta["inst"], cpu), device="cpu", **kw)
-    s_c, m_c = trial_c(_to(state0, cpu), stims[0],
-                       draws.events[0].cpu(), draws.xi[0].cpu())
+    gate_c = []
+    restore = _route_spy(gate_c)
+    try:
+        s_c, m_c = trial_c(_to(state_before, cpu), stim, events_t.cpu(),
+                           xi.cpu())
+    finally:
+        restore()
+    routes_c = [out[0] for _, out in gate_c]
+    if routes_c != [route_g, route_g]:
+        raise AssertionError(f"{label}: CPU routes {routes_c}, card "
+                             f"{route_g}")
     core_g, core_c = meta["core"], meta_c["core"]
-    addr = torch.zeros(draws.events[0].shape, dtype=torch.int8)
-    _, out_g = core_g.run(state0.core, draws.events[0], addr.cuda(),
+    addr = torch.zeros(events_t.shape, dtype=torch.int8)
+    _, out_g = core_g.run(state_before.core, events_t, addr.cuda(),
                           record_v=True)
-    _, out_c = core_c.run(_to(state0.core, cpu), draws.events[0].cpu(), addr,
+    _, out_c = core_c.run(_to(state_before.core, cpu), events_t.cpu(), addr,
                           record_v=True)
     spk_g, spk_c = out_g["spikes"].cpu(), out_c["spikes"]
     # Spikes must agree, except that one may flip where the membrane of the
@@ -314,43 +544,58 @@ def phase_main_path():
     v_quiet = torch.where(spk_c == 0, out_c["v"], out_g["v"].cpu())
     near = (v_quiet - thr).abs() <= 1e-4 + 1e-4 * thr.abs()
     if bool((flips & ~near).any()):
-        raise AssertionError("first trial: a spike differs between the card "
+        raise AssertionError(f"{label}: a spike differs between the card "
                              "and the CPU away from threshold")
     cols = flips.any(0)                                   # [N, C]
     if int(cols.sum()) > max(1, cols.numel() // 1000):
-        raise AssertionError(f"first trial: {int(cols.sum())} columns with "
+        raise AssertionError(f"{label}: {int(cols.sum())} columns with "
                              "spike flips")
     keep = ~cols
-    m_g, s_g = metrics[0], states[0]
     if not torch.equal(m_g["rates"].cpu()[keep], m_c["rates"][keep]):
-        raise AssertionError("first trial: rate counters differ")
+        raise AssertionError(f"{label}: rate counters differ")
     dws = (s_g.w_signed.cpu() - s_c.w_signed).abs()
     dw = float(dws.masked_fill(cols.unsqueeze(-2), 0).max())
     if dw > 1e-4:
-        raise AssertionError(f"first trial: w_signed differs by {dw}")
+        raise AssertionError(f"{label}: w_signed differs by {dw}")
     wq_g = s_g.core.syn.weights.cpu().to(torch.int32)
     wq_c = s_c.core.syn.weights.to(torch.int32)
     dq = (wq_g - wq_c).abs().masked_fill(cols.unsqueeze(-2), 0)
     if int(dq.max()) > 1:
-        raise AssertionError("first trial: int8 weights differ by > 1 code")
+        raise AssertionError(f"{label}: int8 weights differ by > 1 code")
     if int(dq.max()) == 1:
         w = s_c.w_signed
         rows = torch.stack([w.clamp(min=0), (-w).clamp(min=0)], dim=-2
                            ).reshape(wq_c.shape)
         frac = (rows - rows.floor() - 0.5).abs()
         if bool((frac[dq == 1] >= 1e-4).any()):
-            raise AssertionError("first trial: a weight code differs away "
+            raise AssertionError(f"{label}: a weight code differs away "
                                  "from a .5 rounding boundary")
-    log(f"[3] first trial CPU vs card: {int(flips.sum())} of "
-        f"{int(spk_c.sum())} spikes flipped at threshold ({int(cols.sum())} "
-        f"columns left out), rates equal elsewhere, max |w_signed diff|="
-        f"{dw:.3g}, weight codes differing={int((dq > 0).sum())}")
-    phase_breakdown(meta["core"], state0.core, draws.events[0],
-                    addr.cuda(), float(np.median(times)))
-    return counts, float(np.median(times))
+    log(f"[3] {label} CPU vs card ({route_g} route on both): "
+        f"{int(flips.sum())} of {int(spk_c.sum())} spikes flipped at "
+        f"threshold ({int(cols.sum())} columns left out), rates equal "
+        f"elsewhere, max |w_signed diff|={dw:.3g}, weight codes differing="
+        f"{int((dq > 0).sum())}")
 
 
-def phase_breakdown(core, st, ev, addr, trial_ms):
+def gate_cost(events_t):
+    """Host-clock cost of the census gate on one Dale half of a
+    no-stimulus window: the census and its one device-to-host read."""
+    import torch
+    from repro_torch.core import synapse
+    ev = events_t[..., 0::2].contiguous()
+    times = []
+    for _ in range(21):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        synapse.window_route(ev, 512, const_addr=True)
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    log(f"[3] census gate (window_stats + census_fits + one device-to-host "
+        f"read), host clock: median {times[len(times) // 2]:.4f} ms, min "
+        f"{times[0]:.4f} ms over {len(times)}")
+
+
+def phase_breakdown(core, st, ev, addr, trial_ms, label):
     """Where a full-width trial's time goes: CUDA events around each phase
     of ``AnnCore._run_windowed`` (median of 5), the rest being the PPU
     update and the trial's bookkeeping."""
@@ -369,9 +614,80 @@ def phase_breakdown(core, st, ev, addr, trial_ms):
     t_cor = timed(lambda: correlation.window(
         st.corr, ev, spikes, tau_pre=tau, tau_post=tau, dt=core.cfg.dt))
     torch.cuda.synchronize()
-    log(f"[3] trial breakdown (ms): STP scan + 2 synray={t_cur:.3f}, "
-        f"neuron window={t_neu:.3f}, corr window={t_cor:.3f}, PPU and "
-        f"rest={trial_ms - t_cur - t_neu - t_cor:.3f} (of {trial_ms:.3f})")
+    log(f"[3] {label} breakdown (ms): STP scan + 2 gated synaptic windows="
+        f"{t_cur:.3f}, neuron window={t_neu:.3f}, corr window={t_cor:.3f}, "
+        f"PPU and rest={trial_ms - t_cur - t_neu - t_cor:.3f} (of "
+        f"{trial_ms:.3f})")
+
+
+def phase_path_b(state, draws, meta):
+    """Path B: three full-width windows of ``AnnCore.run``, each followed
+    by the fixed-function ``VectorUnit.apply_rstdp`` (one ppu_update
+    launch each); the first update rerun on the CPU."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.ppu import VectorUnit
+
+    core, inst, cfg = meta["core"], meta["inst"], meta["cfg"]
+    ppu = VectorUnit(cfg, inst)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    cs = state.core
+    rs = dict(mean_reward=torch.zeros_like(cs.rate_counters))
+    addr = torch.zeros(draws.events[0].shape, dtype=torch.int8,
+                       device="cuda")
+    first = None
+    kernels.reset_launches()
+    times = []
+    for i in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        cs, _ = core.run(cs, draws.events[i], addr)
+        reward = (cs.rate_counters > 0).to(torch.float32)
+        xi = 0.3 * torch.randn(cs.syn.weights.shape, generator=gen,
+                               device="cuda")
+        before = cs
+        cs, rs_new, elig = ppu.apply_rstdp(cs, rs, reward=reward, eta=4.0,
+                                           xi=xi)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+        if first is None:
+            first = (before, dict(rs), reward, xi, cs, rs_new, elig)
+        rs = rs_new
+    counts = dict(kernels.LAUNCHES)
+    if counts["ppu_update"] != 3 or counts["neuron_scan"] != 3:
+        raise AssertionError(f"path B launch counts {counts}")
+    for x in _flatten(cs):
+        if x.is_floating_point() and not bool(torch.isfinite(x).all()):
+            raise AssertionError("non-finite state after path B")
+
+    before, rs0, reward, xi, s_g, rs_g, elig_g = first
+    cpu = torch.device("cpu")
+    ppu_c = VectorUnit(cfg, _to(inst, cpu))
+    s_c, rs_c, elig_c = ppu_c.apply_rstdp(
+        _to(before, cpu), _to(rs0, cpu), reward=reward.cpu(), eta=4.0,
+        xi=xi.cpu())
+    if not torch.equal(elig_g.cpu(), elig_c):
+        raise AssertionError("path B: eligibility differs card vs CPU")
+    wq_g = s_g.syn.weights.cpu().to(torch.int32)
+    wq_c = s_c.syn.weights.to(torch.int32)
+    dq = (wq_g - wq_c).abs()
+    if int(dq.max()) > 1:
+        raise AssertionError("path B: weight codes differ by > 1")
+    if int(dq.max()) == 1:
+        mod = (reward - rs0["mean_reward"]).cpu().unsqueeze(-2)
+        w_f = before.syn.weights.cpu().float() + 4.0 * mod * elig_c + xi.cpu()
+        frac = (w_f - w_f.floor() - 0.5).abs()
+        if bool((frac[dq == 1] >= 1e-4).any()):
+            raise AssertionError("path B: a code differs away from a .5 tie")
+    if not torch.equal(rs_g["mean_reward"].cpu(), rs_c["mean_reward"]):
+        raise AssertionError("path B: mean rewards differ card vs CPU")
+    log(f"[4] path B, 3 x (AnnCore.run + apply_rstdp) at 16 x 256 x 512: "
+        f"ms {', '.join(f'{t:.3f}' for t in times)}; launches={counts}; "
+        f"first update CPU vs card: codes differing={int((dq > 0).sum())}, "
+        f"eligibility equal")
+    return counts
 
 
 def _flatten(tree):
@@ -402,7 +718,7 @@ def phase_closed_loop():
     te, to = trailing(even), trailing(~even)
     w = out["w_signed_final"]
     gap = float(w[ma][:, even].mean() - w[ma][:, ~even].mean())
-    log(f"[4] closed loop 32 x 16, 450 trials, seed 0: trailing <R> even="
+    log(f"[5] closed loop 32 x 16, 450 trials, seed 0: trailing <R> even="
         f"{te:.4f} odd={to:.4f}, A-channel weight gap={gap:.3f} "
         f"({secs:.1f} s, {1e3 * secs / 450:.2f} ms/trial)")
     if not (te > 0.75 and to > 0.75):
@@ -424,15 +740,19 @@ def main() -> int:
 
     smi = phase_build()
     rows = phase_kernels()
-    counts, trial_ms = phase_main_path()
+    counts, state, draws, meta = phase_main_path()
+    counts_b = phase_path_b(state, draws, meta)
     phase_closed_loop()
 
     kernels = []
     for name, (source, replaces) in SRC.items():
         r = rows[name]
+        # each kernel's launches from the path that runs it: ppu_update
+        # from path B, the others from path A
+        n = counts_b[name] if name == "ppu_update" else counts[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=counts[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     print(json.dumps({"kernels": kernels}))

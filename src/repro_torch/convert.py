@@ -11,8 +11,10 @@ and layouts, so a state moves over leaf by leaf as numpy arrays:
 * ``draws``: injected per-trial event grids and xi walks -> ``Draws``;
 * ``replay_reference_draws``: the reference's ``jax.random`` key chain
   replayed, so both packages consume the same numbers (PyTorch cannot
-  reproduce threefry streams). It takes the ``jax.random`` module as an
-  argument: this module imports no JAX itself.
+  reproduce threefry streams); ``replay_rstdp_xi`` likewise for the xi
+  plane of ``VectorUnit.apply_rstdp`` / ``rules.rstdp``. Both take the
+  ``jax.random`` module as an argument: this module imports no JAX
+  itself.
 """
 from __future__ import annotations
 
@@ -110,3 +112,16 @@ def replay_reference_draws(jax_random, key, stims,
     bg = torch.from_numpy(np.stack(bgs))
     ev = events_from_background(bg, np.asarray(stims), ecfg)
     return draws(ev.numpy(), np.stack(xis), device)
+
+
+def replay_rstdp_xi(jax_random, key, shape, noise: float, device=None):
+    """The xi plane the reference's ``VectorUnit.apply_rstdp`` /
+    ``rules.rstdp`` draws from the rule state's ``key``
+    (``repro/core/ppu.py:170-171``): ``key, sub = split(key)``, then
+    ``noise * normal(sub, shape)``. Returns ``(next key, xi)``, the key
+    for the reference's next call and xi as a float32 tensor on
+    ``device``."""
+    device = resolve_device(device)
+    key, sub = jax_random.split(key)
+    xi = np.asarray(noise * jax_random.normal(sub, tuple(shape)), np.float32)
+    return key, _t(xi, device)

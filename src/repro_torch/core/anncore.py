@@ -54,8 +54,9 @@ class AnnCore:
     to "blocked" when the instance lies on a CUDA device and to "fused" on
     the CPU. ``const_addr``: promise that within a window each row's event
     address never changes (lets the CPU path resolve the mask once).
-    ``sparse_mode``: "never" or "auto" (dense below the reference's static
-    floor; the sparse route is not ported yet).
+    ``sparse_mode``: the synaptic route of each Dale half ("auto" |
+    "never" | "always", see ``synapse.synaptic_current_window``), with
+    the default capacities.
     """
 
     def __init__(self, cfg: BSS2Config, inst: Dict, backend: str = "auto",

@@ -121,8 +121,10 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
         ``generator`` (default: a CPU generator seeded with 7).
       prefix: instance prefix of a fleet of independent chips.
       backend: AnnCore backend ("auto" | "oracle" | "fused" | "blocked").
-      sparse_mode: synaptic path gate ("never" | "auto", see
-        ``synapse.synaptic_current_window``); ``None`` keeps AnnCore's.
+      sparse_mode: the event-sparse synaptic route ("auto" | "never" |
+        "always", see ``synapse.synaptic_current_window``); ``None``
+        keeps AnnCore's "auto" (at full width the census gate picks the
+        route of every window).
       device: where the experiment runs; ``None`` means ``cuda`` and
         raises without a card.
 

@@ -2,10 +2,10 @@
 
 A plasticity rule is a function over (weights, observables, rule state)
 applied to all rows and columns at once; weight writes saturate to 6 bit
-like the hardware store. Ported so far: the observable reads, the generic
-``apply_rule`` path that the §5 Dale-signed rule runs on, and the reset.
-The fused standard-rule path (``apply_rstdp``, the ``ppu_update`` kernel)
-and the PPU-VM (``run_program``) are later slices.
+like the hardware store. Ported: the observable reads, the generic
+``apply_rule`` path that the §5 Dale-signed rule runs on, the reset, and
+the fixed-function standard rule ``apply_rstdp`` (the ``ppu_update``
+kernel). The PPU-VM (``run_program``) is a later slice.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.configs.bss2 import BSS2Config
-from repro_torch.core import cadc, synapse
+from repro_torch.core import cadc, rules, synapse
 
 
 class VectorUnit:
@@ -53,6 +53,41 @@ class VectorUnit:
         syn = self.write_weights(state.syn, w_new)
         return (self._reset_observables(state._replace(syn=syn)),
                 rule_state, obs)
+
+    # -- fused rule application --------------------------------------------
+    def apply_rstdp(self, state, rule_state: Dict, *, reward,
+                    eta: float = 0.5, gamma: float = 0.3, noise: float = 0.3,
+                    xi=None, generator: torch.Generator = None):
+        """Standard R-STDP (``rules.rstdp`` semantics) with the whole read
+        -> eligibility -> update -> write-back loop in the ``ppu_update``
+        kernel (``repro/core/ppu.py:147-196``).
+
+        The wrapper runs on both devices (the plain version on the CPU,
+        the kernel on the card), so the two agree bit for bit; an instance
+        prefix folds into the kernel's N axis. ``xi``: the injected
+        [..., R, C] random walk (already scaled by ``noise``, e.g.
+        ``repro_torch.convert.replay_rstdp_xi``); without it the walk is
+        drawn from ``generator``. Returns ``(new_state,
+        dict(mean_reward=...), elig)``; observables are reset like
+        ``apply_rule``.
+        """
+        from repro_torch.kernels.ppu_update import ops as ppu_ops
+        mean_r = rule_state["mean_reward"]
+        mean_r_new = mean_r + gamma * (reward - mean_r)          # Eq. 2
+        mod = reward - mean_r
+        w = state.syn.weights
+        if xi is None:
+            if generator is None:
+                raise ValueError("apply_rstdp: pass the xi plane or a "
+                                 "generator")
+            xi = rules.draw_xi(w.shape, noise, generator, w.device)
+        w_q, elig = ppu_ops.rstdp_update(
+            w, state.corr.a_causal, state.corr.a_acausal,
+            self.inst["cadc_offset"], self.inst["cadc_gain"], mod, xi,
+            eta=eta, cadc_max=2 ** self.cfg.cadc_bits - 1)
+        new_state = self._reset_observables(
+            state._replace(syn=state.syn._replace(weights=w_q)))
+        return new_state, dict(mean_reward=mean_r_new), elig
 
     def _reset_observables(self, state):
         """Post-read reset: rate counters and correlation capacitors."""

@@ -3,18 +3,17 @@
 Each synapse stores a 6-bit weight and a 6-bit address; an event on a row
 carries a source address and the synapse forwards current only when the
 stored address matches. The hot operation — events x weights -> per-column
-currents — is the masked product of ``repro_torch.kernels.synray``.
-
-Only the dense path is ported so far. The event-sparse path of the
-reference (``repro/core/events.py`` with the ``synray_sparse`` kernel) is
-the next slice: ``sparse="always"``, and ``"auto"`` above the static work
-floor, raise ``NotImplementedError``.
+currents — is the masked product of ``repro_torch.kernels.synray``, or
+at low event density its event-sparse twin ``repro_torch.kernels.
+synray_sparse`` over the packed event records of ``core.events``.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.core import events
 
 WMAX = 63  # 6-bit
 
@@ -43,8 +42,15 @@ def synaptic_current(weights, addresses, row_events, event_addr, gain):
     return i * gain
 
 
-# Static work floor (T * R * C MACs) of the reference: below it
-# sparse="auto" compiles to the pure dense program there.
+# Density below which "auto" routes a window through the event-sparse
+# path; it sizes the default capacities (``events.default_max_events`` /
+# ``default_k_cap``), and the capacities are the gate. With ``const_addr``
+# the reference's dense alternative is the once-resolved plain matmul, so
+# the lower threshold applies (``repro/core/synapse.py:50-65``).
+SPARSE_THRESHOLD = 0.05
+SPARSE_THRESHOLD_CONST_ADDR = 0.02
+# Static work floor (T * R * C MACs): below it sparse="auto" is plain
+# dense, with no census and no branch.
 SPARSE_MIN_DENSE_WORK = 2 * 1024 * 1024
 
 
@@ -71,9 +77,66 @@ def _dense_window(weights, addresses, row_events_t, event_addr_t, gain,
         addresses) * gain
 
 
+def _sparse_window(weights, addresses, row_events_t, event_addr_t, gain,
+                   max_events, k_cap):
+    """The event-sparse whole-window path: regroup the window into [N, T,
+    K] records and gather-accumulate only the fired rows
+    (``synray_sparse``). Equal to the dense kernel bit for bit on the card
+    as long as the window fits the capacities; overflow drops records."""
+    from repro_torch.kernels import (fold_instance, fold_instance_time,
+                                     unfold_instance_time)
+    from repro_torch.kernels.synray_sparse import ops as sparse_ops
+    prefix = tuple(weights.shape[:-2])
+    i = sparse_ops.synaptic_current_sparse(
+        fold_instance_time(row_events_t.to(torch.float32), 1),
+        fold_instance_time(event_addr_t, 1),
+        fold_instance(weights, 2), fold_instance(addresses, 2),
+        max_events=max_events, k_cap=k_cap)
+    return unfold_instance_time(i, prefix) * gain
+
+
+def window_route(row_events_t, C: int, *, const_addr: bool = False,
+                 sparse: str = "auto", max_events: int = None,
+                 k_cap: int = None):
+    """The route of one window: ``(route, max_events, k_cap)`` with route
+    "dense" or "sparse", by the reference's rules
+    (``repro/core/synapse.py:223-258``).
+
+    "never" is dense; "auto" below ``SPARSE_MIN_DENSE_WORK`` is dense
+    without a census; "always" is sparse. Otherwise the gate reads the
+    window's census (``events.window_stats``: the worst instance of the
+    prefix, one decision for the whole call) back to the host, one
+    device-to-host read per window, and takes sparse when it fits the
+    capacities (``events.census_fits``), else dense. The reference
+    branches on the device (``lax.cond``); a host branch is the simple
+    form of the same decision. On the card it is also the route's cost:
+    the read stops the host from queueing work ahead of the device, and
+    with the packing's small launches the sparse route is slower end to
+    end than the dense one at the §5 density (PERF.md §5)."""
+    if sparse not in ("auto", "never", "always"):
+        raise ValueError(f"unknown sparse mode {sparse!r}")
+    T = row_events_t.shape[0]
+    R = row_events_t.shape[-1]
+    if sparse == "auto" and T * R * C < SPARSE_MIN_DENSE_WORK:
+        sparse = "never"
+    if sparse == "never":
+        return "dense", max_events, k_cap
+    thr = SPARSE_THRESHOLD_CONST_ADDR if const_addr else SPARSE_THRESHOLD
+    if max_events is None:
+        max_events = events.default_max_events(T, R, thr)
+    if k_cap is None:
+        k_cap = events.default_k_cap(R, thr)
+    if sparse == "auto":
+        n, kmax = events.window_stats(row_events_t)
+        if not bool(events.census_fits(n, kmax, max_events, k_cap)):
+            return "dense", max_events, k_cap
+    return "sparse", max_events, k_cap
+
+
 def synaptic_current_window(weights, addresses, row_events_t, event_addr_t,
                             gain, const_addr: bool = False,
-                            sparse: str = "auto"):
+                            sparse: str = "auto", max_events: int = None,
+                            k_cap: int = None):
     """Whole-window synaptic currents: [T, ..., R] events -> [T, ..., C].
 
     Weights and addresses are constant between PPU writes, so the per-step
@@ -82,22 +145,21 @@ def synaptic_current_window(weights, addresses, row_events_t, event_addr_t,
     address is the same at every step of the window; the CPU path then
     resolves the mask once into an effective weight matrix.
 
-    ``sparse``: "never" (dense), or "auto", accepted only where the
-    reference's static floor makes it dense (T*R*C below
-    ``SPARSE_MIN_DENSE_WORK``). The sparse route is not ported yet.
+    ``sparse`` selects the event-sparse route (``window_route``): "auto"
+    (default) takes it when the window's census fits the capacities and
+    falls back to dense otherwise, so overflow never drops records;
+    "never" is dense; "always" forces sparse, where overflow drops
+    records. The density threshold ``SPARSE_THRESHOLD``, or
+    ``SPARSE_THRESHOLD_CONST_ADDR`` with ``const_addr``, sizes the default
+    capacities (``max_events`` about threshold * T * R records, ``k_cap``
+    per step); both are overridable.
     """
-    if sparse not in ("auto", "never", "always"):
-        raise ValueError(f"unknown sparse mode {sparse!r}")
-    T = row_events_t.shape[0]
-    R = row_events_t.shape[-1]
-    C = weights.shape[-1]
-    if sparse == "auto" and T * R * C < SPARSE_MIN_DENSE_WORK:
-        sparse = "never"
-    if sparse != "never":
-        raise NotImplementedError(
-            f"sparse={sparse!r} at T*R*C={T * R * C} needs the event-sparse "
-            "path (core/events.py + the synray_sparse kernel), which is not "
-            "ported yet; pass sparse='never'")
+    route, max_events, k_cap = window_route(
+        row_events_t, weights.shape[-1], const_addr=const_addr,
+        sparse=sparse, max_events=max_events, k_cap=k_cap)
+    if route == "sparse":
+        return _sparse_window(weights, addresses, row_events_t, event_addr_t,
+                              gain, max_events, k_cap)
     return _dense_window(weights, addresses, row_events_t, event_addr_t,
                          gain, const_addr)
 

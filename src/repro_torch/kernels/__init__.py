@@ -8,12 +8,18 @@ plain version on the card and no fallback when a launch fails. Each
 wrapper counts its launches in ``LAUNCHES`` so a run can show that it went
 through the kernels.
 
-  synray       masked event x 6-bit-weight synaptic-current product
-               (replaces ``repro/kernels/synray``)
-  neuron_scan  T-step AdEx window with the state in registers
-               (replaces ``repro/kernels/neuron_scan``)
-  corr         T-step correlation-sensor window with per-step saturation
-               (replaces ``repro/kernels/corr``)
+  synray         masked event x 6-bit-weight synaptic-current product
+                 (replaces ``repro/kernels/synray``)
+  synray_sparse  the same product over regrouped [T, K] event records,
+                 equal to ``synray`` bit for bit on windows that fit
+                 (replaces ``repro/kernels/synray_sparse``)
+  neuron_scan    T-step AdEx window with the state in registers
+                 (replaces ``repro/kernels/neuron_scan``)
+  corr           T-step correlation-sensor window with per-step saturation
+                 (replaces ``repro/kernels/corr``)
+  ppu_update     fixed-function R-STDP update: CADC read, eligibility,
+                 weight step, 6-bit store (replaces
+                 ``repro/kernels/ppu_update``)
 
 Instance prefix: a fleet of independent chips is folded into one leading
 N axis with the helpers below, as in the reference.
@@ -23,7 +29,8 @@ from __future__ import annotations
 import math
 
 # launch counts per kernel name; each wrapper adds one where it launches
-LAUNCHES = {"synray": 0, "neuron_scan": 0, "corr": 0}
+LAUNCHES = {"synray": 0, "synray_sparse": 0, "neuron_scan": 0, "corr": 0,
+            "ppu_update": 0}
 
 
 def reset_launches() -> None:

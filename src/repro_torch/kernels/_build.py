@@ -27,12 +27,15 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # -fmad=false: no contraction of a multiply and an add into one FMA, so
 # the kernel rounds after every operation like PyTorch's eager kernels do
-# and matches their results bit for bit. synray accumulates with explicit
-# fmaf and is held to a tolerance instead.
+# and matches their results bit for bit. synray and synray_sparse
+# accumulate with explicit fmaf (the same chain, so the two routes agree
+# bit for bit) and keep the default flags.
 PER_SOURCE = {
     "synray.cu": [],
+    "synray_sparse.cu": [],
     "neuron_scan.cu": ["-fmad=false"],
     "corr.cu": ["-fmad=false"],
+    "ppu_update.cu": ["-fmad=false"],
 }
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -48,6 +51,13 @@ ARGTYPES = {
     # pre, post, tp0, tq0, ac0, aa0, ac, aa, tp, tq, N, T, R, C, lam, sat,
     # stream
     "corr_launch": [_VP] * 10 + [_I] * 4 + [_F, _F, _VP],
+    # rows, addr, eff, w, addr_store, out, N, T, K, C, record
+    # instance stride, w strides (n, r), addr_store strides (n, r),
+    # out strides (n, t), stream
+    "synray_sparse_launch": [_VP] * 6 + [_I] * 4 + [_LL] * 7 + [_VP],
+    # w, a_causal, a_acausal, offset, gain, mod, xi, w_out, elig, N, R, C,
+    # eta, cadc_scale, 1/cadc_max, cadc_max, wmax, stream
+    "ppu_update_launch": [_VP] * 9 + [_I] * 3 + [_F] * 5 + [_VP],
 }
 
 _lock = threading.Lock()

@@ -221,20 +221,29 @@ class TestSynapse:
             _close(got, want)
 
     def test_sparse_route_not_ported(self):
-        """Above the static floor "auto" needs the sparse route, which is
-        the next slice: it raises rather than silently going dense."""
+        """Above the static floor "auto" reaches the census gate and takes
+        the event-sparse route (ported now, tests/test_torch_sparse.py)
+        instead of raising; "always" runs it below the floor too. All
+        three modes give the dense currents on windows that fit."""
         T, R, C = 128, 128, 256               # T*R*C = 4M > 2M floor
-        w = torch.zeros((R, C), dtype=torch.int8)
-        ev = torch.zeros((T, R))
+        rng = np.random.default_rng(5)
+        w = _t(rng.integers(0, 64, (R, C)).astype(np.int8))
+        ev = _t(((rng.random((T, R)) < 0.01)
+                 * rng.uniform(0.2, 1.2, (T, R))).astype(np.float32))
         ea = torch.zeros((T, R), dtype=torch.int8)
-        with pytest.raises(NotImplementedError, match="synray_sparse"):
-            t_syn.synaptic_current_window(w, w, ev, ea, 1.0)
-        with pytest.raises(NotImplementedError):
-            t_syn.synaptic_current_window(w[:4], w[:4], ev[:, :4],
-                                          ea[:, :4], 1.0, sparse="always")
-        out = t_syn.synaptic_current_window(w, w, ev, ea, 1.0,
-                                            sparse="never")
-        assert out.shape == (T, C)
+        assert t_syn.window_route(ev, C)[0] == "sparse"
+        dense = t_syn.synaptic_current_window(w, w, ev, ea, 1.0,
+                                              sparse="never")
+        assert dense.shape == (T, C)
+        for mode in ("auto", "always"):
+            _close(t_syn.synaptic_current_window(w, w, ev, ea, 1.0,
+                                                 sparse=mode), dense)
+        small = t_syn.synaptic_current_window(w[:4], w[:4], ev[:, :4],
+                                              ea[:, :4], 1.0, sparse="always")
+        _close(small, t_syn.synaptic_current_window(
+            w[:4], w[:4], ev[:, :4], ea[:, :4], 1.0, sparse="never"))
+        with pytest.raises(ValueError, match="unknown sparse mode"):
+            t_syn.synaptic_current_window(w, w, ev, ea, 1.0, sparse="on")
 
     def test_quantize_weight_exact(self):
         x = np.asarray([-3.2, 0.5, 1.5, 2.5, 31.49, 62.5, 63.5, 80.0],

@@ -5,12 +5,15 @@ skips where there is none. The file imports no JAX, so it runs on a
 machine that has only PyTorch: ``PYTHONPATH=src python -m pytest -q
 tests/test_torch_cuda.py``.
 
-Tolerances: ``neuron_scan`` and ``corr`` bit-equal (the kernels repeat the
-plain versions' operations in order, built without multiply-add
-contraction); ``synray`` within rtol = atol = 1e-4 (it sums rows with
-FMAs); the main path on the card against the CPU: spike counts equal and
-the signed weights within 1e-4.
+Tolerances: ``neuron_scan``, ``corr`` and ``ppu_update`` bit-equal (the
+kernels repeat the plain versions' operations in order, built without
+multiply-add contraction); ``synray`` and ``synray_sparse`` within
+rtol = atol = 1e-4 of their plain versions (they sum rows with FMAs), and
+``synray_sparse`` equal to ``synray`` bit for bit on every window that
+fits its capacities (the same FMA chain); the main path on the card
+against the CPU: spike counts equal and the signed weights within 1e-4.
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -20,12 +23,17 @@ import torch
 from _torch_parity import close, t
 from repro_torch import kernels
 from repro_torch.configs.bss2 import BSS2
-from repro_torch.core import adex
+from repro_torch.core import adex, events
 from repro_torch.core import hybrid as th
+from repro_torch.core import synapse
 from repro_torch.kernels.corr import ops as corr_ops
 from repro_torch.kernels.corr.ref import correlation_window_ref
 from repro_torch.kernels.neuron_scan import ops as neuron_ops
 from repro_torch.kernels.neuron_scan.ref import neuron_window_ref
+from repro_torch.kernels.ppu_update import ops as ppu_ops
+from repro_torch.kernels.ppu_update.ref import rstdp_update_ref
+from repro_torch.kernels.synray_sparse import ops as sparse_ops
+from repro_torch.kernels.synray_sparse.ref import sparse_window_ref
 from repro_torch.kernels.synray import ops as synray_ops
 from repro_torch.kernels.synray.ref import synaptic_current_ref
 from repro_torch.verif.mismatch import sample_instance
@@ -126,7 +134,9 @@ def test_main_path_on_card_matches_cpu(cuda):
         if i == 0:
             first = (st, m)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES == {"synray": 6, "neuron_scan": 3, "corr": 3}
+    assert kernels.LAUNCHES == {"synray": 6, "synray_sparse": 0,
+                                "neuron_scan": 3, "corr": 3,
+                                "ppu_update": 0}
     inst_c = {k: (v.cpu() if torch.is_tensor(v) else
                   {kk: vv.cpu() for kk, vv in v.items()})
               for k, v in meta["inst"].items()}
@@ -135,3 +145,104 @@ def test_main_path_on_card_matches_cpu(cuda):
                         draws.xi[0].cpu())
     assert torch.equal(first[1]["rates"].cpu(), m_c["rates"])
     close(first[0].w_signed.cpu(), st_c.w_signed)
+
+
+def _sparse_operands(T, N, R, C, p, seed, const):
+    rng = np.random.default_rng(seed)
+    ev = ((rng.random((T, N, R)) < p)
+          * rng.uniform(0.2, 1.2, (T, N, R))).astype(np.float32)
+    w = rng.integers(0, 64, (N, R, C)).astype(np.int8)
+    if const:
+        row = rng.integers(0, 4, (N, R)).astype(np.int8)
+        ea = np.broadcast_to(row, (T, N, R)).copy()
+    else:
+        ea = rng.integers(0, 4, (T, N, R)).astype(np.int8)
+    a = rng.integers(0, 4, (N, R, C)).astype(np.int8)
+    return ev, ea, w, a
+
+
+@pytest.mark.parametrize("p", [0.005, 0.01, 0.02, 0.05])
+@pytest.mark.parametrize("const", [False, True])
+def test_synray_sparse_equals_dense_kernel(cuda, p, const):
+    """On a window that fits, the sparse route equals the dense kernel
+    bit for bit (the same fmaf chain over the fired rows), for both
+    Dale halves read in place and with the default capacities."""
+    T, N, R, C = 128, 4, 256, 512
+    ev, ea, w, a = (t(x).to(cuda) for x in _sparse_operands(
+        T, N, R, C, p, seed=int(p * 1000) + const, const=const))
+    gain = torch.ones(C, device=cuda)
+    for h in (0, 1):
+        args = (w[:, h::2], a[:, h::2], ev[..., h::2], ea[..., h::2], gain)
+        n0 = dict(kernels.LAUNCHES)
+        dense = synapse.synaptic_current_window(*args, sparse="never")
+        sparse = synapse.synaptic_current_window(
+            *args, sparse="always", max_events=T * R, k_cap=R // 2)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["synray"] == n0["synray"] + 1
+        assert kernels.LAUNCHES["synray_sparse"] == n0["synray_sparse"] + 1
+        assert torch.equal(dense, sparse)
+        route, me, kc = synapse.window_route(args[2], C, sparse="auto")
+        if route == "sparse":
+            assert torch.equal(dense, synapse.synaptic_current_window(
+                *args, sparse="always", max_events=me, k_cap=kc))
+
+
+def test_synray_sparse_matches_plain(cuda):
+    T, N, R, C = 77, 3, 96, 300               # ragged T and C blocks
+    ev, ea, w, a = _sparse_operands(T, N, R, C, 0.08, seed=3, const=False)
+    ev_n = t(ev.transpose(1, 0, 2).copy()).to(cuda)
+    ea_n = t(ea.transpose(1, 0, 2).copy()).to(cuda)
+    wd, ad = t(w).to(cuda), t(a).to(cuda)
+    for h in (0, 1):
+        # the records of this Dale half's rows; K = 40 > one staged chunk
+        recs = events.regroup_window(ev_n[..., h::2], ea_n[..., h::2],
+                                     T * R, 40)
+        n0 = kernels.LAUNCHES["synray_sparse"]
+        got = sparse_ops.sparse_window(*recs, wd[:, h::2], ad[:, h::2])
+        want = sparse_window_ref(*recs, wd[:, h::2], ad[:, h::2])
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["synray_sparse"] == n0 + 1
+        assert got.permute(1, 0, 2).is_contiguous()     # time-major buffer
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("prefix", [(), (3,)])
+def test_ppu_update_bit_equal(cuda, prefix):
+    rng = np.random.default_rng(4)
+    R, C = 200, 300
+    shape = (*prefix, R, C)
+    w = t(rng.integers(0, 64, shape).astype(np.int8)).to(cuda)
+    ac, aa = (t(rng.uniform(0, 40, shape).astype(np.float32)).to(cuda)
+              for _ in range(2))
+    off = t(rng.uniform(-3, 12, (*prefix, C)).astype(np.float32)).to(cuda)
+    gain = t(rng.uniform(0.8, 1.2, (*prefix, C)).astype(np.float32)).to(cuda)
+    mod = t(rng.uniform(-1, 1, (*prefix, C)).astype(np.float32)).to(cuda)
+    xi = t((0.3 * rng.standard_normal(shape)).astype(np.float32)).to(cuda)
+    n0 = kernels.LAUNCHES["ppu_update"]
+    got = ppu_ops.rstdp_update(w, ac, aa, off, gain, mod, xi, eta=3.0)
+    want = rstdp_update_ref(w, ac, aa, off, gain, mod, xi, eta=3.0)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ppu_update"] == n0 + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_census_gate_routes_on_card(cuda):
+    """Above the floor with the defaults: a no-stimulus trial goes sparse
+    (two synray_sparse launches), a pattern trial dense (two synray)."""
+    ecfg = th.RSTDPConfig(n_inputs=64, n_neurons=256, pattern_size=16,
+                          trial_steps=128)
+    cfg = dataclasses.replace(BSS2, n_rows=128, n_cols=256)
+    init, trial, meta = th.make_experiment(
+        cfg=cfg, ecfg=ecfg, prefix=(2,),
+        generator=torch.Generator().manual_seed(5), device=cuda)
+    draws = meta["draw"](torch.Generator().manual_seed(6), [0, 1])
+    st = init()
+    kernels.reset_launches()
+    st, _ = trial(st, 0, draws.events[0], draws.xi[0])
+    torch.cuda.synchronize()
+    assert (kernels.LAUNCHES["synray_sparse"], kernels.LAUNCHES["synray"]) \
+        == (2, 0)
+    st, _ = trial(st, 1, draws.events[1], draws.xi[1])
+    torch.cuda.synchronize()
+    assert (kernels.LAUNCHES["synray_sparse"], kernels.LAUNCHES["synray"]) \
+        == (2, 2)
