@@ -34,6 +34,31 @@ Phases, each reported on its own line:
 5. The §5 closed loop at the default 32 x 16 geometry on the card: 450
    trials, the port's own generator, seed 0; both populations' trailing
    median reward must exceed 0.75.
+6. The PPU-VM kernel ``ppuvm_exec`` against its plain version on the card,
+   weights and registers bit for bit: the 200-program fuzz corpus of
+   ``tests/test_ppuvm_fuzz.py`` at 8 x 8 (regenerated with numpy and the
+   port's assembler by ``tests/_torch_ppuvm.py``), the edge corpus, the
+   unknown-opcode program, a prefixed [3, 40, 136] shape with ragged
+   tails, and ``signed_dw_program`` / ``rstdp_program`` at [16, 256, 512]
+   (timed; ``bound_ms`` counts each int32 plane read once, the weights
+   and the 8 registers written once). No PyTorch call computes the VM;
+   beside it, ``ppu_update`` on the same R-STDP update as a yardstick.
+7. Path C, the vm rule at full width: path A's configuration with
+   ``rule_impl="vm"``, 3 trials (A, B, none): exactly 3 ``ppuvm_exec``
+   launches; the first trial rerun on the CPU (as in phase 3, weight codes
+   equal where no spike flipped) and its VM update rerun on the CPU from
+   the card's window state (registers, so dw, bit for bit); the same
+   trial with the python rule within 0.15 on the signed weights.
+8. ``VectorUnit.apply_rstdp_program`` against ``apply_rstdp`` at 16 x 256
+   x 512 with one injected xi: weights within one code; both timed (the
+   ratio is recorded, not claimed).
+9. A 60-trial vm-rule closed loop at 32 x 16, T = 128, seed 0: the median
+   reward of the last 15 trials above that of the first 15.
+10. Playback on the card: the three golden programs
+   (``tests/golden/playback_*.npz``) through the port's ``FastBackend``
+   on ``cuda``: ``compare_traces(atol=0.05)`` empty, ``PPU_W`` and
+   ``WEIGHTS`` records bit-equal to the golden ones, 2 ``ppuvm_exec``
+   launches each.
 
 Exits non-zero without a card, outside a checkout, or when any phase
 fails; the last line is the JSON device record.
@@ -60,6 +85,8 @@ SRC = {
                       "src/repro/kernels/synray_sparse/kernel.py:51"),
     "ppu_update": ("src/repro_torch/csrc/ppu_update.cu",
                    "src/repro/kernels/ppu_update/kernel.py:51"),
+    "ppuvm_exec": ("src/repro_torch/csrc/ppuvm_exec.cu",
+                   "src/repro/kernels/ppuvm_exec/kernel.py:64"),
 }
 # the §5 background rate and the const_addr capacities of one Dale half
 # at full width (events.default_max_events / default_k_cap at 0.02)
@@ -417,7 +444,7 @@ def phase_main_path():
         restore()
     counts = dict(kernels.LAUNCHES)
     want = {"synray": 8, "synray_sparse": 4, "neuron_scan": 6, "corr": 6,
-            "ppu_update": 0}
+            "ppu_update": 0, "ppuvm_exec": 0}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     if len(gate_log) != 2 * len(stims):
@@ -468,7 +495,7 @@ def phase_main_path():
                         times[i], f"trial {i} (stim {stims[i]})")
     gate_cost(draws.events[i0])
     route_ab(states[i0 - 1], stims[i0], draws.events[i0], draws.xi[i0])
-    return counts, states[-1], draws, meta
+    return counts, states[-1], draws, meta, sorted(times)[len(times) // 2]
 
 
 def route_ab(state, stim, events_t, xi, pairs=6):
@@ -477,18 +504,29 @@ def route_ab(state, stim, events_t, xi, pairs=6):
     (dense), on the same instance, state and draws: the end-to-end price
     or gain of the route, within one call (dense, sparse, sparse, dense,
     ...)."""
-    import numpy as np
     import torch
-    trials = {"sparse": _full_width()[1],
-              "dense": _full_width(sparse_mode="never")[1]}
+    trials = {"dense": _full_width(sparse_mode="never")[1],
+              "sparse": _full_width()[1]}
     out = {k: trials[k](state, stim, events_t, xi)[0] for k in trials}
     if not torch.equal(out["sparse"].core.syn.weights,
                        out["dense"].core.syn.weights):
         raise AssertionError("the sparse and dense routes give different "
                              "weights on a window that fits")
-    times = {"sparse": [], "dense": []}
+    text = _interleaved(trials, state, stim, events_t, xi, pairs)
+    log(f"[3] no-stimulus trial, routes interleaved ({pairs} pairs): sparse "
+        f"{text['sparse']}, dense {text['dense']}; weights equal")
+
+
+def _interleaved(trials, state, stim, events_t, xi, pairs):
+    """Each of the two ``trials`` on the same state and draws, in turns
+    (a, b, b, a, ...), timed with CUDA events; returns each one's median
+    and times as text."""
+    import numpy as np
+    import torch
+    a_, b_ = trials
+    times = {k: [] for k in trials}
     for i in range(pairs):
-        order = ("dense", "sparse") if i % 2 == 0 else ("sparse", "dense")
+        order = (a_, b_) if i % 2 == 0 else (b_, a_)
         for k in order:
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
@@ -497,17 +535,17 @@ def route_ab(state, stim, events_t, xi, pairs=6):
             b.record()
             b.synchronize()
             times[k].append(a.elapsed_time(b))
-    text = {k: f"median {np.median(v):.3f} ms ["
+    return {k: f"median {np.median(v):.3f} ms ["
             + ", ".join(f"{t:.3f}" for t in v) + "]"
             for k, v in times.items()}
-    log(f"[3] no-stimulus trial, routes interleaved ({pairs} pairs): sparse "
-        f"{text['sparse']}, dense {text['dense']}; weights equal")
 
 
 def check_against_cpu(meta, kw, state_before, stim, events_t, xi, s_g, m_g,
-                      route_g, label):
+                      route_g, label, phase=3):
     """One trial rerun on the CPU (plain versions) from the card's state
-    before it, with the same draws: the same routes, and agreement."""
+    before it, with the same draws: the same routes, and agreement.
+    Returns the number of columns left out for spike flips and the number
+    of weight codes that differ."""
     import torch
     from repro_torch.core.hybrid import make_experiment
     cpu = torch.device("cpu")
@@ -570,11 +608,12 @@ def check_against_cpu(meta, kw, state_before, stim, events_t, xi, s_g, m_g,
         if bool((frac[dq == 1] >= 1e-4).any()):
             raise AssertionError(f"{label}: a weight code differs away "
                                  "from a .5 rounding boundary")
-    log(f"[3] {label} CPU vs card ({route_g} route on both): "
+    log(f"[{phase}] {label} CPU vs card ({route_g} route on both): "
         f"{int(flips.sum())} of {int(spk_c.sum())} spikes flipped at "
         f"threshold ({int(cols.sum())} columns left out), rates equal "
         f"elsewhere, max |w_signed diff|={dw:.3g}, weight codes differing="
         f"{int((dq > 0).sum())}")
+    return int(cols.sum()), int((dq > 0).sum())
 
 
 def gate_cost(events_t):
@@ -725,6 +764,265 @@ def phase_closed_loop():
         raise AssertionError(f"the closed loop did not learn: {te}, {to}")
 
 
+def _vm_corpus():
+    """The jax-free PPU-VM corpus of ``tests/_torch_ppuvm.py``."""
+    sys.path.insert(0, str(REPO / "tests"))
+    import _torch_ppuvm
+    return _torch_ppuvm
+
+
+def phase_ppuvm_kernel(ppu_update_ms):
+    """ppuvm_exec against its plain version on the card, bit for bit, on
+    the fuzz corpus, the edge corpus, a prefixed ragged shape and the main
+    path's [16, 256, 512]; timed at the last."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ppuvm_exec import ops as vm_ops
+    from repro_torch.kernels.ppuvm_exec.ref import run_program_ref
+    vmc = _vm_corpus()
+    cuda = torch.device("cuda")
+
+    def dev(x):
+        return (None if x is None
+                else torch.from_numpy(np.ascontiguousarray(x)).to(cuda))
+
+    def both(words, ops, label):
+        w = dev(np.asarray(words, np.int32))
+        args = tuple(dev(ops.get(k)) for k in ("weights", "qc", "qa",
+                                                "rates", "mod", "noise"))
+        got = vm_ops.run_program(w, *args)
+        want = run_program_ref(w, *args)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("weights", "registers"), got, want):
+            if a.dtype != torch.int32 or not torch.equal(a, b):
+                raise AssertionError(f"ppuvm_exec: {name} differ from the "
+                                     f"plain version ({label})")
+        return w, args
+
+    n = 0
+    for seed, words, ops in vmc.corpus():
+        both(words, ops, f"corpus seed {seed}")
+        n += 1
+    for seed in range(3):
+        ops = vmc.gen_operands(np.random.RandomState(seed), edge=True)
+        for name, words in [("edge", vmc.edge_program()),
+                            ("unknown opcodes", vmc.unknown_opcode_program()),
+                            *vmc.shipped_programs().items()]:
+            both(words, ops, f"{name}, edge operands {seed}")
+            n += 1
+    rng = np.random.RandomState(11)
+    for i in range(4):
+        words = vmc.pad(vmc.gen_program(rng))
+        ops = vmc.prefixed_operands(rng, (3, 40, 136))
+        both(words, ops, f"[3, 40, 136] program {i}")
+        both(words, dict(ops, mod=None, noise=None),
+             f"[3, 40, 136] program {i}, no mod or noise")
+        n += 2
+    log(f"[6] ppuvm_exec: {n} programs (200-seed fuzz corpus at 8 x 8, edge "
+        f"corpus, unknown opcodes, [3, 40, 136] ragged) bit-equal to the "
+        f"plain version, weights and registers")
+
+    N, R, C = 16, 256, 512
+    ops = vmc.prefixed_operands(rng, (N, R, C))
+    lanes = N * R * C
+    rows = {}
+    # signed_dw as path C runs it (2 modulator slots, no noise plane);
+    # rstdp as apply_rstdp_program runs it (1 slot, a noise plane)
+    for name, o in (("signed_dw", dict(ops, noise=None)),
+                    ("rstdp", dict(ops, mod=ops["mod"][:1]))):
+        words = vmc.shipped_programs()[name]
+        w, args = both(words, o, f"{name} at [16, 256, 512]")
+        n_planes = 3 + (o["noise"] is not None)        # int32 planes in
+        n_mod = o["mod"].shape[0]
+        n_bytes = (lanes * 4 * (n_planes + 1 + 8) + N * C * 4 * (1 + n_mod)
+                   + 4 * len(words))
+        b_ms, b_by = bound_ms(n_bytes, len(words) * lanes)
+        rows[name] = dict(
+            max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            ms=time_ms(lambda: vm_ops.run_program(w, *args), 25),
+            plain_ms=time_ms(lambda: run_program_ref(w, *args), 5),
+            n_bytes=n_bytes, n_words=len(words))
+        r = rows[name]
+        log(f"[6] ppuvm_exec {name}_program ({r['n_words']} words) at "
+            f"[16, 256, 512]: kernel_ms={r['ms']:.4f} plain_ms="
+            f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({b_by}, "
+            f"{n_bytes / 1e6:.1f} MB) bit-equal; yardstick ppu_update "
+            f"(fixed-function R-STDP, phase 2) {ppu_update_ms:.4f} ms")
+    return rows["signed_dw"]
+
+
+def phase_path_c(trial_ms_a):
+    """Path C: the full-width §5 slice with the vm rule, 3 trials."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.ppu import VectorUnit
+    from repro_torch.ppuvm import programs
+
+    init, trial, meta, kw = _full_width(rule_impl="vm")
+    stims = [1, 2, 0]
+    draws = meta["draw"](torch.Generator().manual_seed(12), stims)
+    state0 = init()
+    gate_log = []
+    restore = _route_spy(gate_log)
+    kernels.reset_launches()
+    times, states, metrics = [], [], []
+    state = state0
+    try:
+        for i, stim in enumerate(stims):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            state, m = trial(state, stim, draws.events[i], draws.xi[i])
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+            states.append(state)
+            metrics.append(m)
+    finally:
+        restore()
+    counts = dict(kernels.LAUNCHES)
+    want = {"synray": 4, "synray_sparse": 2, "neuron_scan": 3, "corr": 3,
+            "ppu_update": 0, "ppuvm_exec": 3}
+    if counts != want:
+        raise AssertionError(f"path C launch counts {counts}, expected "
+                             f"{want}")
+    for x in _flatten(state):
+        if x.is_floating_point() and not bool(torch.isfinite(x).all()):
+            raise AssertionError("non-finite state after path C")
+    log(f"[7] path C (vm rule) full width 16 x 256 x 512, T=128: trial ms "
+        f"{', '.join(f'{t:.3f}' for t in times)} (stim 1, 2, 0; path A "
+        f"median {trial_ms_a:.3f}) launches={counts}")
+
+    cols, differing = check_against_cpu(
+        meta, kw, state0, stims[0], draws.events[0], draws.xi[0], states[0],
+        metrics[0], gate_log[0][1][0], "path C trial 0", phase=7)
+    if cols == 0 and differing:
+        raise AssertionError(f"path C: {differing} weight codes differ "
+                             "between the card and the CPU")
+    # the trial's VM update again, on the card and on the CPU, from the
+    # card's window state: registers (dw = r0 of the exc rows) bit for bit
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    ecfg = meta["ecfg"]
+    words = torch.as_tensor(programs.signed_dw_program(
+        eta=ecfg.eta, eta_homeo=ecfg.eta_homeo,
+        fire_thresh=ecfg.fire_thresh), device=cuda)
+    addr = torch.zeros(draws.events[0].shape, dtype=torch.int8, device=cuda)
+    cs_g, _ = meta["core"].run(state0.core, draws.events[0], addr)
+    r = metrics[0]["reward"]
+    mod = torch.stack([r - state0.mean_reward, r])
+    _, regs_g = meta["ppu"].run_program(cs_g, words, mod=mod)
+    ppu_c = VectorUnit(meta["cfg"], _to(meta["inst"], cpu))
+    _, regs_c = ppu_c.run_program(_to(cs_g, cpu), words.cpu(),
+                                  mod=mod.cpu())
+    if not torch.equal(regs_g.cpu(), regs_c):
+        raise AssertionError("path C: the VM registers differ card vs CPU")
+    dw = regs_c[0][..., 0::2, :].to(torch.float32) / 256
+    # the python rule on the same first trial
+    s_py, _ = _full_width()[1](state0, stims[0], draws.events[0],
+                               draws.xi[0])
+    gap = float((states[0].w_signed - s_py.w_signed).abs().max())
+    if not gap < 0.15:
+        raise AssertionError(f"path C: vm and python rules differ by {gap}")
+    log(f"[7] path C trial 0: VM registers card == CPU bit for bit (dw in "
+        f"[{float(dw.min()):.4f}, {float(dw.max()):.4f}], "
+        f"{int((dw != 0).sum())} of {dw.numel()} non-zero); vm vs python "
+        f"rule max |w_signed diff|={gap:.4f} (< 0.15)")
+    text = _interleaved({"vm": trial, "python": _full_width()[1]}, state0,
+                        stims[0], draws.events[0], draws.xi[0], 6)
+    log(f"[7] trial 0, rules interleaved (6 pairs): vm {text['vm']}, "
+        f"python {text['python']}")
+    return counts
+
+
+def phase_rstdp_program(state, draws, meta):
+    """apply_rstdp_program (ppuvm_exec) against apply_rstdp (ppu_update)
+    on one full-width window's observables, the same injected xi."""
+    import torch
+    from repro_torch.core.ppu import VectorUnit
+    from repro_torch.ppuvm import programs
+    cuda = torch.device("cuda")
+    ppu = VectorUnit(meta["cfg"], meta["inst"])
+    addr = torch.zeros(draws.events[0].shape, dtype=torch.int8, device=cuda)
+    cs, _ = meta["core"].run(state.core, draws.events[0], addr)
+    reward = (cs.rate_counters > 0).to(torch.float32)
+    rs = dict(mean_reward=0.5 * torch.ones_like(cs.rate_counters))
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    xi = 0.3 * torch.randn(cs.syn.weights.shape, generator=gen, device=cuda)
+    words = torch.as_tensor(programs.rstdp_program(eta=0.5), device=cuda)
+
+    def fixed():
+        return ppu.apply_rstdp(cs, dict(rs), reward=reward, eta=0.5, xi=xi)
+
+    def vm():
+        return ppu.apply_rstdp_program(cs, dict(rs), reward=reward,
+                                       program=words, xi=xi)
+    s_f, rs_f, _ = fixed()
+    s_v, rs_v, _ = vm()
+    dq = (s_f.syn.weights.to(torch.int32)
+          - s_v.syn.weights.to(torch.int32)).abs()
+    if int(dq.max()) > 1:
+        raise AssertionError(f"apply_rstdp_program differs from apply_rstdp "
+                             f"by {int(dq.max())} codes")
+    if not torch.equal(rs_f["mean_reward"], rs_v["mean_reward"]):
+        raise AssertionError("apply_rstdp_program: mean rewards differ")
+    t_f, t_v = time_ms(fixed, 25), time_ms(vm, 25)
+    log(f"[8] apply_rstdp_program vs apply_rstdp at 16 x 256 x 512, one xi: "
+        f"{int((dq > 0).sum())} of {dq.numel()} codes differ by one, none "
+        f"by more; ms vm {t_v:.4f} fixed {t_f:.4f} (ratio {t_v / t_f:.2f})")
+
+
+def phase_vm_loop():
+    """60 trials of the vm rule at 32 x 16, T = 128, on the card."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.core.hybrid import RSTDPConfig, run_training
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out, _, _ = run_training(n_trials=60, ecfg=RSTDPConfig(trial_steps=128),
+                             seed=0, rule_impl="vm", device="cuda")
+    secs = time.perf_counter() - t0
+    n = kernels.LAUNCHES["ppuvm_exec"]
+    mr = np.median(out["mean_reward"], axis=1)
+    first, last = float(mr[:15].mean()), float(mr[-15:].mean())
+    log(f"[9] vm-rule closed loop 32 x 16, T=128, 60 trials, seed 0: median "
+        f"<R> first 15 {first:.4f} -> last 15 {last:.4f}; {n} ppuvm_exec "
+        f"launches ({secs:.1f} s)")
+    if n != 60 or not np.isfinite(out["w_signed_final"]).all():
+        raise AssertionError(f"vm loop: {n} launches or non-finite weights")
+    if not last > first:
+        raise AssertionError("the vm-rule closed loop did not learn")
+
+
+def phase_playback():
+    """The three golden playback programs through FastBackend on cuda."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.verif import playback as pb
+    vmc = _vm_corpus()
+    for rule in sorted(vmc.GOLDEN_RULES):
+        golden = vmc.load_trace(rule)
+        kernels.reset_launches()
+        tr = pb.execute(vmc.canonical_program(rule), "fast",
+                        vmc.golden_cfg(), device="cuda")
+        n = kernels.LAUNCHES["ppuvm_exec"]
+        errs = pb.compare_traces(tr, golden, atol=0.05)
+        if errs or n != 2:
+            raise AssertionError(f"playback {rule}: {n} launches; "
+                                 + "; ".join(errs))
+        for (tg, kg, vg), (_, _, v) in zip(golden, tr):
+            if kg in ("PPU_W", "WEIGHTS") and not np.array_equal(
+                    v.astype(np.int32), vg.astype(np.int32)):
+                raise AssertionError(f"playback {rule}: {kg}@{tg} differs "
+                                     "from the golden trace")
+        dmax = max(float(np.abs(np.asarray(v, np.float64)
+                                - np.asarray(vg, np.float64)).max())
+                   for (_, _, v), (_, _, vg) in zip(tr, golden))
+        log(f"[10] playback {rule} on the card: {len(tr)} records match the "
+            f"golden trace (max |diff| {dmax:.3g}), PPU_W and WEIGHTS "
+            f"bit-equal, {n} ppuvm_exec launches")
+
+
 def main() -> int:
     if not (REPO / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
@@ -740,16 +1038,22 @@ def main() -> int:
 
     smi = phase_build()
     rows = phase_kernels()
-    counts, state, draws, meta = phase_main_path()
+    counts, state, draws, meta, trial_ms_a = phase_main_path()
     counts_b = phase_path_b(state, draws, meta)
     phase_closed_loop()
+    rows["ppuvm_exec"] = phase_ppuvm_kernel(rows["ppu_update"]["ms"])
+    counts_c = phase_path_c(trial_ms_a)
+    phase_rstdp_program(state, draws, meta)
+    phase_vm_loop()
+    phase_playback()
 
     kernels = []
     for name, (source, replaces) in SRC.items():
         r = rows[name]
         # each kernel's launches from the path that runs it: ppu_update
-        # from path B, the others from path A
-        n = counts_b[name] if name == "ppu_update" else counts[name]
+        # from path B, ppuvm_exec from path C, the others from path A
+        n = {"ppu_update": counts_b, "ppuvm_exec": counts_c}.get(
+            name, counts)[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],

@@ -11,8 +11,10 @@ reference's ``scanned_training`` it draws every trial's events (and the
 exploration noise) in one batch before the loop. The draws come from a
 ``torch.Generator``, or are injected (``Draws``): ``repro_torch.convert``
 replays the reference's ``jax.random`` key chain so both packages see the
-same numbers. Not ported yet: the PPU-VM rule (``rule_impl="vm"``),
-wafer mode, faults, telemetry, and the host-loop baseline.
+same numbers. The rule runs as Python tensor code (``rule_impl="python"``)
+or as a PPU-VM program (``rule_impl="vm"``, the ``ppuvm_exec`` kernel on
+the card). Not ported yet: wafer mode, faults, telemetry, and the
+host-loop baseline.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from repro_torch.configs.bss2 import BSS2, BSS2Config
 from repro_torch.core import synapse
 from repro_torch.core.anncore import AnnCore, AnnCoreState
 from repro_torch.core.ppu import VectorUnit
+from repro_torch.ppuvm import isa, programs
 from repro_torch.verif.mismatch import sample_instance
 
 
@@ -106,7 +109,8 @@ def events_from_background(bg, stims, ecfg: RSTDPConfig):
 def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
                     inst: Dict = None, generator: torch.Generator = None,
                     prefix=(), backend: str = "auto",
-                    sparse_mode: str = None, device=None):
+                    sparse_mode: str = None, rule_impl: str = "python",
+                    device=None):
     """Build the experiment. Returns ``(init, trial, meta)``.
 
     The machine uses 2 rows per input (exc/inh pair, Dale's law: the PPU
@@ -125,6 +129,12 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
         "always", see ``synapse.synaptic_current_window``); ``None``
         keeps AnnCore's "auto" (at full width the census gate picks the
         route of every window).
+      rule_impl: how the learning rule runs. "python": ``_signed_rule``
+        in tensor ops. "vm": its vector part as the PPU-VM program
+        ``ppuvm.programs.signed_dw_program`` (put on the device once,
+        here), whose register 0 is the per-row dw; the scalar glue (Eq. 2,
+        the xi walk, the Dale row rewrite) is the python rule's, so the
+        two differ only by the Q8.8 rounding of dw.
       device: where the experiment runs; ``None`` means ``cuda`` and
         raises without a card.
 
@@ -133,6 +143,8 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
     ``meta["draw"](generator, stims)`` draws them.
     """
     device = resolve_device(device)
+    if rule_impl not in ("python", "vm"):
+        raise ValueError(f"unknown rule_impl {rule_impl!r}")
     if cfg is None:
         cfg = dataclasses.replace(
             BSS2.reduced(), n_rows=2 * ecfg.n_inputs, n_cols=ecfg.n_neurons)
@@ -153,6 +165,10 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
     core = AnnCore(cfg, inst, backend=backend, const_addr=True, **core_kw)
     ppu = VectorUnit(cfg, inst)
     addr = torch.zeros((T, *prefix, 2 * I), dtype=torch.int8, device=device)
+    if rule_impl == "vm":
+        dw_words = torch.as_tensor(programs.signed_dw_program(
+            eta=ecfg.eta, eta_homeo=ecfg.eta_homeo,
+            fire_thresh=ecfg.fire_thresh), device=device)
 
     def _write_signed(syn, w_signed):
         """interleave exc/inh rows: row 2i exc, 2i+1 inh"""
@@ -201,6 +217,22 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
         return new_syn.weights.to(torch.float32), dict(
             mean_reward=mean_r, w_signed=w_signed)
 
+    def _vm_signed_update(cs, state, reward, xi):
+        """The §5 rule with its vector part as a PPU-VM program: register
+        0 holds the per-row dw; the scalar core applies it to the signed
+        float weights, adds the xi walk and rewrites both Dale rows, as
+        ``_signed_rule`` does (``repro/core/hybrid.py:383-398``)."""
+        qc, qa = ppu.read_correlation(cs.corr)
+        mod = torch.stack([reward - state.mean_reward, reward])
+        cs2, regs = ppu.run_program(cs, dw_words, mod=mod)
+        dw = regs[0][..., 0::2, :].to(torch.float32) / isa.ONE
+        w_signed = torch.clamp(state.w_signed + dw + xi, -45.0, 45.0)
+        mean_r = state.mean_reward + ecfg.gamma * (
+            reward - state.mean_reward)                         # Eq. 2
+        cs2 = cs2._replace(syn=_write_signed(cs2.syn, w_signed))
+        return (cs2, dict(mean_reward=mean_r, w_signed=w_signed),
+                dict(causal=qc, acausal=qa))
+
     def trial(state: ExperimentState, stim: int, events, xi):
         """One training trial: emulate the window, reward, PPU update.
         ``events`` [T, *prefix, 2I]; ``xi`` [*prefix, I, C]."""
@@ -208,11 +240,14 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
         cs, _ = core.run(state.core, events, addr)
         rates = cs.rate_counters
         r = _reward(rates, stim)
-        cs2, rule_state, obs = ppu.apply_rule(
-            _signed_rule, cs,
-            dict(mean_reward=state.mean_reward, w_signed=state.w_signed,
-                 xi=xi),
-            reward=r)
+        if rule_impl == "vm":
+            cs2, rule_state, obs = _vm_signed_update(cs, state, r, xi)
+        else:
+            cs2, rule_state, obs = ppu.apply_rule(
+                _signed_rule, cs,
+                dict(mean_reward=state.mean_reward,
+                     w_signed=state.w_signed, xi=xi),
+                reward=r)
         new = ExperimentState(core=cs2, w_signed=rule_state["w_signed"],
                               mean_reward=rule_state["mean_reward"])
         elig = (obs["causal"][..., 0::2, :]
@@ -258,7 +293,8 @@ def stimuli(n_trials: int) -> np.ndarray:
 def run_training(n_trials: int = 300, ecfg: RSTDPConfig = RSTDPConfig(),
                  seed: int = 0, cfg: BSS2Config = None,
                  backend: str = "auto", sparse_mode: str = None,
-                 device=None, inst: Dict = None, draws: Draws = None):
+                 rule_impl: str = "python", device=None, inst: Dict = None,
+                 draws: Draws = None):
     """Full §5 experiment. Returns ``(out, state, meta)``: ``out`` the
     metrics history as numpy arrays stacked [n_trials, ...] plus
     ``w_signed_final``; ``state`` the final ``ExperimentState``.
@@ -273,7 +309,7 @@ def run_training(n_trials: int = 300, ecfg: RSTDPConfig = RSTDPConfig(),
     init, _, meta = make_experiment(
         cfg=cfg, ecfg=ecfg, inst=inst,
         generator=torch.Generator().manual_seed(seed), backend=backend,
-        sparse_mode=sparse_mode, device=device)
+        sparse_mode=sparse_mode, rule_impl=rule_impl, device=device)
     stims = stimuli(n_trials)
     if draws is None:
         draws = meta["draw"](torch.Generator().manual_seed(seed + 1), stims)

@@ -5,7 +5,10 @@ applied to all rows and columns at once; weight writes saturate to 6 bit
 like the hardware store. Ported: the observable reads, the generic
 ``apply_rule`` path that the §5 Dale-signed rule runs on, the reset, and
 the fixed-function standard rule ``apply_rstdp`` (the ``ppu_update``
-kernel). The PPU-VM (``run_program``) is a later slice.
+kernel), and the PPU-VM: ``run_program`` / ``run_program_fixed`` run an
+uploaded instruction-word program (``repro_torch.ppuvm``, the
+``ppuvm_exec`` kernel on the card) and ``apply_rstdp_program`` runs the
+R-STDP rule as one. Not ported yet: the fault hooks.
 """
 from __future__ import annotations
 
@@ -15,6 +18,14 @@ import torch
 
 from repro_torch.configs.bss2 import BSS2Config
 from repro_torch.core import cadc, rules, synapse
+from repro_torch.ppuvm import isa
+
+
+def _to_fixed(x):
+    """Float -> Q8.8 int32 (``isa.to_fixed`` on tensors): float32
+    ``x * 256``, rounded half to even, saturated to int16."""
+    return torch.clamp(torch.round(x.to(torch.float32) * isa.ONE),
+                       isa.I16MIN, isa.I16MAX).to(torch.int32)
 
 
 class VectorUnit:
@@ -88,6 +99,58 @@ class VectorUnit:
         new_state = self._reset_observables(
             state._replace(syn=state.syn._replace(weights=w_q)))
         return new_state, dict(mean_reward=mean_r_new), elig
+
+    # -- programmable rule execution (PPU-VM) -------------------------------
+    def run_program(self, state, words, *, mod=None, noise=None):
+        """Execute a PPU-VM program (``repro_torch.ppuvm``) against the
+        machine state: the program sees the digitized CADC codes, the rate
+        counters, optional per-column modulator slots (``mod`` [n_mod, ...,
+        C] float) and a per-synapse noise plane (``noise`` [..., R, C]
+        float), and may store new 6-bit weights. ``words``: an int32 [P]
+        tensor on the state's device (uploaded once).
+
+        Returns (new_state, regs): observables are reset like
+        ``apply_rule``; ``regs`` is the final [N_REGS, ..., R, C] int32
+        register file, the program's scratch readout.
+        """
+        mod_fp = None if mod is None else _to_fixed(mod)
+        noise_fp = None if noise is None else _to_fixed(noise)
+        return self.run_program_fixed(state, words, mod_fp=mod_fp,
+                                      noise_fp=noise_fp)
+
+    def run_program_fixed(self, state, words, *, mod_fp=None,
+                          noise_fp=None):
+        """Like ``run_program`` but with pre-digitized Q8.8 int32 modulator
+        slots / noise plane, the form playback's ``PPU_RUN`` carries."""
+        from repro_torch.ppuvm import interp
+        qc, qa = self.read_correlation(state.corr)
+        w_new, regs = interp.run_program(
+            words, state.syn.weights, qc, qa, state.rate_counters, mod_fp,
+            noise_fp)
+        syn = state.syn._replace(weights=w_new.to(torch.int8))
+        return self._reset_observables(state._replace(syn=syn)), regs
+
+    def apply_rstdp_program(self, state, rule_state: Dict, *, reward,
+                            program, gamma: float = 0.3, noise: float = 0.3,
+                            xi=None, generator: torch.Generator = None):
+        """R-STDP with the Eq. 3 vector part run as a PPU-VM program
+        (``repro_torch.ppuvm.programs.rstdp_program``, ``program`` its
+        words on the device). The scalar prologue (Eq. 2, the xi walk) is
+        ``apply_rstdp``'s: ``xi`` is the injected [..., R, C] walk (already
+        scaled by ``noise``, e.g. ``convert.replay_rstdp_xi``), else it is
+        drawn from ``generator``. Returns ``(new_state,
+        dict(mean_reward=...), regs)``."""
+        mean_r = rule_state["mean_reward"]
+        mean_r_new = mean_r + gamma * (reward - mean_r)          # Eq. 2
+        mod = (reward - mean_r).unsqueeze(0)                     # slot 0
+        w = state.syn.weights
+        if xi is None:
+            if generator is None:
+                raise ValueError("apply_rstdp_program: pass the xi plane or "
+                                 "a generator")
+            xi = rules.draw_xi(w.shape, noise, generator, w.device)
+        new_state, regs = self.run_program(state, program, mod=mod, noise=xi)
+        return new_state, dict(mean_reward=mean_r_new), regs
 
     def _reset_observables(self, state):
         """Post-read reset: rate counters and correlation capacitors."""

@@ -20,6 +20,9 @@ through the kernels.
   ppu_update     fixed-function R-STDP update: CADC read, eligibility,
                  weight step, 6-bit store (replaces
                  ``repro/kernels/ppu_update``)
+  ppuvm_exec     the PPU-VM: a whole instruction-word program per synapse
+                 lane, 8 Q8.8 registers, saturating integer arithmetic
+                 (replaces ``repro/kernels/ppuvm_exec``)
 
 Instance prefix: a fleet of independent chips is folded into one leading
 N axis with the helpers below, as in the reference.
@@ -30,7 +33,7 @@ import math
 
 # launch counts per kernel name; each wrapper adds one where it launches
 LAUNCHES = {"synray": 0, "synray_sparse": 0, "neuron_scan": 0, "corr": 0,
-            "ppu_update": 0}
+            "ppu_update": 0, "ppuvm_exec": 0}
 
 
 def reset_launches() -> None:

@@ -36,6 +36,7 @@ PER_SOURCE = {
     "neuron_scan.cu": ["-fmad=false"],
     "corr.cu": ["-fmad=false"],
     "ppu_update.cu": ["-fmad=false"],
+    "ppuvm_exec.cu": [],
 }
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -58,6 +59,10 @@ ARGTYPES = {
     # w, a_causal, a_acausal, offset, gain, mod, xi, w_out, elig, N, R, C,
     # eta, cadc_scale, 1/cadc_max, cadc_max, wmax, stream
     "ppu_update_launch": [_VP] * 9 + [_I] * 3 + [_F] * 5 + [_VP],
+    # words, n_words, w, qc, qa, rates_fx, mod, n_mod, noise, w_out, regs,
+    # N, R, C, stream
+    "ppuvm_exec_launch": [_VP, _I] + [_VP] * 5 + [_I] + [_VP] * 3
+                         + [_I] * 3 + [_VP],
 }
 
 _lock = threading.Lock()

@@ -1,1 +1,2 @@
-"""Verification tools: virtual instances (mismatch realisations)."""
+"""Verification tools: virtual instances (mismatch realisations),
+playback co-simulation and its first-divergence locator."""

@@ -1,15 +1,23 @@
-"""Virtual instances: fixed-seed Monte-Carlo mismatch realisations.
+"""Virtual instances (fixed-seed Monte-Carlo mismatch realisations) and
+the first-divergence locator of co-simulation traces.
 
 ``sample_instance(cfg, generator, prefix)`` returns the full mismatch
 realisation for ``prefix``-many chips; the same generator state always
 yields the same silicon. ``torch.Generator`` streams differ from
 ``jax.random``'s, so a test that compares with the reference draws the
 instance there and moves it over with ``repro_torch.convert``.
+
+``first_divergence`` / ``PHASE_OF_KIND`` / ``Divergence`` are numpy, a
+copy of the reference's (``repro/verif/mismatch.py:83-175``): they
+localize where two playback traces (``repro_torch.verif.playback``)
+split.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -80,3 +88,102 @@ def ideal_instance(cfg: BSS2Config, prefix: Tuple[int, ...] = (),
         cadc_offset=torch.zeros((*prefix, c), **f32),
         cadc_gain=torch.ones((*prefix, c), **f32),
     )
+
+
+# ---------------------------------------------------------------------------
+# First-divergence locator for co-simulation traces
+# ---------------------------------------------------------------------------
+
+# which emulation phase produced a given trace-record kind — the coarse
+# "where in the machine" attribution of a divergence
+PHASE_OF_KIND = {
+    "SPIKES": "neuron-scan",
+    "V": "neuron-scan",
+    "RATES": "neuron-scan",
+    "CORR": "corr",
+    "WEIGHTS": "ppu",
+    "PPU_W": "ppu-vm",
+}
+
+
+@dataclass
+class Divergence:
+    """Where two experiment traces first split.
+
+    ``record`` is the index into the trace list; ``kind``/``t`` the
+    record header; ``phase`` the emulation phase that produced the
+    record (``PHASE_OF_KIND``). For array-value divergences ``where`` is
+    the index of the first differing element, ``step`` its absolute
+    timestep when the leading axis is time (SPIKES/V records: the
+    record's end time minus the window length plus the row index), and
+    ``a``/``b`` the two values there. Header/shape/length mismatches set
+    ``structural=True`` and leave the element fields at None.
+    """
+    record: int
+    kind: str
+    t: int
+    phase: str = "?"
+    step: Optional[int] = None
+    where: Optional[Tuple[int, ...]] = None
+    a: Optional[float] = None
+    b: Optional[float] = None
+    n_mismatch: int = 0
+    max_abs: float = 0.0
+    structural: bool = False
+    detail: str = ""
+
+    def describe(self) -> str:
+        if self.structural:
+            return (f"trace diverges structurally at record {self.record} "
+                    f"({self.kind}@{self.t}): {self.detail}")
+        at_step = "" if self.step is None else f" step {self.step},"
+        return (f"first divergence at record {self.record} "
+                f"({self.kind}@{self.t}, phase {self.phase}):{at_step} "
+                f"index {self.where} — {self.a:g} vs {self.b:g} "
+                f"({self.n_mismatch} element(s) differ, "
+                f"max|diff|={self.max_abs:.3e})")
+
+
+def first_divergence(trace_a, trace_b, atol: float = 1e-3,
+                     rtol: float = 1e-4) -> Optional[Divergence]:
+    """Locate the FIRST point two playback traces split (None == match).
+
+    Traces are lists of ``(t, kind, array)`` records as produced by
+    ``repro_torch.verif.playback`` backends. Records are compared in order;
+    the first mismatching one is localized down to the first differing
+    element (first in C order: earliest timestep for time-leading
+    records). Tolerances match ``compare_traces``.
+    """
+    for i, ((ta, ka, va), (tb, kb, vb)) in enumerate(zip(trace_a, trace_b)):
+        if ta != tb or ka != kb:
+            return Divergence(record=i, kind=str(ka), t=int(ta),
+                              structural=True,
+                              detail=f"header ({ta},{ka}) != ({tb},{kb})")
+        va = np.asarray(va, np.float64)
+        vb = np.asarray(vb, np.float64)
+        if va.shape != vb.shape:
+            return Divergence(record=i, kind=str(ka), t=int(ta),
+                              phase=PHASE_OF_KIND.get(ka, "?"),
+                              structural=True,
+                              detail=f"shape {va.shape} != {vb.shape}")
+        bad = ~np.isclose(va, vb, atol=atol, rtol=rtol)
+        if bad.any():
+            idx = tuple(int(j) for j in np.argwhere(bad)[0])
+            step = None
+            if ka in ("SPIKES", "V") and va.ndim >= 1:
+                # record timestamp is the END of the integrated window
+                step = int(ta) - va.shape[0] + idx[0]
+            return Divergence(
+                record=i, kind=str(ka), t=int(ta),
+                phase=PHASE_OF_KIND.get(ka, "?"), step=step, where=idx,
+                a=float(va[idx]), b=float(vb[idx]),
+                n_mismatch=int(bad.sum()),
+                max_abs=float(np.max(np.abs(va - vb))))
+    if len(trace_a) != len(trace_b):
+        n = min(len(trace_a), len(trace_b))
+        longer = trace_a if len(trace_a) > len(trace_b) else trace_b
+        t, k = longer[n][0], longer[n][1]
+        return Divergence(record=n, kind=str(k), t=int(t), structural=True,
+                          detail=f"trace length {len(trace_a)} != "
+                                 f"{len(trace_b)}")
+    return None

@@ -7,7 +7,10 @@ tests/test_torch_cuda.py``.
 
 Tolerances: ``neuron_scan``, ``corr`` and ``ppu_update`` bit-equal (the
 kernels repeat the plain versions' operations in order, built without
-multiply-add contraction); ``synray`` and ``synray_sparse`` within
+multiply-add contraction); ``ppuvm_exec`` bit-equal (integer only: weights
+and registers), on the PPU-VM fuzz corpus, a prefixed multi-block shape
+and the main path's [16, 256, 512], and the vm rule's trial on the card
+equal to the CPU's; ``synray`` and ``synray_sparse`` within
 rtol = atol = 1e-4 of their plain versions (they sum rows with FMAs), and
 ``synray_sparse`` equal to ``synray`` bit for bit on every window that
 fits its capacities (the same FMA chain); the main path on the card
@@ -20,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_ppuvm as vm_corpus
 from _torch_parity import close, t
 from repro_torch import kernels
 from repro_torch.configs.bss2 import BSS2
@@ -32,6 +36,9 @@ from repro_torch.kernels.neuron_scan import ops as neuron_ops
 from repro_torch.kernels.neuron_scan.ref import neuron_window_ref
 from repro_torch.kernels.ppu_update import ops as ppu_ops
 from repro_torch.kernels.ppu_update.ref import rstdp_update_ref
+from repro_torch.kernels.ppuvm_exec import ops as vm_ops
+from repro_torch.kernels.ppuvm_exec.ref import run_program_ref
+from repro_torch.verif import playback as pb
 from repro_torch.kernels.synray_sparse import ops as sparse_ops
 from repro_torch.kernels.synray_sparse.ref import sparse_window_ref
 from repro_torch.kernels.synray import ops as synray_ops
@@ -136,7 +143,7 @@ def test_main_path_on_card_matches_cpu(cuda):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"synray": 6, "synray_sparse": 0,
                                 "neuron_scan": 3, "corr": 3,
-                                "ppu_update": 0}
+                                "ppu_update": 0, "ppuvm_exec": 0}
     inst_c = {k: (v.cpu() if torch.is_tensor(v) else
                   {kk: vv.cpu() for kk, vv in v.items()})
               for k, v in meta["inst"].items()}
@@ -246,3 +253,103 @@ def test_census_gate_routes_on_card(cuda):
     torch.cuda.synchronize()
     assert (kernels.LAUNCHES["synray_sparse"], kernels.LAUNCHES["synray"]) \
         == (2, 2)
+
+
+def _vm_both(words, ops, cuda):
+    """ppuvm_exec and its plain version on the same card operands; one
+    launch counted."""
+    dev = {k: None if v is None else t(v).to(cuda) for k, v in ops.items()}
+    args = (dev["weights"], dev["qc"], dev["qa"], dev["rates"],
+            dev.get("mod"), dev.get("noise"))
+    w_dev = torch.as_tensor(np.asarray(words, np.int32), device=cuda)
+    n0 = kernels.LAUNCHES["ppuvm_exec"]
+    got = vm_ops.run_program(w_dev, *args)
+    want = run_program_ref(w_dev, *args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ppuvm_exec"] == n0 + 1
+    return got, want
+
+
+def _assert_vm_equal(got, want, ctx):
+    for name, a, b in zip(("weights", "registers"), got, want):
+        assert a.dtype == torch.int32 and a.shape == b.shape, (ctx, name)
+        assert torch.equal(a, b), f"ppuvm_exec {name} differ {ctx}"
+
+
+def test_ppuvm_exec_fuzz_corpus(cuda):
+    for seed, words, ops in vm_corpus.corpus():
+        _assert_vm_equal(*_vm_both(words, ops, cuda), f"(seed {seed})")
+    for seed in range(3):
+        ops = vm_corpus.gen_operands(np.random.RandomState(seed), edge=True)
+        for name, words in [("edge", vm_corpus.edge_program()),
+                            ("unknown", vm_corpus.unknown_opcode_program()),
+                            *vm_corpus.shipped_programs().items()]:
+            _assert_vm_equal(*_vm_both(words, ops, cuda), f"({name})")
+
+
+@pytest.mark.parametrize("shape", [(3, 40, 136), (2, 3, 17, 300)])
+def test_ppuvm_exec_prefixed_multi_block(cuda, shape):
+    """Instance prefixes folded into the lanes, tails that are not a
+    multiple of the block, with and without mod / noise."""
+    rng = np.random.RandomState(11)
+    for _ in range(4):
+        words = vm_corpus.pad(vm_corpus.gen_program(rng))
+        ops = vm_corpus.prefixed_operands(rng, shape)
+        _assert_vm_equal(*_vm_both(words, ops, cuda), str(shape))
+        ops = dict(ops, mod=None, noise=None)
+        _assert_vm_equal(*_vm_both(words, ops, cuda), f"{shape} bare")
+
+
+@pytest.mark.parametrize("rule", ["signed_dw", "rstdp"])
+def test_ppuvm_exec_main_path_shape(cuda, rule):
+    rng = np.random.RandomState(12)
+    ops = vm_corpus.prefixed_operands(rng, (16, 256, 512))
+    if rule == "rstdp":
+        ops["mod"] = ops["mod"][:1]
+    _assert_vm_equal(*_vm_both(vm_corpus.shipped_programs()[rule], ops,
+                               cuda), rule)
+
+
+def test_ppuvm_exec_needs_words_on_the_card(cuda):
+    ops = vm_corpus.gen_operands(np.random.RandomState(0))
+    args = [t(ops[k]).to(cuda) for k in ("weights", "qc", "qa", "rates")]
+    with pytest.raises(ValueError, match="upload the program once"):
+        vm_ops.run_program(torch.as_tensor(vm_corpus.edge_program()), *args)
+
+
+def test_vm_rule_trial_on_card_matches_cpu(cuda):
+    """One vm-rule trial at 32 x 16 on the card and on the CPU from the
+    same instance and draws: one ppuvm_exec launch, spikes and weight
+    codes equal, the signed weights within 1e-4."""
+    init, trial, meta = th.make_experiment(
+        generator=torch.Generator().manual_seed(2), rule_impl="vm",
+        device=cuda)
+    draws = meta["draw"](torch.Generator().manual_seed(3), [1])
+    init_c, trial_c, _ = th.make_experiment(
+        inst={k: (v.cpu() if torch.is_tensor(v)
+                  else {a: b.cpu() for a, b in v.items()})
+              for k, v in meta["inst"].items()},
+        rule_impl="vm", device="cpu")
+    kernels.reset_launches()
+    s_g, m_g = trial(init(), 1, draws.events[0], draws.xi[0])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ppuvm_exec"] == 1
+    s_c, m_c = trial_c(init_c(), 1, draws.events[0].cpu(), draws.xi[0].cpu())
+    assert torch.equal(m_g["rates"].cpu(), m_c["rates"])
+    assert torch.equal(s_g.core.syn.weights.cpu(), s_c.core.syn.weights)
+    close(s_g.w_signed.cpu(), s_c.w_signed)
+
+
+@pytest.mark.parametrize("rule", sorted(vm_corpus.GOLDEN_RULES))
+def test_playback_golden_on_card(cuda, rule):
+    golden = vm_corpus.load_trace(rule)
+    kernels.reset_launches()
+    tr = pb.execute(vm_corpus.canonical_program(rule), "fast",
+                    vm_corpus.golden_cfg(), device=cuda)
+    assert kernels.LAUNCHES["ppuvm_exec"] == 2
+    errs = pb.compare_traces(tr, golden, atol=0.05)
+    assert not errs, "\n".join(errs)
+    for (tg, kg, vg), (_, _, v) in zip(golden, tr):
+        if kg in ("PPU_W", "WEIGHTS"):
+            np.testing.assert_array_equal(v.astype(np.int32),
+                                          vg.astype(np.int32))

@@ -8,9 +8,15 @@
   step with the same decay constant as the port's. Spikes equal up to
   flips at threshold; rate counters, CADC codes (eligibility), 6-bit weights and mean rewards exact; the signed float
   weights within 1e-4.
+  The same trial with ``rule_impl="vm"`` (the rule's vector part as the
+  PPU-VM program ``signed_dw_program``): weight codes and the VM's dw
+  readout exact, the signed weights within 1e-4.
 - The closed loop: 450 trials of the port at 32 x 16 with the reference's
   draws meet the criteria of tests/test_rstdp.py::
-  test_fig11_reward_converges_to_one.
+  test_fig11_reward_converges_to_one. With the vm rule, 60 trials at
+  T = 128 learn (tests/test_ppuvm.py::test_hybrid_vm_rule_trains), and
+  the first trial agrees with the python rule's signed weights within
+  0.15 (test_hybrid_vm_dw_matches_python_rule_first_trial).
 """
 import numpy as np
 import pytest
@@ -21,6 +27,7 @@ from _torch_parity import assert_spikes_match, close, spike_threshold
 from repro.core import hybrid as jh
 from repro_torch import convert
 from repro_torch.core import hybrid as th
+from repro_torch.ppuvm import programs
 
 K_TRIALS = 7
 
@@ -29,10 +36,11 @@ def _trailing(mr, sel, n=150):
     return float(np.mean(np.median(mr[-n:, sel], axis=1)))
 
 
-def test_teacher_forced_trial():
+def _teacher_forced(rule_impl):
     ecfg = jh.RSTDPConfig()
     key0 = jax.random.PRNGKey(0)
-    init, _, meta = jh.make_experiment(ecfg=ecfg, instance_key=key0)
+    init, _, meta = jh.make_experiment(ecfg=ecfg, instance_key=key0,
+                                       rule_impl=rule_impl)
     # copied first: the reference's initial state aliases instance arrays,
     # and its scanned training donates that state
     inst = jax.tree.map(np.array, meta["inst"])
@@ -42,13 +50,13 @@ def test_teacher_forced_trial():
     stim = int(stims[K_TRIALS])
     _, trial_i, meta_i = jh.make_experiment(
         ecfg=ecfg, instance_key=key0, backend="fused",
-        kernel_impl="interpret")
+        kernel_impl="interpret", rule_impl=rule_impl)
     j_new, j_m = jax.jit(trial_i)(state_k, stim)
     ref = jax.tree.map(np.asarray, state_k)
 
     _, trial, meta_t = th.make_experiment(
         ecfg=th.RSTDPConfig(), inst=convert.instance(inst, "cpu"),
-        backend="blocked", device="cpu")
+        backend="blocked", rule_impl=rule_impl, device="cpu")
     draws = convert.replay_reference_draws(
         jax.random, state_k.key, [stim], th.RSTDPConfig(), device="cpu")
     st = convert.experiment_state(ref, "cpu")
@@ -57,9 +65,9 @@ def test_teacher_forced_trial():
     # spikes of the trial's window, with membranes for the flip rule
     ev = draws.events[0]
     addr = torch.zeros(ev.shape, dtype=torch.int8)
-    _, j_out = meta_i["core"].run(ref.core, ev.numpy(), addr.numpy(),
-                                  record_v=True)
-    _, t_out = meta_t["core"].run(st.core, ev, addr, record_v=True)
+    j_cs, j_out = meta_i["core"].run(ref.core, ev.numpy(), addr.numpy(),
+                                     record_v=True)
+    t_cs, t_out = meta_t["core"].run(st.core, ev, addr, record_v=True)
     assert float(np.asarray(j_out["spikes"]).sum()) > 0
     assert_spikes_match(t_out["spikes"], j_out["spikes"], t_out["v"],
                         j_out["v"], spike_threshold(inst["neuron_params"]))
@@ -80,6 +88,35 @@ def test_teacher_forced_trial():
                                   np.asarray(j_new.mean_reward))
     close(t_new.w_signed, j_new.w_signed)
     assert not t_new.core.corr.a_causal.any()      # read resets sensors
+    return dict(j_cs=j_cs, t_cs=t_cs, ref=ref, st=st, j_m=j_m, t_m=t_m,
+                meta_i=meta_i, meta_t=meta_t, ecfg=ecfg)
+
+
+def test_teacher_forced_trial():
+    """The python rule: tier 1 on rates, rewards, CADC codes, 6-bit
+    weights and mean rewards; the signed weights within 1e-4."""
+    _teacher_forced("python")
+
+
+def test_teacher_forced_trial_vm():
+    """The vm rule (``signed_dw_program``): as the python rule, and the
+    VM's dw readout (register 0 of the exc rows, / 256) bit for bit, from
+    the window's states of both packages."""
+    r = _teacher_forced("vm")
+    ecfg = r["ecfg"]
+    words = programs.signed_dw_program(
+        eta=ecfg.eta, eta_homeo=ecfg.eta_homeo, fire_thresh=ecfg.fire_thresh)
+    reward = np.asarray(r["j_m"]["reward"])
+    mean_r = np.asarray(r["ref"].mean_reward)
+    mod = np.stack([reward - mean_r, reward])
+    _, j_regs = r["meta_i"]["ppu"].run_program(
+        r["j_cs"], jax.numpy.asarray(words), mod=jax.numpy.asarray(mod))
+    _, t_regs = r["meta_t"]["ppu"].run_program(
+        r["t_cs"], torch.as_tensor(words), mod=torch.as_tensor(mod))
+    j_dw = np.asarray(j_regs[0][..., 0::2, :]).astype(np.float32) / 256
+    t_dw = t_regs[0][..., 0::2, :].to(torch.float32) / 256
+    assert np.abs(j_dw).max() > 0
+    np.testing.assert_array_equal(t_dw.numpy(), j_dw)
 
 
 def test_closed_loop_with_reference_draws():
@@ -122,3 +159,49 @@ def test_run_training_needs_a_device(monkeypatch):
         th.run_training(1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         th.make_experiment()
+
+
+def test_vm_rule_trains():
+    """60 trials of the vm rule at T = 128 with the reference's instance
+    and draws: the median reward of the last 15 trials is above that of
+    the first 15 (tests/test_ppuvm.py::test_hybrid_vm_rule_trains)."""
+    n, seed = 60, 0
+    ecfg = th.RSTDPConfig(trial_steps=128)
+    inst = jax.tree.map(np.asarray, jh.sample_instance(
+        jh.dataclasses.replace(jh.BSS2.reduced(), n_rows=32, n_cols=16),
+        jax.random.PRNGKey(seed), ()))
+    draws = convert.replay_reference_draws(
+        jax.random, jax.random.PRNGKey(seed + 1), th.stimuli(n), ecfg,
+        device="cpu")
+    out, _, _ = th.run_training(n, ecfg=ecfg, seed=seed, rule_impl="vm",
+                                device="cpu",
+                                inst=convert.instance(inst, "cpu"),
+                                draws=draws)
+    mr = np.median(out["mean_reward"], axis=1)
+    assert np.isfinite(out["w_signed_final"]).all()
+    assert mr[-15:].mean() > mr[:15].mean(), (mr[:15].mean(),
+                                              mr[-15:].mean())
+
+
+def test_vm_rule_matches_python_rule_first_trial():
+    """One trial from the same state and draws under both rules: the
+    signed weights agree within 0.15 (the Q8.8 rounding of dw;
+    tests/test_ppuvm.py::test_hybrid_vm_dw_matches_python_rule_first_trial)."""
+    ecfg = th.RSTDPConfig(trial_steps=128)
+    gen = torch.Generator().manual_seed(4)
+    outs = {}
+    for impl in ("python", "vm"):
+        init, trial, meta = th.make_experiment(
+            ecfg=ecfg, generator=torch.Generator().manual_seed(3),
+            rule_impl=impl, device="cpu")
+        if impl == "python":
+            draws = meta["draw"](gen, [1])
+        st, _ = trial(init(), 1, draws.events[0], draws.xi[0])
+        outs[impl] = st.w_signed.numpy()
+    d = np.abs(outs["vm"] - outs["python"])
+    assert 0 < d.max() < 0.15, f"max |dw gap| {d.max()}"
+
+
+def test_unknown_rule_impl_raises():
+    with pytest.raises(ValueError, match="rule_impl"):
+        th.make_experiment(rule_impl="specialized", device="cpu")
