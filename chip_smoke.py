@@ -12,10 +12,13 @@ Phases, each reported on its own line:
    inputs from a numpy seed: ``neuron_scan``, ``corr`` and ``ppu_update``
    bit-equal, ``synray`` and ``synray_sparse`` within rtol = atol = 1e-4
    (they sum rows with FMAs in another order than the plain versions'
-   products), and ``synray_sparse`` equal to ``synray`` bit for bit on a
-   window that fits. Times are medians of CUDA-event timings;
-   ``bound_ms`` is the larger of bytes over 3.35 TB/s and operations over
-   67 TFLOP/s (float32, outside the tensor cores).
+   products), ``synray``'s const_addr form (the main path's) equal to its
+   general form bit for bit and both timed beside ``torch.bmm`` on the
+   resolved mask (the ratio is logged), and ``synray_sparse`` equal to
+   ``synray`` bit for bit on a window that fits. Times are medians of
+   CUDA-event timings; ``bound_ms`` is the larger of bytes over 3.35 TB/s
+   and operations over 67 TFLOP/s (float32, outside the tensor cores),
+   counted from the data (non-zero events, spikes).
 3. Path A, the main path: the §5 experiment at full width (``BSS2``, 128
    inputs x 512 neurons, 16 instances, 128 steps, ``backend="blocked"``,
    ``sparse_mode`` left at its default) for 6 trials, stimuli A, B, none,
@@ -26,7 +29,9 @@ Phases, each reported on its own line:
    finite with whole-number rate counters; the first trial and the first
    no-stimulus trial, rerun on the CPU from the same state and draws, must
    take the same route and agree with the card (spikes equal up to flips
-   at threshold, see ``check_against_cpu``).
+   at threshold, see ``check_against_cpu``). Then ``synray`` (both Dale
+   halves) and ``corr`` are checked and timed again on the operands of
+   the first pattern trial, at the §5 densities.
 4. Path B, the fixed-function R-STDP update: three windows of ``AnnCore
    .run`` at 16 x 256 x 512, each followed by ``VectorUnit.apply_rstdp``
    (3 ``ppu_update`` launches); the first update, rerun on the CPU from
@@ -161,12 +166,8 @@ def phase_kernels():
     import numpy as np
     import torch
     from repro_torch.core import adex
-    from repro_torch.kernels.corr import ops as corr_ops
-    from repro_torch.kernels.corr.ref import correlation_window_ref
     from repro_torch.kernels.neuron_scan import ops as neuron_ops
     from repro_torch.kernels.neuron_scan.ref import neuron_window_ref
-    from repro_torch.kernels.synray import ops as synray_ops
-    from repro_torch.kernels.synray.ref import synaptic_current_ref
 
     rng = np.random.default_rng(0)
     N, T, R, C = 16, 128, 256, 512
@@ -185,28 +186,8 @@ def phase_kernels():
                   * rng.uniform(0.2, 1.2, (T, N, R)).astype(np.float32))
     ea_row = rng.integers(0, 4, (N, R), dtype=np.int8)
     ea_full = dev(np.broadcast_to(ea_row, (T, N, R)))   # const_addr form
-    w_h, st_h = w[:, 0::2, :], st[:, 0::2, :]
-    ev, ea = ev_full[..., 0::2], ea_full[..., 0::2]
-    got = synray_ops.synaptic_current(ev, ea, w_h, st_h)
-    want = synaptic_current_ref(ev, ea, w_h, st_h)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-    err = float((got - want).abs().max())
-    match = (st_h == dev(ea_row[:, 0::2]).unsqueeze(-1))
-    w_eff = (w_h.float() * match.float())                 # [N, R/2, C]
-    ev_n = ev.permute(1, 0, 2).contiguous()               # [N, T, R/2]
-    lib_ms = time_ms(lambda: torch.bmm(ev_n, w_eff), 25)
-    nz = (ev != 0).float()                                # [T, N, R/2]
-    n_fma = float(torch.einsum("tnr,nr->", nz, match.float().sum(-1)))
-    Rh = R // 2
-    n_bytes = T * N * Rh * 5 + 2 * N * Rh * C + T * N * C * 4
-    b_ms, b_by = bound_ms(n_bytes, 2 * n_fma)
-    rows["synray"] = dict(
-        max_abs_err=err, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-        ms=time_ms(lambda: synray_ops.synaptic_current(ev, ea, w_h, st_h),
-                   25),
-        plain_ms=time_ms(lambda: synaptic_current_ref(ev, ea, w_h, st_h),
-                         5))
+    rows["synray"] = synray_row(ev_full[..., 0::2], ea_full[..., 0::2],
+                                w[:, 0::2, :], st[:, 0::2, :], "[2]")
 
     # neuron_scan: a drive that makes the neurons fire
     params, decays = _instance_params((N,), R, C, seed=1)
@@ -251,25 +232,8 @@ def phase_kernels():
     ac0 = dev(rng.uniform(0, 1023, (N, R, C)).astype(np.float32))
     aa0 = dev(rng.uniform(0, 1023, (N, R, C)).astype(np.float32))
     lam = float(np.exp(-0.2 / 5.0))
-    got = corr_ops.correlation_window(pre, post, tp0, tq0, ac0, aa0, lam=lam)
-    want = correlation_window_ref(pre, post, tp0, tq0, ac0, aa0, lam=lam)
-    torch.cuda.synchronize()
-    for name, a, b in zip(("a_causal", "a_acausal", "tp", "tq"), got, want):
-        if not torch.equal(a, b):
-            raise AssertionError(f"corr: {name} differs from the plain "
-                                 f"version (max |diff| "
-                                 f"{float((a - b).abs().max())})")
-    # operations this data needs: a post spike updates a column of a_c
-    # and a pre spike a row of a_a (multiply, add, min each)
-    n_ops = 3 * (float(post.sum()) * R + float(pre.sum()) * C)
-    n_bytes = (T * N * (R + C) + 2 * N * (R + C) + 4 * N * R * C) * 4
-    b_ms, b_by = bound_ms(n_bytes, n_ops)
-    rows["corr"] = dict(
-        max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        ms=time_ms(lambda: corr_ops.correlation_window(
-            pre, post, tp0, tq0, ac0, aa0, lam=lam), 25),
-        plain_ms=time_ms(lambda: correlation_window_ref(
-            pre, post, tp0, tq0, ac0, aa0, lam=lam), 3))
+    rows["corr"] = corr_row((pre, post, tp0, tq0, ac0, aa0),
+                            dict(lam=lam), "[2]")
     rows["synray_sparse"] = _check_synray_sparse(rng, dev, N, T, R, C)
     rows["ppu_update"] = _check_ppu_update(rng, dev, N, R, C)
     for name, r in rows.items():
@@ -279,6 +243,86 @@ def phase_kernels():
             f"{r['bound_ms']:.4f} ({r['bound_by']}) max_abs_err="
             f"{r['max_abs_err']:.3g}")
     return rows
+
+
+def synray_row(ev, ea, w_h, st_h, tag):
+    """synray on one Dale half's window with row-constant addresses (the
+    main path's const_addr form): within 1e-4 of the plain version, the
+    const-address form bit-equal to the general form; both forms timed
+    beside ``torch.bmm`` on the same window with the mask resolved (the
+    library yardstick, used nowhere in the port). The bound counts the
+    bytes the const form needs (event values, step 0's addresses, the two
+    int8 stores, the output) and one FMA per non-zero event and matched
+    column."""
+    import torch
+    from repro_torch.kernels.synray import ops as synray_ops
+    from repro_torch.kernels.synray.ref import synaptic_current_ref
+    T, N, Rh = ev.shape
+    C = w_h.shape[-1]
+    got = synray_ops.synaptic_current(ev, ea, w_h, st_h, const_addr=True)
+    general = synray_ops.synaptic_current(ev, ea, w_h, st_h)
+    want = synaptic_current_ref(ev, ea, w_h, st_h)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    if not torch.equal(got, general):
+        raise AssertionError(f"{tag} synray: the const-address form differs "
+                             "from the general form on constant addresses")
+    err = float((got - want).abs().max())
+    match = (st_h == ea[0].unsqueeze(-1)).float()        # [N, Rh, C]
+    w_eff = w_h.float() * match
+    ev_n = ev.permute(1, 0, 2).contiguous()               # [N, T, Rh]
+    lib_ms = time_ms(lambda: torch.bmm(ev_n, w_eff), 25)
+    nz = (ev != 0).float()
+    n_fma = float(torch.einsum("tnr,nr->", nz, match.sum(-1)))
+    n_bytes = T * N * Rh * 4 + N * Rh + 2 * N * Rh * C + T * N * C * 4
+    b_ms, b_by = bound_ms(n_bytes, 2 * n_fma)
+    ms = time_ms(lambda: synray_ops.synaptic_current(ev, ea, w_h, st_h,
+                                                     const_addr=True), 25)
+    general_ms = time_ms(lambda: synray_ops.synaptic_current(ev, ea, w_h,
+                                                             st_h), 25)
+    log(f"{tag} synray at [T={T}, N={N}, R={Rh}, C={C}], event density "
+        f"{float(nz.mean()):.4f}: const_addr form {ms:.4f} ms, general form "
+        f"{general_ms:.4f} ms, torch.bmm (mask resolved) {lib_ms:.4f} ms; "
+        f"const / bmm = {ms / lib_ms:.2f}; const == general bit for bit")
+    return dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, ms=ms,
+                plain_ms=time_ms(lambda: synaptic_current_ref(
+                    ev, ea, w_h, st_h), 5))
+
+
+def corr_row(ops, kw, tag):
+    """corr bit-equal to its plain version, both timed; the bound counts
+    the operations this data needs (a post spike updates a column of a_c,
+    a pre spike a row of a_a: multiply, add and min each) and the bytes
+    (spike windows and traces read, accumulators read and written)."""
+    import torch
+    from repro_torch.kernels.corr import ops as corr_ops
+    from repro_torch.kernels.corr.ref import correlation_window_ref
+    pre, post = ops[0], ops[1]
+    T, N, R = pre.shape
+    C = post.shape[-1]
+    got = corr_ops.correlation_window(*ops, **kw)
+    want = correlation_window_ref(*ops, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("a_causal", "a_acausal", "tp", "tq"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag} corr: {name} differs from the plain "
+                                 f"version (max |diff| "
+                                 f"{float((a - b).abs().max())})")
+    n_pre = float((pre != 0).sum())
+    n_post = float((post != 0).sum())
+    n_ops = 3 * (n_post * R + n_pre * C)
+    n_bytes = (T * N * (R + C) + 2 * N * (R + C) + 4 * N * R * C) * 4
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    ms = time_ms(lambda: corr_ops.correlation_window(*ops, **kw), 25)
+    log(f"{tag} corr at [T={T}, N={N}, R={R}, C={C}], spike density pre "
+        f"{n_pre / pre.numel():.4f} post {n_post / post.numel():.4f}: "
+        f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.2f}x the "
+        f"bound; bit-equal to the plain version")
+    return dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, ms=ms,
+                plain_ms=time_ms(lambda: correlation_window_ref(*ops, **kw),
+                                 3))
 
 
 def _check_synray_sparse(rng, dev, N, T, R, C):
@@ -308,7 +352,7 @@ def _check_synray_sparse(rng, dev, N, T, R, C):
     ea_n = ea.permute(1, 0, 2).contiguous()
     recs = events.regroup_window(ev_n, ea_n, MAX_EVENTS, K_CAP)
     got = sparse_ops.sparse_window(*recs, w_h, st_h)
-    dense = synray_ops.synaptic_current(ev, ea, w_h, st_h)
+    dense = synray_ops.synaptic_current(ev, ea, w_h, st_h, const_addr=True)
     want = sparse_window_ref(*recs, w_h, st_h)
     torch.cuda.synchronize()
     if not torch.equal(got, dense.permute(1, 0, 2)):
@@ -333,8 +377,8 @@ def _check_synray_sparse(rng, dev, N, T, R, C):
         plain_ms=time_ms(lambda: sparse_window_ref(*recs, w_h, st_h), 5))
     pack_ms = time_ms(lambda: events.regroup_window(ev_n, ea_n, MAX_EVENTS,
                                                     K_CAP), 25)
-    dense_ms = time_ms(lambda: synray_ops.synaptic_current(ev, ea, w_h, st_h),
-                       25)
+    dense_ms = time_ms(lambda: synray_ops.synaptic_current(
+        ev, ea, w_h, st_h, const_addr=True), 25)
     log(f"    synray_sparse window: {n_ev} events (worst instance), "
         f"k_max={k_max}; pack (regroup_window)={pack_ms:.4f} ms, dense "
         f"synray on the same window={dense_ms:.4f} ms, equal bit for bit")
@@ -495,7 +539,62 @@ def phase_main_path():
                         times[i], f"trial {i} (stim {stims[i]})")
     gate_cost(draws.events[i0])
     route_ab(states[i0 - 1], stims[i0], draws.events[i0], draws.xi[i0])
+    kernels_on_trial(trial, state0, stims[0], draws.events[0], draws.xi[0],
+                     "trial 0 (stim 1)")
     return counts, states[-1], draws, meta, sorted(times)[len(times) // 2]
+
+
+def _capture(calls):
+    """Wrap the synray and corr wrappers so that each call keeps a copy of
+    its operands (with their strides) before it runs; returns the undo."""
+    import torch
+    from repro_torch.kernels.corr import ops as corr_ops
+    from repro_torch.kernels.synray import ops as synray_ops
+
+    def keep(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        return torch.empty_strided(x.size(), x.stride(), dtype=x.dtype,
+                                   device=x.device).copy_(x)
+    real = {}
+    for mod, name in ((synray_ops, "synaptic_current"),
+                      (corr_ops, "correlation_window")):
+        fn = real[(mod, name)] = getattr(mod, name)
+
+        def spy(*args, _fn=fn, _name=name, **kw):
+            calls.append((_name, tuple(keep(a) for a in args), kw))
+            return _fn(*args, **kw)
+        setattr(mod, name, spy)
+
+    def undo():
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+    return undo
+
+
+def kernels_on_trial(trial, state, stim, events_t, xi, label):
+    """synray and corr again on the operands of one path-A trial (the §5
+    densities, after the timed run): the trial is rerun with its operands
+    captured, then each kernel is checked and timed on them as in phase
+    2. The dense windows must come in the const_addr form."""
+    calls = []
+    undo = _capture(calls)
+    try:
+        trial(state, stim, events_t, xi)
+    finally:
+        undo()
+    syn = [c for c in calls if c[0] == "synaptic_current"]
+    cor = [c for c in calls if c[0] == "correlation_window"]
+    if len(syn) != 2 or len(cor) != 1:
+        raise AssertionError(f"{label}: {len(syn)} synray and {len(cor)} "
+                             "corr calls, expected 2 and 1")
+    for half, (_, args, kw) in zip(("exc", "inh"), syn):
+        if kw.get("const_addr") is not True:
+            raise AssertionError(f"{label}: the dense window did not take "
+                                 "the const_addr form")
+        synray_row(*args, f"[3] {label} {half} half:")
+    _, args, kw = cor[0]
+    corr_row(args, kw, f"[3] {label}:")
 
 
 def route_ab(state, stim, events_t, xi, pairs=6):

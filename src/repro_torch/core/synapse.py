@@ -56,9 +56,10 @@ SPARSE_MIN_DENSE_WORK = 2 * 1024 * 1024
 
 def _dense_window(weights, addresses, row_events_t, event_addr_t, gain,
                   const_addr):
-    """The dense whole-window path: the synray kernel on a CUDA device;
-    on the CPU, with ``const_addr``, the once-resolved matmul of the
-    reference's ``ref`` branch, else the kernel's plain version."""
+    """The dense whole-window path: the synray kernel on a CUDA device (in
+    its const-address form with ``const_addr``); on the CPU, with
+    ``const_addr``, the once-resolved matmul of the reference's ``ref``
+    branch, else the kernel's plain version."""
     if weights.device.type == "cpu" and const_addr:
         match = (addresses == event_addr_t[0].unsqueeze(-1)
                  ).to(torch.float32)
@@ -70,11 +71,12 @@ def _dense_window(weights, addresses, row_events_t, event_addr_t, gain,
             i = torch.einsum("t...r,...rc->t...c", ev, w_eff)
         return i * gain
     from repro_torch.kernels.synray import ops as synray_ops
-    # on the card the masked kernel runs even with const_addr, as the
-    # reference's main path does on its accelerator
+    # on the card const_addr selects the kernel's const-address form (the
+    # match of step 0 folded into the weights), bit-equal to its general
+    # form on constant addresses
     return synray_ops.synaptic_current(
         row_events_t.to(torch.float32), event_addr_t, weights,
-        addresses) * gain
+        addresses, const_addr=const_addr) * gain
 
 
 def _sparse_window(weights, addresses, row_events_t, event_addr_t, gain,

@@ -44,8 +44,8 @@ _LL = ctypes.c_longlong
 ARGTYPES = {
     # ev, ea, w, addr, out, N, B, R, C,
     # ev strides (n, b, r), ea strides (n, b, r), w strides (n, r),
-    # addr strides (n, r), out strides (n, b), stream
-    "synray_launch": [_VP] * 5 + [_I] * 4 + [_LL] * 12 + [_VP],
+    # addr strides (n, r), out strides (n, b), const_addr, stream
+    "synray_launch": [_VP] * 5 + [_I] * 4 + [_LL] * 12 + [_I, _VP],
     # ie, ii, state_in, params, spikes, state_out, v_rec, N, T, C, dt,
     # use_adex, stream
     "neuron_scan_launch": [_VP] * 7 + [_I] * 3 + [_F, _I, _VP],

@@ -4,7 +4,9 @@ Spike windows are time-major ([T, ..., R] / [T, ..., C]); an instance
 prefix on the sensor state folds into one N axis. CPU tensors run the
 plain per-step version (``ref.py``); CUDA tensors launch the kernel,
 which keeps the accumulators in registers for the whole window and
-clamps at every step: it matches the plain version bit for bit.
+updates them only at the steps where a spike touches them (the skip is
+exact; the conditions are in ``corr.cu``'s header): it matches the plain
+version bit for bit on finite inputs.
 """
 from __future__ import annotations
 

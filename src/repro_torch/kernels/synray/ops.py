@@ -5,6 +5,13 @@ an instance-prefixed store ``[..., R, C]`` and returns ``[T, ..., C]``.
 CPU tensors run the plain version (``ref.py``); CUDA tensors launch the
 kernel, which reads strided operands in place: the Dale halves
 ``w[..., 0::2, :]`` and event views ``eff_t[..., 0::2]`` are not copied.
+
+``const_addr=True`` promises that each row's event address is the same at
+every step of the window; the kernel then reads the addresses of step 0
+only and folds the match into its staged weights (the const-address form,
+which the main path runs). On the CPU the keyword changes nothing: the
+plain version matches every step's address, which on constant addresses
+is the same product.
 """
 from __future__ import annotations
 
@@ -21,9 +28,11 @@ def _check(cond, msg):
         raise ValueError(f"synray: {msg}")
 
 
-def synaptic_current(events_t, event_addr_t, weights, addresses):
+def synaptic_current(events_t, event_addr_t, weights, addresses, *,
+                     const_addr: bool = False):
     """i[t, ..., c] = sum_r ev[t, ..., r] * w[..., r, c]
-    * (addr[..., r, c] == ea[t, ..., r])."""
+    * (addr[..., r, c] == ea[t, ..., r]); with ``const_addr`` the card
+    reads ``ea[0, ..., r]`` for every step."""
     if events_t.device.type == "cpu":
         return synaptic_current_ref(events_t, event_addr_t, weights,
                                     addresses)
@@ -60,7 +69,7 @@ def synaptic_current(events_t, event_addr_t, weights, addresses):
         ev.stride(1), ev.stride(0), ev.stride(2),
         ea.stride(1), ea.stride(0), ea.stride(2),
         w.stride(0), w.stride(1), a.stride(0), a.stride(1),
-        out.stride(1), out.stride(0), stream)
+        out.stride(1), out.stride(0), int(bool(const_addr)), stream)
     _build.check(err, "synray")
     kernels.LAUNCHES["synray"] += 1
     return out.reshape(T, *prefix, C)

@@ -7,13 +7,17 @@ tests/test_torch_cuda.py``.
 
 Tolerances: ``neuron_scan``, ``corr`` and ``ppu_update`` bit-equal (the
 kernels repeat the plain versions' operations in order, built without
-multiply-add contraction); ``ppuvm_exec`` bit-equal (integer only: weights
+multiply-add contraction; ``corr`` also on the edges of its spike-driven
+skip: accumulators above sat, -0.0 entries, all-zero and dense windows,
+non-binary spikes); ``ppuvm_exec`` bit-equal (integer only: weights
 and registers), on the PPU-VM fuzz corpus, a prefixed multi-block shape
 and the main path's [16, 256, 512], and the vm rule's trial on the card
-equal to the CPU's; ``synray`` and ``synray_sparse`` within
-rtol = atol = 1e-4 of their plain versions (they sum rows with FMAs), and
-``synray_sparse`` equal to ``synray`` bit for bit on every window that
-fits its capacities (the same FMA chain); the main path on the card
+equal to the CPU's; ``synray`` (both forms) and ``synray_sparse``
+within rtol = atol = 1e-4 of their plain versions (they sum rows with
+FMAs); ``synray``'s const-address form bit-equal to its general form on
+constant addresses, and ``synray_sparse`` equal to ``synray`` bit for bit
+on every window that fits its capacities, in either form (the same FMA
+chain); the main path on the card
 against the CPU: spike counts equal and the signed weights within 1e-4.
 """
 import dataclasses
@@ -24,7 +28,7 @@ import pytest
 import torch
 
 import _torch_ppuvm as vm_corpus
-from _torch_parity import close, t
+from _torch_parity import CORR_EDGE_CASES, close, corr_edge_operands, t
 from repro_torch import kernels
 from repro_torch.configs.bss2 import BSS2
 from repro_torch.core import adex, events
@@ -75,6 +79,34 @@ def test_synray_matches_plain(cuda):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("T,N,R,C", [(37, 3, 90, 300), (128, 2, 256, 512)])
+def test_synray_const_addr(cuda, T, N, R, C):
+    """The const-address form on ragged shapes (45 rows a Dale half: no
+    multiple of the row chunk; 300 columns: a partial column block and no
+    16-byte rows) and on the main path's aligned widths: within 1e-4 of
+    the plain version and bit-equal to the general form on constant
+    addresses."""
+    rng = np.random.default_rng(T + C)
+    ev = ((rng.random((T, N, R)) < 0.2)
+          * rng.uniform(0.2, 1.2, (T, N, R))).astype(np.float32)
+    ea = np.broadcast_to(rng.integers(0, 4, (N, R)).astype(np.int8),
+                         (T, N, R)).copy()
+    w = rng.integers(0, 64, (N, R, C)).astype(np.int8)
+    a = rng.integers(0, 4, (N, R, C)).astype(np.int8)
+    args = [t(x).to(cuda) for x in (ev, ea, w, a)]
+    for h in (0, 1):
+        view = (args[0][..., h::2], args[1][..., h::2], args[2][:, h::2],
+                args[3][:, h::2])
+        n0 = kernels.LAUNCHES["synray"]
+        const = synray_ops.synaptic_current(*view, const_addr=True)
+        general = synray_ops.synaptic_current(*view, const_addr=False)
+        want = synaptic_current_ref(*view)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["synray"] == n0 + 2
+        torch.testing.assert_close(const, want, rtol=1e-4, atol=1e-4)
+        assert torch.equal(const, general)
+
+
 @pytest.mark.parametrize("use_adex", [True, False])
 def test_neuron_scan_bit_equal(cuda, use_adex):
     cfg = BSS2.reduced()
@@ -121,6 +153,22 @@ def test_corr_bit_equal(cuda):
     assert kernels.LAUNCHES["corr"] == n0 + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", CORR_EDGE_CASES)
+@pytest.mark.parametrize("T", [77, 33])
+def test_corr_edge_cases_bit_equal(cuda, case, T):
+    """The edges of the spike-driven skip (``corr.cu``'s header), bit
+    for bit against the plain version on the card: accumulators above
+    sat, -0.0 entries, all-zero and fully dense windows, non-binary and
+    negative spikes, T a multiple of no chunk."""
+    ops = [t(x).to(cuda) for x in corr_edge_operands(case, T=T)]
+    lam = math.exp(-0.2 / 5.0)
+    got = corr_ops.correlation_window(*ops, lam=lam)
+    want = correlation_window_ref(*ops, lam=lam)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("a_causal", "a_acausal", "tp", "tq"), got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
 
 
 def test_main_path_on_card_matches_cpu(cuda):
@@ -181,17 +229,21 @@ def test_synray_sparse_equals_dense_kernel(cuda, p, const):
     for h in (0, 1):
         args = (w[:, h::2], a[:, h::2], ev[..., h::2], ea[..., h::2], gain)
         n0 = dict(kernels.LAUNCHES)
-        dense = synapse.synaptic_current_window(*args, sparse="never")
+        dense = synapse.synaptic_current_window(*args, const_addr=const,
+                                                sparse="never")
         sparse = synapse.synaptic_current_window(
-            *args, sparse="always", max_events=T * R, k_cap=R // 2)
+            *args, const_addr=const, sparse="always", max_events=T * R,
+            k_cap=R // 2)
         torch.cuda.synchronize()
         assert kernels.LAUNCHES["synray"] == n0["synray"] + 1
         assert kernels.LAUNCHES["synray_sparse"] == n0["synray_sparse"] + 1
         assert torch.equal(dense, sparse)
-        route, me, kc = synapse.window_route(args[2], C, sparse="auto")
+        route, me, kc = synapse.window_route(args[2], C, const_addr=const,
+                                             sparse="auto")
         if route == "sparse":
             assert torch.equal(dense, synapse.synaptic_current_window(
-                *args, sparse="always", max_events=me, k_cap=kc))
+                *args, const_addr=const, sparse="always", max_events=me,
+                k_cap=kc))
 
 
 def test_synray_sparse_matches_plain(cuda):

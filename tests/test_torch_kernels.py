@@ -14,9 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_spikes_match, close, spike_threshold, t
+from _torch_parity import (CORR_EDGE_CASES, assert_spikes_match, close,
+                           corr_edge_operands, spike_threshold, t)
 from repro.configs.bss2 import BSS2 as J_BSS2
 from repro.core import adex as j_adex
+from repro.core import synapse as j_synapse
 from repro.kernels.corr.kernel import correlation_window_pallas
 from repro.kernels.corr.ref import correlation_window_ref as j_corr_ref
 from repro.kernels.neuron_scan import ops as j_neuron_ops
@@ -24,7 +26,7 @@ from repro.kernels.synray.kernel import synaptic_current_pallas
 from repro.kernels.synray.ref import synaptic_current_ref as j_syn_ref
 from repro.verif.mismatch import sample_instance
 from repro_torch import kernels
-from repro_torch.core import adex
+from repro_torch.core import adex, synapse
 from repro_torch.kernels.corr import ops as corr_ops
 from repro_torch.kernels.corr.ref import correlation_window_ref
 from repro_torch.kernels.neuron_scan import ops as neuron_ops
@@ -87,6 +89,44 @@ class TestSynray:
         meta = [x.to("meta") for x in (t(ev), t(ea), t(w), t(a))]
         with pytest.raises(ValueError, match="unsupported device"):
             synray_ops.synaptic_current(*meta)
+
+
+    @pytest.mark.parametrize("T,N,R,C", [(13, 2, 32, 128), (37, 3, 45, 300),
+                                         (8, 1, 16, 16)])
+    def test_const_addr_keyword_on_cpu(self, T, N, R, C):
+        """``const_addr=True`` on CPU tensors: the plain version, equal to
+        the reference's plain version and to its const-address dense
+        window (the mask resolved once from step 0) within 1e-4."""
+        ev, ea, w, a = _synray_operands(T, N, R, C, seed=T + C, const=True)
+        ops = (t(ev), t(ea), t(w), t(a))
+        before = dict(kernels.LAUNCHES)
+        got = synray_ops.synaptic_current(*ops, const_addr=True)
+        assert kernels.LAUNCHES == before, "the CPU path launches nothing"
+        assert torch.equal(got, synray_ops.synaptic_current(*ops))
+        for n in range(N):
+            close(got[:, n].numpy(), j_syn_ref(ev[:, n], ea[:, n], w[n], a[n]))
+        want = j_synapse._dense_window(w, a, ev, ea, 1.0, "ref", True, None)
+        close(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("const_addr", [True, False])
+def test_dense_window_passes_const_addr(monkeypatch, const_addr):
+    """Off the CPU the dense window hands its ``const_addr`` to the synray
+    wrapper, whose const-address form the main path runs on the card."""
+    seen = []
+
+    def spy(ev, ea, w, a, *, const_addr=False):
+        seen.append(const_addr)
+        return torch.zeros((ev.shape[0], *w.shape[:-2], w.shape[-1]),
+                           device=ev.device)
+    monkeypatch.setattr(synray_ops, "synaptic_current", spy)
+    ev, ea, w, a = (t(x).to("meta")
+                    for x in _synray_operands(4, 2, 16, 16, seed=8))
+    out = synapse.synaptic_current_window(w, a, ev, ea, 1.0,
+                                          const_addr=const_addr,
+                                          sparse="never")
+    assert seen == [const_addr]
+    assert out.shape == (4, 2, 16)
 
 
 def test_fold_helpers_match_reference():
@@ -203,6 +243,20 @@ class TestCorr:
                              lam=self.LAM)
             for g, r in zip(got, ref):
                 close(g[n], r)
+
+    @pytest.mark.parametrize("case", CORR_EDGE_CASES)
+    def test_plain_edge_cases_match_reference(self, case):
+        """The edge cases the card kernel is held to bit for bit
+        (``tests/test_torch_cuda.py``): its plain version against the
+        reference's, within 1e-4."""
+        ops = corr_edge_operands(case)
+        got = corr_ops.correlation_window(*map(t, ops), lam=self.LAM)
+        pre, post, *st = ops
+        for n in range(pre.shape[1]):
+            ref = j_corr_ref(pre[:, n], post[:, n], *(x[n] for x in st),
+                             lam=self.LAM)
+            for g, r, name in zip(got, ref, ("ac", "aa", "tp", "tq")):
+                close(g[n], r, err_msg=f"{case} {name}")
 
     def test_wrapper_dispatch(self):
         ops = [t(x) for x in _corr_operands(5, 1, 8, 8, seed=1)]
