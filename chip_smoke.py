@@ -6,7 +6,10 @@
 Phases, each reported on its own line:
 
 1. Device and build: the card's name and power limit (``nvidia-smi``),
-   then the CUDA kernels built from ``src/repro_torch/csrc`` (timed).
+   then the CUDA kernels built from ``src/repro_torch/csrc`` (timed), and
+   ``-Xptxas -v``'s report held to the redesigned kernels' budgets:
+   ``ppuvm_exec`` with a 0-byte stack frame, neither it nor
+   ``neuron_scan`` spilling.
 2. Each kernel against its plain PyTorch version on the card, at the
    main-path shapes (16 instances of the full 256 x 512 chip, T = 128),
    inputs from a numpy seed: ``neuron_scan``, ``corr`` and ``ppu_update``
@@ -15,7 +18,10 @@ Phases, each reported on its own line:
    products), ``synray``'s const_addr form (the main path's) equal to its
    general form bit for bit and both timed beside ``torch.bmm`` on the
    resolved mask (the ratio is logged), and ``synray_sparse`` equal to
-   ``synray`` bit for bit on a window that fits. Times are medians of
+   ``synray`` bit for bit on a window that fits. ``neuron_scan`` is timed
+   as the main path calls it (parameters packed once), also on the host
+   clock with its wrapper, beside its chain floor (``chain_floor_ms``: the
+   kernel with the currents in registers). Times are medians of
    CUDA-event timings; ``bound_ms`` is the larger of bytes over 3.35 TB/s
    and operations over 67 TFLOP/s (float32, outside the tensor cores),
    counted from the data (non-zero events, spikes).
@@ -45,9 +51,11 @@ Phases, each reported on its own line:
    port's assembler by ``tests/_torch_ppuvm.py``), the edge corpus, the
    unknown-opcode program, a prefixed [3, 40, 136] shape with ragged
    tails, and ``signed_dw_program`` / ``rstdp_program`` at [16, 256, 512]
-   (timed; ``bound_ms`` counts each int32 plane read once, the weights
-   and the 8 registers written once). No PyTorch call computes the VM;
-   beside it, ``ppu_update`` on the same R-STDP update as a yardstick.
+   on int8 weights, as their callers pass them (timed, and again on int32
+   weights; ``bound_ms`` counts each plane read once in the type it has,
+   the weights and the 8 registers written once as int32). No PyTorch
+   call computes the VM; beside it, ``ppu_update`` on the same R-STDP
+   update as a yardstick.
 7. Path C, the vm rule at full width: path A's configuration with
    ``rule_impl="vm"``, 3 trials (A, B, none): exactly 3 ``ppuvm_exec``
    launches; the first trial rerun on the CPU (as in phase 3, weight codes
@@ -71,6 +79,7 @@ fails; the last line is the JSON device record.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -145,6 +154,21 @@ def phase_build():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    {name}: {line.strip()}")
+    # the redesigned kernels' register budgets: ppuvm_exec keeps the VM's
+    # register file in registers (no stack frame), neither spills
+    for name, no_stack in (("neuron_scan.cu", False), ("ppuvm_exec.cu", True)):
+        frames = [tuple(map(int, m)) for m in re.findall(
+            r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+            r"spill loads", _build.BUILD_LOG.get(name, ""))]
+        if not frames:
+            raise AssertionError(f"{name}: no -Xptxas -v report in the build "
+                                 "log")
+        if any(st or sl for _, st, sl in frames):
+            raise AssertionError(f"{name} spills: {frames}")
+        if no_stack and any(f for f, _, _ in frames):
+            raise AssertionError(f"{name}: stack frame {frames}")
+        log(f"[1] {name}: {len(frames)} functions, stack frames "
+            f"{sorted({f for f, _, _ in frames})} bytes, no spills")
     return smi
 
 
@@ -166,8 +190,6 @@ def phase_kernels():
     import numpy as np
     import torch
     from repro_torch.core import adex
-    from repro_torch.kernels.neuron_scan import ops as neuron_ops
-    from repro_torch.kernels.neuron_scan.ref import neuron_window_ref
 
     rng = np.random.default_rng(0)
     N, T, R, C = 16, 128, 256, 512
@@ -197,32 +219,7 @@ def phase_kernels():
              * rng.uniform(0, 100, (T, N, C)).astype(np.float32))
     s0 = adex.init_state((N, C), params)
     rc0 = torch.zeros((N, C), device=cuda)
-    kw = dict(dt=0.2, use_adex=True, decays=decays)
-    g_state, g_rc, g_recs = neuron_ops.neuron_window(s0, rc0, ie, ii,
-                                                     params, **kw)
-    p_state, p_rc, p_recs = neuron_window_ref(s0, rc0, ie, ii, params,
-                                              **kw)
-    torch.cuda.synchronize()
-    n_spk = float(g_recs[0].sum())
-    if n_spk == 0:
-        raise AssertionError("neuron_scan: the test drive elicited no spike")
-    for name, a, b in zip(("spikes", "rate_counters", *g_state._fields),
-                          (g_recs[0], g_rc, *g_state),
-                          (p_recs[0], p_rc, *p_state)):
-        if not torch.equal(a, b):
-            raise AssertionError(f"neuron_scan: {name} differs from the "
-                                 f"plain version (max |diff| "
-                                 f"{float((a - b).abs().max())})")
-    n_bytes = (2 * T * N * C + 6 * N * C + 12 * N * C + T * N * C
-               + 6 * N * C) * 4
-    b_ms, b_by = bound_ms(n_bytes, 30 * T * N * C)   # ~30 flops a step
-    rows["neuron_scan"] = dict(
-        max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        ms=time_ms(lambda: neuron_ops.neuron_window(s0, rc0, ie, ii, params,
-                                                    **kw), 25),
-        plain_ms=time_ms(lambda: neuron_window_ref(s0, rc0, ie, ii, params,
-                                                   **kw), 3))
-    log(f"    neuron_scan test drive: {n_spk:.0f} spikes")
+    rows["neuron_scan"] = neuron_row(s0, rc0, ie, ii, params, decays)
 
     # corr: accumulators spread over [0, sat] so the clamp is exercised
     pre = dev((rng.random((T, N, R)) < 0.05).astype(np.float32))
@@ -243,6 +240,68 @@ def phase_kernels():
             f"{r['bound_ms']:.4f} ({r['bound_by']}) max_abs_err="
             f"{r['max_abs_err']:.3g}")
     return rows
+
+
+def neuron_row(s0, rc0, ie, ii, params, decays):
+    """neuron_scan bit-equal to its plain version on a drive that fires,
+    timed as the main path calls it (``AnnCore._neuron_window``: the
+    parameters packed once, the state in six [N, C] planes, so the wrapper
+    launches the kernel alone): device time behind the sleep (``ms``), the
+    same call on the host clock with the wrapper's own time, and the chain
+    floor (``chain_floor_probe``: the kernel with the currents in
+    registers, so no load waits). ``bound_ms`` counts bytes and operations
+    as the contract defines them; the floor is logged beside it."""
+    import torch
+    from repro_torch.kernels.neuron_scan import ops as neuron_ops
+    from repro_torch.kernels.neuron_scan.ref import neuron_window_ref
+    T, N, C = ie.shape
+    kw = dict(dt=0.2, use_adex=True, decays=decays)
+    packed = neuron_ops.pack_params(params, decays, (N, C))
+    g_state, g_rc, g_recs = neuron_ops.neuron_window(
+        s0, rc0, ie, ii, params, packed_params=packed, **kw)
+    p_state, p_rc, p_recs = neuron_window_ref(s0, rc0, ie, ii, params, **kw)
+    torch.cuda.synchronize()
+    n_spk = float(g_recs[0].sum())
+    if n_spk == 0:
+        raise AssertionError("neuron_scan: the test drive elicited no spike")
+    for name, a, b in zip(("spikes", "rate_counters", *g_state._fields),
+                          (g_recs[0], g_rc, *g_state),
+                          (p_recs[0], p_rc, *p_state)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"neuron_scan: {name} differs from the "
+                                 f"plain version (max |diff| "
+                                 f"{float((a - b).abs().max())})")
+
+    def call():
+        return neuron_ops.neuron_window(s0, rc0, ie, ii, params,
+                                        packed_params=packed, **kw)
+    ms = time_ms(call, 25)
+    host = []
+    for _ in range(25):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    host.sort()
+    floor_ms = time_ms(lambda: neuron_ops.chain_floor_probe(
+        s0, rc0, ie, ii, params, dt=kw["dt"], decays=decays,
+        packed_params=packed), 25)
+    # currents read, state and parameters read, spikes and state written;
+    # about 30 flops a step
+    n_bytes = (2 * T * N * C + 6 * N * C + 12 * N * C + T * N * C
+               + 6 * N * C) * 4
+    b_ms, b_by = bound_ms(n_bytes, 30 * T * N * C)
+    log(f"[2] neuron_scan at [T={T}, N={N}, C={C}], {n_spk:.0f} spikes: "
+        f"{ms:.4f} ms device time as the main path calls it; wrapper and "
+        f"kernel on the host clock {host[len(host) // 2]:.4f} ms; chain "
+        f"floor (currents in registers) {floor_ms:.4f} ms, {ms / floor_ms:.2f}"
+        f"x; byte bound {b_ms:.4f} ms ({b_by}); bit-equal to the plain "
+        f"version")
+    return dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, ms=ms, chain_floor_ms=floor_ms,
+                plain_ms=time_ms(lambda: neuron_window_ref(
+                    s0, rc0, ie, ii, params, **kw), 3))
 
 
 def synray_row(ev, ea, w_h, st_h, tag):
@@ -923,6 +982,9 @@ def phase_ppuvm_kernel(ppu_update_ms):
 
     N, R, C = 16, 256, 512
     ops = vmc.prefixed_operands(rng, (N, R, C))
+    # the synapse store's weights are int8 on both callers; the kernel
+    # reads them as they are
+    ops["weights"] = ops["weights"].astype(np.int8)
     lanes = N * R * C
     rows = {}
     # signed_dw as path C runs it (2 modulator slots, no noise plane);
@@ -931,10 +993,10 @@ def phase_ppuvm_kernel(ppu_update_ms):
                     ("rstdp", dict(ops, mod=ops["mod"][:1]))):
         words = vmc.shipped_programs()[name]
         w, args = both(words, o, f"{name} at [16, 256, 512]")
-        n_planes = 3 + (o["noise"] is not None)        # int32 planes in
+        n_planes = 2 + (o["noise"] is not None)        # int32 planes in
         n_mod = o["mod"].shape[0]
-        n_bytes = (lanes * 4 * (n_planes + 1 + 8) + N * C * 4 * (1 + n_mod)
-                   + 4 * len(words))
+        n_bytes = (lanes * (1 + 4 * (n_planes + 1 + 8))
+                   + N * C * 4 * (1 + n_mod) + 4 * len(words))
         b_ms, b_by = bound_ms(n_bytes, len(words) * lanes)
         rows[name] = dict(
             max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -942,11 +1004,16 @@ def phase_ppuvm_kernel(ppu_update_ms):
             plain_ms=time_ms(lambda: run_program_ref(w, *args), 5),
             n_bytes=n_bytes, n_words=len(words))
         r = rows[name]
+        # the same program on int32 weights, for comparison with int8
+        args32 = (args[0].to(torch.int32), *args[1:])
+        ms32 = time_ms(lambda: vm_ops.run_program(w, *args32), 25)
         log(f"[6] ppuvm_exec {name}_program ({r['n_words']} words) at "
-            f"[16, 256, 512]: kernel_ms={r['ms']:.4f} plain_ms="
-            f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({b_by}, "
-            f"{n_bytes / 1e6:.1f} MB) bit-equal; yardstick ppu_update "
-            f"(fixed-function R-STDP, phase 2) {ppu_update_ms:.4f} ms")
+            f"[16, 256, 512], int8 weights: kernel_ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+            f"({b_by}, {n_bytes / 1e6:.1f} MB), {r['ms'] / b_ms:.2f}x the "
+            f"bound, bit-equal; int32 weights {ms32:.4f} ms; yardstick "
+            f"ppu_update (fixed-function R-STDP, phase 2) "
+            f"{ppu_update_ms:.4f} ms")
     return rows["signed_dw"]
 
 
@@ -1157,7 +1224,8 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            **{k: r[k] for k in ("chain_floor_ms",) if k in r}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

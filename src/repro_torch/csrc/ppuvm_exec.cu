@@ -1,21 +1,48 @@
 // ppuvm_exec: the PPU-VM tile executor on Hopper, the whole program per
-// lane (synapse).
+// lane (synapse), the register file in registers.
 //
 // Replaces the TPU kernel repro/kernels/ppuvm_exec/kernel.py,
 // run_program_pallas (_kernel), which ran a fori_loop over the words with
 // a lax.switch over the 19 opcodes per [rb, cb] VMEM tile, the [8, rb, cb]
 // register file held on-chip for the whole program.
 //
-// Design: one thread per lane; the lane is a flat index over N * R * C
-// (columns fastest) and a grid-stride loop walks the lanes. Each block
-// copies the words into shared memory once; every thread of a warp then
-// runs the same word, so the opcode switch never diverges. A thread keeps
-// its register file (int r[8]) and its live weight in registers (the
-// dynamic register index may put r[] in local memory: the -Xptxas -v line
-// of the build reports it as a stack frame). qc, qa and noise are read
-// once per lane, the rate and the modulator slots of its column when a
-// word loads them. The weights and the [8, N * R * C] register file are
-// written with coalesced stores.
+// Bound on the H100: per lane, the weight (1 byte as int8, 4 as int32),
+// qc, qa and the noise plane (4 bytes each) in, 4 bytes of weight and 32
+// bytes of registers out; the column operands are [N, C] rows. At the main
+// path's [16, 256, 512] with int8 weights and no noise (path C) that is
+// about 94 MB, 28 us at 3.35 TB/s; the integer work (a few operations per
+// word and lane) is below it. So the bytes bound it.
+//
+// Design: every word is the same for all lanes, so everything that
+// depends on the word alone is done once:
+//   * each block decodes the words into shared memory once (opcode with
+//     unknown ones made NOP, the three register fields mod 8, which
+//     operands the word reads, and one payload: SPLAT's immediate, the
+//     clamped shift of MULF / SHL / SHR, LDMOD's clamped slot);
+//   * a thread runs K consecutive columns of one row (K lanes) through the
+//     program, so each word's dispatch is paid once for K lanes;
+//   * the register file is 8 x K named registers: a word's register
+//     indices are uniform across the block, so operands are read and the
+//     result written through a 3-level tree on the index's bits (every
+//     leaf a fixed register), never a dynamically indexed array, and the
+//     file never goes to local memory (-Xptxas -v: no stack frame). ptxas
+//     keeps the top level a uniform branch and turns the two lower ones
+//     into predicated selects: 2 a lane per access, where a select chain
+//     over all 8 registers takes 7, and without the register copies that
+//     a switch on the index drew from it.
+// A tile is TY rows x TX * K columns of one instance. As many blocks as
+// fit on the card at once walk the tiles with a stride of the grid, and
+// each thread reads its next tile's operands before it runs the program
+// on the current one, so a tile's loads overlap the last tile's program
+// (one block per tile would load, compute and store in lockstep, leaving
+// the memory idle while it computes). A lane's instance and column come
+// from its tile, with two 32-bit divisions per tile and thread, not per
+// lane. Rows whose length is a multiple of K, with 16-byte aligned planes,
+// load and store 16 bytes (int8 weights 4) a thread; other shapes take
+// the same program with one scalar access per lane and the ragged columns
+// masked. qc, qa, the noise and the weight are read once per lane, the
+// rate counters (converted to Q8.8 here: rates_to_fixed) and the
+// modulator slots when a word loads them.
 //
 // Semantics: bit for bit those of the reference's make_semantics
 // (repro/ppuvm/interp.py:96-150) and of the plain version (ref.py).
@@ -31,26 +58,54 @@
 //     shifts of an int are arithmetic.
 //   * ADD, SUB, MULF, SHL saturate to [-32768, 32767]; STW stores
 //     clip((a + 128) >> 8, 0, 63).
-//
-// Bound on the H100: per lane, 16 bytes in (int32 weight, qc, qa, noise),
-// 4 bytes of weight and 32 bytes of registers out; the column operands
-// are [N, C] rows. At the main path's [16, 256, 512] that is about 109 MB,
-// 33 us at 3.35 TB/s; the integer work (about 5 operations per word) is
-// far below it. So the bytes bound it.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int K = 4;             // lanes (consecutive columns) a thread
+static_assert(K % 4 == 0, "16-byte accesses take 4 lanes each");
+constexpr int TX = 32;           // threads across a block's columns
+constexpr int TY = 4;            // rows a block
+constexpr int THREADS = TX * TY;
 constexpr int N_REGS = 8;
 constexpr int WMAX = 63;
+constexpr int MAX_WORDS = 12288;  // 48 KB of decoded words
 
 enum Op {
   NOP = 0, SPLAT = 1, MOV = 2, ADD = 3, SUB = 4, MULF = 5, SHL = 6, SHR = 7,
   CMPGE = 8, SEL = 9, MAXS = 10, MINS = 11, LDW = 12, STW = 13,
   LDCAUSAL = 14, LDACAUSAL = 15, LDRATE = 16, LDMOD = 17, LDNOISE = 18
 };
+
+// a decoded word: op | rd << 5 | ra << 8 | rb << 11 | READS_A | READS_B
+// | payload << 16
+constexpr int READS_A = 1 << 14;
+constexpr int READS_B = 1 << 15;
+
+__device__ __forceinline__ int decode(unsigned word, int n_mod) {
+  int op = (word >> 26) & 0x3F;
+  if (op > LDNOISE) op = NOP;
+  const int rd = (word >> 21) & 0x7;           // 5-bit fields mod 8
+  const int ra = (word >> 16) & 0x7;
+  const int imm = word & 0xFFFF;
+  const int rb = (imm >> 8) & 0x7;
+  const int sh = imm & 0xFF;
+  int payload = 0, reads = 0;
+  switch (op) {
+    case SPLAT: payload = (int)(int16_t)(uint16_t)imm; break;
+    case MOV: case STW: reads = READS_A; break;
+    case ADD: case SUB: case CMPGE: case SEL: case MAXS: case MINS:
+      reads = READS_A | READS_B; break;
+    case MULF: payload = min(sh, 16); reads = READS_A | READS_B; break;
+    case SHL: payload = min(sh, 15); reads = READS_A; break;
+    case SHR: payload = min(sh, 31); reads = READS_A; break;
+    case LDMOD: payload = min(sh, n_mod - 1); break;  // simm & 0xFF == sh
+    default: break;
+  }
+  return op | rd << 5 | ra << 8 | rb << 11 | reads
+         | (int)((unsigned)payload << 16);
+}
 
 __device__ __forceinline__ int sat16(int x) {
   return min(max(x, -32768), 32767);
@@ -60,100 +115,364 @@ __device__ __forceinline__ int wrap_add(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);
 }
 
+// the VM's register file of K lanes; only ever indexed by constants
+struct RegFile {
+  int r[N_REGS][K];
+};
+
+// get / set: a balanced tree on the index's three bits, each leaf a fixed
+// register
+#define VM_PICK(I)                                                      \
+  {                                                                     \
+    _Pragma("unroll") for (int k = 0; k < K; ++k) dst[k] = f.r[I][k];   \
+  }
+#define VM_PUT(I)                                                       \
+  {                                                                     \
+    _Pragma("unroll") for (int k = 0; k < K; ++k) f.r[I][k] = src[k];   \
+  }
+
+__device__ __forceinline__ void get(const RegFile& f, int i, int (&dst)[K]) {
+  if (i & 4) {
+    if (i & 2) { if (i & 1) VM_PICK(7) else VM_PICK(6) }
+    else { if (i & 1) VM_PICK(5) else VM_PICK(4) }
+  } else {
+    if (i & 2) { if (i & 1) VM_PICK(3) else VM_PICK(2) }
+    else { if (i & 1) VM_PICK(1) else VM_PICK(0) }
+  }
+}
+
+__device__ __forceinline__ void set(RegFile& f, int i, const int (&src)[K]) {
+  if (i & 4) {
+    if (i & 2) { if (i & 1) VM_PUT(7) else VM_PUT(6) }
+    else { if (i & 1) VM_PUT(5) else VM_PUT(4) }
+  } else {
+    if (i & 2) { if (i & 1) VM_PUT(3) else VM_PUT(2) }
+    else { if (i & 1) VM_PUT(1) else VM_PUT(0) }
+  }
+}
+
+// K lanes of a plane at x (VEC: 16-byte accesses, 4 bytes for int8)
+template <bool VEC>
+__device__ __forceinline__ void load(const int* __restrict__ x, int nk,
+                                     int (&v)[K]) {
+  if (VEC) {
+#pragma unroll
+    for (int k = 0; k < K; k += 4) {
+      const int4 q = *reinterpret_cast<const int4*>(x + k);
+      v[k] = q.x; v[k + 1] = q.y; v[k + 2] = q.z; v[k + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = k < nk ? x[k] : 0;
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void load(const int8_t* __restrict__ x, int nk,
+                                     int (&v)[K]) {
+  if (VEC) {
+#pragma unroll
+    for (int k = 0; k < K; k += 4) {
+      const char4 q = *reinterpret_cast<const char4*>(x + k);
+      v[k] = q.x; v[k + 1] = q.y; v[k + 2] = q.z; v[k + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = k < nk ? (int)x[k] : 0;
+  }
+}
+
+// K lanes of an output plane, streamed (evict-first: no lane is read again
+// here, and the 75 MB of outputs would only push the inputs out of L2)
+template <bool VEC>
+__device__ __forceinline__ void store(int* __restrict__ x, int nk,
+                                      const int (&v)[K]) {
+  if (VEC) {
+#pragma unroll
+    for (int k = 0; k < K; k += 4)
+      __stcs(reinterpret_cast<int4*>(x + k),
+             make_int4(v[k], v[k + 1], v[k + 2], v[k + 3]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (k < nk) __stcs(x + k, v[k]);
+  }
+}
+
+// A tile's per-lane operands (K lanes of one row), read a tile ahead.
+struct Lanes {
+  int w[K], qc[K], qa[K], nz[K];
+};
+
+template <bool VEC, typename WT>
+__device__ __forceinline__ void load_lanes(Lanes& L, const WT* __restrict__ w,
+                                           const int* __restrict__ qc,
+                                           const int* __restrict__ qa,
+                                           const int* __restrict__ noise,
+                                           long long i, int nk) {
+  load<VEC>(w + i, nk, L.w);
+  load<VEC>(qc + i, nk, L.qc);
+  load<VEC>(qa + i, nk, L.qa);
+  if (noise) {
+    load<VEC>(noise + i, nk, L.nz);
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) L.nz[k] = 0;
+  }
+}
+
+// LDRATE's operand: rates_to_fixed of K columns' rate counters, rounded
+// half to even, converted as PyTorch's CUDA conversion does (saturating),
+// shifted with wrap and saturated to int16
+template <bool VEC>
+__device__ __forceinline__ void load_rates(const float* __restrict__ x,
+                                           int nk, int (&v)[K]) {
+  float f[K];
+  if (VEC) {
+#pragma unroll
+    for (int k = 0; k < K; k += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(x + k);
+      f[k] = q.x; f[k + 1] = q.y; f[k + 2] = q.z; f[k + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) f[k] = k < nk ? x[k] : 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    v[k] = sat16((int)((unsigned)__float2int_rz(rintf(f[k])) << 8));
+}
+
+// Persistent blocks walk the tiles (an instance, TY rows, TX * K columns)
+// with a stride of the grid; each thread reads its next tile's operands
+// before it runs the program on the current one, so the loads of one
+// tile overlap the program of the last.
+template <bool VEC, typename WT>
 __global__ void __launch_bounds__(THREADS)
 ppuvm_exec_kernel(const int* __restrict__ words, int n_words,
-                  const int* __restrict__ w, const int* __restrict__ qc,
+                  const WT* __restrict__ w, const int* __restrict__ qc,
                   const int* __restrict__ qa,
-                  const int* __restrict__ rates_fx,
+                  const float* __restrict__ rates,
                   const int* __restrict__ mod, int n_mod,
                   const int* __restrict__ noise, int* __restrict__ w_out,
-                  int* __restrict__ regs_out, long long total, int RC,
-                  int C, long long NC) {
-  extern __shared__ int s_words[];
-  for (int p = threadIdx.x; p < n_words; p += THREADS) s_words[p] = words[p];
+                  int* __restrict__ regs_out, int N, int R, int C) {
+  extern __shared__ int s_dec[];
+  const int tid = threadIdx.y * TX + threadIdx.x;
+  for (int p = tid; p < n_words; p += THREADS)
+    s_dec[p] = decode((unsigned)words[p], n_mod);
   __syncthreads();
 
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < total;
-       i += (long long)gridDim.x * THREADS) {
-    const long long nc = (i / RC) * C + (int)(i % C);   // [n, c] of the lane
-    const int q_c = qc[i], q_a = qa[i];
-    const int nz = noise ? noise[i] : 0;
-    int wm = w[i];
-    int r[N_REGS];
-#pragma unroll
-    for (int k = 0; k < N_REGS; ++k) r[k] = 0;
+  const int tiles_x = (C + TX * K - 1) / (TX * K);
+  const int tiles_y = (R + TY - 1) / TY;
+  const int n_tiles = N * tiles_y * tiles_x;     // fits: the launcher checks
+  const long long total = (long long)N * R * C;
+  const long long NC = (long long)N * C;
 
-    for (int p = 0; p < n_words; ++p) {
-      const unsigned word = (unsigned)s_words[p];
-      const int op = (word >> 26) & 0x3F;
-      const int rd = (word >> 21) & 0x7;       // 5-bit field mod 8
-      const int ra = (word >> 16) & 0x7;
-      const int imm = word & 0xFFFF;
-      const int simm = (int)(int16_t)(uint16_t)imm;
-      const int rb = (imm >> 8) & 0x7;
-      const int sh = imm & 0xFF;
-      const int a = r[ra], b = r[rb];
-      switch (op) {
-        case SPLAT: r[rd] = simm; break;
-        case MOV: r[rd] = a; break;
-        case ADD: r[rd] = sat16(wrap_add(a, b)); break;
-        case SUB: r[rd] = sat16((int)((unsigned)a - (unsigned)b)); break;
-        case MULF: {
-          const int s = min(sh, 16);
-          const unsigned prod = (unsigned)a * (unsigned)b
-                                + ((1u << s) >> 1);
-          r[rd] = sat16((int)prod >> s);
-          break;
-        }
-        case SHL: r[rd] = sat16((int)((unsigned)a << min(sh, 15))); break;
-        case SHR: r[rd] = a >> min(sh, 31); break;
-        case CMPGE: r[rd] = a >= b ? 256 : 0; break;
-        case SEL: r[rd] = r[rd] != 0 ? a : b; break;
-        case MAXS: r[rd] = max(a, b); break;
-        case MINS: r[rd] = min(a, b); break;
-        case LDW: r[rd] = (int)((unsigned)wm << 8); break;
-        case STW: wm = min(max(wrap_add(a, 128) >> 8, 0), WMAX); break;
-        case LDCAUSAL: r[rd] = q_c; break;
-        case LDACAUSAL: r[rd] = q_a; break;
-        case LDRATE: r[rd] = rates_fx[nc]; break;
-        case LDMOD: {
-          const int slot = min(simm & 0xFF, n_mod - 1);
-          r[rd] = mod ? mod[slot * NC + nc] : 0;
-          break;
-        }
-        case LDNOISE: r[rd] = nz; break;
-        default: break;                          // NOP, unknown opcodes
-      }
-    }
-    w_out[i] = wm;
+  // this thread's lanes of tile t: the first lane, its column, how many
+  struct Place {
+    long long i, nc;
+    int nk;
+    bool live;
+  };
+  const auto place = [&](int t) {
+    Place q{0, 0, 0, false};
+    if (t >= n_tiles) return q;
+    const int rest = t / tiles_x;
+    const int c0 = ((t - rest * tiles_x) * TX + threadIdx.x) * K;
+    const int n = rest / tiles_y;
+    const int row = (rest - n * tiles_y) * TY + threadIdx.y;
+    if (row >= R || c0 >= C) return q;
+    q.i = ((long long)n * R + row) * C + c0;
+    q.nc = (long long)n * C + c0;
+    q.nk = min(K, C - c0);
+    q.live = true;
+    return q;
+  };
+
+  Place at = place(blockIdx.x);
+  Lanes L{};
+  if (at.live) load_lanes<VEC>(L, w, qc, qa, noise, at.i, at.nk);
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const Place next = place(t + gridDim.x);
+    Lanes L_next{};
+    if (next.live) load_lanes<VEC>(L_next, w, qc, qa, noise, next.i,
+                                   next.nk);
+    if (at.live) {
+      int wm[K];
 #pragma unroll
-    for (int k = 0; k < N_REGS; ++k) regs_out[k * total + i] = r[k];
+      for (int k = 0; k < K; ++k) wm[k] = L.w[k];
+      RegFile f;
+#pragma unroll
+      for (int j = 0; j < N_REGS; ++j)
+#pragma unroll
+        for (int k = 0; k < K; ++k) f.r[j][k] = 0;
+
+      for (int p = 0; p < n_words; ++p) {
+        const int d = s_dec[p];
+        const int payload = d >> 16;
+        int a[K], b[K], v[K];
+        if (d & READS_A) get(f, (d >> 8) & 0x7, a);
+        if (d & READS_B) get(f, (d >> 11) & 0x7, b);
+        // the word's result in v, written to rd at the one place below
+        switch (d & 0x1F) {
+          case SPLAT:
+#pragma unroll
+            for (int k = 0; k < K; ++k) v[k] = payload;
+            break;
+          case MOV:
+#pragma unroll
+            for (int k = 0; k < K; ++k) v[k] = a[k];
+            break;
+          case ADD:
+#pragma unroll
+            for (int k = 0; k < K; ++k) v[k] = sat16(wrap_add(a[k], b[k]));
+            break;
+          case SUB:
+#pragma unroll
+            for (int k = 0; k < K; ++k)
+              v[k] = sat16((int)((unsigned)a[k] - (unsigned)b[k]));
+            break;
+          case MULF: {
+            const unsigned half = (1u << payload) >> 1;
+#pragma unroll
+            for (int k = 0; k < K; ++k)
+              v[k] = sat16((int)((unsigned)a[k] * (unsigned)b[k] + half)
+                           >> payload);
+            break;
+          }
+          case SHL:
+#pragma unroll
+            for (int k = 0; k < K; ++k)
+              v[k] = sat16((int)((unsigned)a[k] << payload));
+            break;
+          case SHR:
+#pragma unroll
+            for (int k = 0; k < K; ++k) v[k] = a[k] >> payload;
+            break;
+          case CMPGE:
+#pragma unroll
+            for (int k = 0; k < K; ++k) v[k] = a[k] >= b[k] ? 256 : 0;
+            break;
+          case SEL: {
+            int dd[K];
+            get(f, (d >> 5) & 0x7, dd);
+#pragma unroll
+            for (int k = 0; k < K; ++k) v[k] = dd[k] != 0 ? a[k] : b[k];
+            break;
+          }
+          case MAXS:
+#pragma unroll
+            for (int k = 0; k < K; ++k) v[k] = max(a[k], b[k]);
+            break;
+          case MINS:
+#pragma unroll
+            for (int k = 0; k < K; ++k) v[k] = min(a[k], b[k]);
+            break;
+          case LDW:
+#pragma unroll
+            for (int k = 0; k < K; ++k) v[k] = (int)((unsigned)wm[k] << 8);
+            break;
+          case LDCAUSAL:
+#pragma unroll
+            for (int k = 0; k < K; ++k) v[k] = L.qc[k];
+            break;
+          case LDACAUSAL:
+#pragma unroll
+            for (int k = 0; k < K; ++k) v[k] = L.qa[k];
+            break;
+          case LDRATE:
+            load_rates<VEC>(rates + at.nc, at.nk, v);
+            break;
+          case LDMOD:
+            if (mod) {
+              load<VEC>(mod + payload * NC + at.nc, at.nk, v);
+            } else {
+#pragma unroll
+              for (int k = 0; k < K; ++k) v[k] = 0;
+            }
+            break;
+          case LDNOISE:
+#pragma unroll
+            for (int k = 0; k < K; ++k) v[k] = L.nz[k];
+            break;
+          case STW:
+#pragma unroll
+            for (int k = 0; k < K; ++k)
+              wm[k] = min(max(wrap_add(a[k], 128) >> 8, 0), WMAX);
+            continue;                            // writes no register
+          default:
+            continue;                            // NOP, unknown opcodes
+        }
+        set(f, (d >> 5) & 0x7, v);
+      }
+      store<VEC>(w_out + at.i, at.nk, wm);
+#pragma unroll
+      for (int j = 0; j < N_REGS; ++j)
+        store<VEC>(regs_out + j * total + at.i, at.nk, f.r[j]);
+    }
+    at = next;
+    L = L_next;
   }
+}
+
+template <bool VEC, typename WT>
+int launch(const void* words, int n_words, const void* w, const void* qc,
+           const void* qa, const void* rates, const void* mod, int n_mod,
+           const void* noise, void* w_out, void* regs, int N, int R, int C,
+           cudaStream_t stream) {
+  const long long tiles = (long long)N * ((R + TY - 1) / TY)
+                          * ((C + TX * K - 1) / (TX * K));
+  if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
+  // as many blocks as fit on the card at once, each walking its tiles
+  const size_t smem = (size_t)n_words * sizeof(int);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, ppuvm_exec_kernel<VEC, WT>, THREADS, smem);
+  const long long fit = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const int blocks = (int)(tiles < fit ? tiles : fit);
+  ppuvm_exec_kernel<VEC, WT><<<blocks, dim3(TX, TY), smem, stream>>>(
+      (const int*)words, n_words, (const WT*)w, (const int*)qc,
+      (const int*)qa, (const float*)rates, (const int*)mod, n_mod,
+      (const int*)noise, (int*)w_out, (int*)regs, N, R, C);
+  return (int)cudaGetLastError();
+}
+
+bool aligned(const void* p, unsigned bytes) {
+  return ((uintptr_t)p % bytes) == 0;
 }
 
 }  // namespace
 
-// words int32 [P] (on the card); w, qc, qa, noise int32 [N, R, C]
-// (noise may be null: a zero plane); rates_fx int32 [N, C]; mod int32
+// words int32 [P] (on the card, P <= 12288); w int8 or int32 [N, R, C]
+// (w_bytes 1 or 4); qc, qa, noise int32 [N, R, C] (noise may be null: a
+// zero plane); rates float32 [N, C] (the rate counters); mod int32
 // [n_mod, N, C] (null: one zero slot); w_out int32 [N, R, C]; regs int32
 // [8, N, R, C].
 extern "C" int ppuvm_exec_launch(const void* words, int n_words,
-                                 const void* w, const void* qc,
-                                 const void* qa, const void* rates_fx,
+                                 const void* w, int w_bytes, const void* qc,
+                                 const void* qa, const void* rates,
                                  const void* mod, int n_mod,
                                  const void* noise, void* w_out, void* regs,
                                  int N, int R, int C, void* stream) {
-  const long long total = (long long)N * R * C;
-  if (total == 0) return 0;
-  const size_t smem = (size_t)n_words * sizeof(int);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  long long blocks = (total + THREADS - 1) / THREADS;
-  if (blocks > 65535LL * 32) blocks = 65535LL * 32;
-  ppuvm_exec_kernel<<<(unsigned)blocks, THREADS, smem,
-                      (cudaStream_t)stream>>>(
-      (const int*)words, n_words, (const int*)w, (const int*)qc,
-      (const int*)qa, (const int*)rates_fx, (const int*)mod,
-      n_mod < 1 ? 1 : n_mod, (const int*)noise, (int*)w_out, (int*)regs,
-      total, R * C, C, (long long)N * C);
-  return (int)cudaGetLastError();
+  if ((long long)N * R * C == 0) return 0;
+  if (n_words < 0 || n_words > MAX_WORDS || (w_bytes != 1 && w_bytes != 4))
+    return (int)cudaErrorInvalidValue;
+  if (n_mod < 1) n_mod = 1;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool vec = C % K == 0 && aligned(w, 4 * w_bytes) && aligned(qc, 16)
+                   && aligned(qa, 16) && aligned(rates, 16)
+                   && aligned(mod, 16) && aligned(noise, 16)
+                   && aligned(w_out, 16) && aligned(regs, 16);
+  if (w_bytes == 1)
+    return vec ? launch<true, int8_t>(words, n_words, w, qc, qa, rates, mod,
+                                      n_mod, noise, w_out, regs, N, R, C, s)
+               : launch<false, int8_t>(words, n_words, w, qc, qa, rates,
+                                       mod, n_mod, noise, w_out, regs, N, R,
+                                       C, s);
+  return vec ? launch<true, int>(words, n_words, w, qc, qa, rates, mod,
+                                 n_mod, noise, w_out, regs, N, R, C, s)
+             : launch<false, int>(words, n_words, w, qc, qa, rates, mod,
+                                  n_mod, noise, w_out, regs, N, R, C, s);
 }

@@ -5,7 +5,10 @@ library with a plain C interface, loaded with ``ctypes``. The build runs
 at the first CUDA launch (never at import), one ``nvcc`` per source, all
 started together, then one link. The library lands in ``build/kernels/``
 at the root of the checkout, named by a hash of the sources and flags, so
-a changed source is rebuilt and an unchanged one is reused.
+a changed source is rebuilt and an unchanged one is reused. Each source's
+compiler output (``-Xptxas -v``: registers, stack frame, spills) is kept
+in ``BUILD_LOG`` and in a file beside the library, so a reused library
+still reports it.
 
 A failed build raises; nothing falls back to the plain versions.
 """
@@ -13,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -46,9 +50,12 @@ ARGTYPES = {
     # ev strides (n, b, r), ea strides (n, b, r), w strides (n, r),
     # addr strides (n, r), out strides (n, b), const_addr, stream
     "synray_launch": [_VP] * 5 + [_I] * 4 + [_LL] * 12 + [_I, _VP],
-    # ie, ii, state_in, params, spikes, state_out, v_rec, N, T, C, dt,
-    # use_adex, stream
+    # ie, ii, state_in[6], params, spikes, state_out[6], v_rec, N, T, C,
+    # dt, use_adex, stream
     "neuron_scan_launch": [_VP] * 7 + [_I] * 3 + [_F, _I, _VP],
+    # the chain-floor probe: ie, ii, state_in[6], params, spikes,
+    # state_out[6], N, T, C, dt, stream
+    "neuron_scan_floor_launch": [_VP] * 6 + [_I] * 3 + [_F, _VP],
     # pre, post, tp0, tq0, ac0, aa0, ac, aa, tp, tq, N, T, R, C, lam, sat,
     # stream
     "corr_launch": [_VP] * 10 + [_I] * 4 + [_F, _F, _VP],
@@ -59,10 +66,10 @@ ARGTYPES = {
     # w, a_causal, a_acausal, offset, gain, mod, xi, w_out, elig, N, R, C,
     # eta, cadc_scale, 1/cadc_max, cadc_max, wmax, stream
     "ppu_update_launch": [_VP] * 9 + [_I] * 3 + [_F] * 5 + [_VP],
-    # words, n_words, w, qc, qa, rates_fx, mod, n_mod, noise, w_out, regs,
-    # N, R, C, stream
-    "ppuvm_exec_launch": [_VP, _I] + [_VP] * 5 + [_I] + [_VP] * 3
-                         + [_I] * 3 + [_VP],
+    # words, n_words, w, w_bytes, qc, qa, rates, mod, n_mod, noise, w_out,
+    # regs, N, R, C, stream
+    "ppuvm_exec_launch": [_VP, _I, _VP, _I] + [_VP] * 4 + [_I]
+                         + [_VP] * 3 + [_I] * 3 + [_VP],
 }
 
 _lock = threading.Lock()
@@ -91,7 +98,9 @@ def build() -> Path:
     """Compile every source (in parallel) and link the library; returns
     its path. Reuses a library whose hash matches the sources."""
     out = BUILD_DIR / f"librepro_torch_{_digest()}.so"
-    if out.exists():
+    log_path = out.with_suffix(".log.json")
+    if out.exists() and log_path.exists():
+        BUILD_LOG.update(json.loads(log_path.read_text()))
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -119,6 +128,7 @@ def build() -> Path:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError("nvcc link failed:\n" + link.stdout)
+        log_path.write_text(json.dumps(BUILD_LOG))
         os.replace(tmp_lib, out)
     return out
 

@@ -4,15 +4,17 @@
 dynamics in one call, with the contract of scanning ``adex.step`` over
 it. CPU tensors run the plain version (``ref.py``); CUDA tensors launch
 the kernel, one thread per (instance, column) with the state in
-registers. The state and parameters are packed into the reference
-kernel's row layout:
+registers and the currents staged ahead of the membrane chain. The five
+state leaves and the rate counters go to the kernel as six [N, C] planes
+and come back as six new ones (no packing launch); the parameters are
+packed once into the reference kernel's row layout:
 
-  state  [N, 6, C]:  v, w, i_exc, i_inh, refrac, rate_counters
   params [N, 12, C]: e_leak, v_thres, delta_t, g_leak, a, b, e_reset,
                      tau_refrac, de, di, alpha, aw
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -50,6 +52,27 @@ def neuron_window(state: adex.NeuronState, rate_counters, ie_t, ii_t,
         return neuron_window_ref(state, rate_counters, ie_t, ii_t, params,
                                  dt=dt, use_adex=use_adex, decays=decays,
                                  record_v=record_v)
+    return _launch(state, rate_counters, ie_t, ii_t, params, decays,
+                   dt=dt, use_adex=use_adex, record_v=record_v,
+                   packed_params=packed_params)
+
+
+def chain_floor_probe(state, rate_counters, ie_t, ii_t, params, *,
+                      dt: float, decays, packed_params=None):
+    """A measurement aid on the card, not a window: the kernel's AdEx form
+    with every step's currents taken from registers (step 0's values)
+    instead of the staged window, so that its time is the membrane
+    chain's alone. Counts no launch. Returns what ``neuron_window``
+    returns, for those currents."""
+    if ie_t.device.type != "cuda":
+        raise ValueError("neuron_scan: the chain-floor probe runs on a card")
+    return _launch(state, rate_counters, ie_t, ii_t, params, decays,
+                   dt=dt, use_adex=True, record_v=False,
+                   packed_params=packed_params, probe=True)
+
+
+def _launch(state, rate_counters, ie_t, ii_t, params, decays, *, dt,
+            use_adex, record_v, packed_params, probe=False):
     from repro_torch.kernels import _build
     dev = ie_t.device
     if dev.type != "cuda":
@@ -68,9 +91,8 @@ def neuron_window(state: adex.NeuronState, rate_counters, ie_t, ii_t,
     leaves = [getattr(state, f) for f in STATE_ROWS] + [rate_counters]
     if any(x.device != dev for x in leaves):
         raise ValueError("neuron_scan: state not on the currents' device")
-    state6 = fold_instance(torch.stack(
-        [x.expand(cshape).to(torch.float32) for x in leaves],
-        dim=len(prefix)), 2)
+    st_in = [fold_instance(x.expand(cshape).to(torch.float32).contiguous(),
+                           1) for x in leaves]
     if packed_params is None:
         packed_params = pack_params(params, decays, cshape)
     params12 = fold_instance(packed_params, 2)
@@ -78,20 +100,31 @@ def neuron_window(state: adex.NeuronState, rate_counters, ie_t, ii_t,
             or not params12.is_contiguous():
         raise ValueError("neuron_scan: bad packed parameter block")
     spikes = torch.empty((T, N, C), dtype=torch.float32, device=dev)
-    st_out = torch.empty((N, 6, C), dtype=torch.float32, device=dev)
+    st_out = [torch.empty((N, C), dtype=torch.float32, device=dev)
+              for _ in leaves]
     v_rec = (torch.empty((T, N, C), dtype=torch.float32, device=dev)
              if record_v else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _build.lib().neuron_scan_launch(
-        ie_t.data_ptr(), ii_t.data_ptr(), state6.data_ptr(),
-        params12.data_ptr(), spikes.data_ptr(), st_out.data_ptr(),
-        None if v_rec is None else v_rec.data_ptr(), N, T, C, float(dt),
-        int(bool(use_adex)), stream)
+    args = (ie_t.data_ptr(), ii_t.data_ptr(), _ptrs(st_in),
+            params12.data_ptr(), spikes.data_ptr(), _ptrs(st_out))
+    if probe:
+        err = _build.lib().neuron_scan_floor_launch(*args, N, T, C,
+                                                     float(dt), stream)
+    else:
+        err = _build.lib().neuron_scan_launch(
+            *args, None if v_rec is None else v_rec.data_ptr(), N, T, C,
+            float(dt), int(bool(use_adex)), stream)
     _build.check(err, "neuron_scan")
-    kernels.LAUNCHES["neuron_scan"] += 1
-    st6 = st_out.reshape(*prefix, 6, C).unbind(len(prefix))
+    if not probe:
+        kernels.LAUNCHES["neuron_scan"] += 1
+    st6 = [x.reshape(cshape) for x in st_out]
     new_state = adex.NeuronState(*st6[:5])
     recs = (spikes.reshape(T, *cshape),)
     if record_v:
         recs = (recs[0], v_rec.reshape(T, *cshape))
     return new_state, st6[5], recs
+
+
+def _ptrs(planes):
+    """The six state planes' addresses as the kernel's pointer array."""
+    return (ctypes.c_void_p * len(planes))(*(x.data_ptr() for x in planes))

@@ -8,7 +8,12 @@ conventions give them (``repro/kernels/ppuvm_exec/ops.py:47-53``). CPU
 tensors run the plain version (``ref.py``); CUDA tensors launch the
 kernel, which equals the plain version bit for bit, or raise. The words
 must already lie on the card: the wrapper never copies them host to
-device (put a program on the device once, when it is uploaded).
+device (put a program on the device once, when it is uploaded). The
+kernel decodes at most ``MAX_WORDS`` words (its shared memory) and reads
+int8 and int32 weight planes as they are (the synapse store's int8 needs
+no conversion launch), and converts the float32 rate counters to Q8.8
+itself (``rates_to_fixed``): on the card the wrapper launches nothing but
+the kernel for the operands path C passes.
 """
 from __future__ import annotations
 
@@ -19,7 +24,8 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.ppuvm_exec.ref import run_program_ref
 from repro_torch.ppuvm import isa
-from repro_torch.ppuvm.interp import rates_to_fixed
+
+MAX_WORDS = 12288     # csrc/ppuvm_exec.cu: 48 KB of decoded words
 
 
 def run_program(words, weights, qc, qa, rates, mod=None, noise=None):
@@ -37,21 +43,29 @@ def run_program(words, weights, qc, qa, rates, mod=None, noise=None):
             and words.is_contiguous()):
         raise ValueError(f"ppuvm_exec: words must be a contiguous int32 [P] "
                          f"tensor on {dev} (upload the program once)")
+    if words.numel() > MAX_WORDS:
+        raise ValueError(f"ppuvm_exec: {words.numel()} words, the kernel "
+                         f"takes at most {MAX_WORDS}")
     lane = tuple(weights.shape)
     prefix, (R, C) = lane[:-2], lane[-2:]
     N = math.prod(prefix)
 
-    def plane(x):
+    def plane(x, keep=(torch.int32,)):
         if x.device != dev:
             raise ValueError(f"ppuvm_exec: operands must lie on {dev}")
-        return torch.broadcast_to(x, lane).to(torch.int32).contiguous()
+        x = torch.broadcast_to(x, lane)
+        if x.dtype not in keep:
+            x = x.to(torch.int32)
+        return x.contiguous()
 
-    w, c, a = plane(weights), plane(qc), plane(qa)
+    w = plane(weights, keep=(torch.int8, torch.int32))
+    c, a = plane(qc), plane(qa)
     nz = None if noise is None else plane(noise)
     if rates.device != dev:
         raise ValueError(f"ppuvm_exec: operands must lie on {dev}")
-    r_fx = torch.broadcast_to(rates_to_fixed(rates), (*prefix, C)
-                              ).contiguous()
+    # the kernel takes rates_to_fixed of the float32 counters itself
+    rates = torch.broadcast_to(rates, (*prefix, C)).to(torch.float32
+                                                       ).contiguous()
     n_mod = 1
     if mod is not None:
         if mod.device != dev:
@@ -63,8 +77,8 @@ def run_program(words, weights, qc, qa, rates, mod=None, noise=None):
     regs = torch.empty((isa.N_REGS, *lane), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _build.lib().ppuvm_exec_launch(
-        words.data_ptr(), words.numel(), w.data_ptr(), c.data_ptr(),
-        a.data_ptr(), r_fx.data_ptr(),
+        words.data_ptr(), words.numel(), w.data_ptr(), w.element_size(),
+        c.data_ptr(), a.data_ptr(), rates.data_ptr(),
         None if mod is None else mod.data_ptr(), n_mod,
         None if nz is None else nz.data_ptr(), w_out.data_ptr(),
         regs.data_ptr(), N, R, C, stream)

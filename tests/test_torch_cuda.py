@@ -42,6 +42,7 @@ from repro_torch.kernels.ppu_update import ops as ppu_ops
 from repro_torch.kernels.ppu_update.ref import rstdp_update_ref
 from repro_torch.kernels.ppuvm_exec import ops as vm_ops
 from repro_torch.kernels.ppuvm_exec.ref import run_program_ref
+from repro_torch.ppuvm import isa
 from repro_torch.verif import playback as pb
 from repro_torch.kernels.synray_sparse import ops as sparse_ops
 from repro_torch.kernels.synray_sparse.ref import sparse_window_ref
@@ -132,6 +133,73 @@ def test_neuron_scan_bit_equal(cuda, use_adex):
     assert kernels.LAUNCHES["neuron_scan"] == n0 + 1
     assert float(g[2][0].sum()) > 0
     for a, b in zip((*g[0], g[1], *g[2]), (*r[0], r[1], *r[2])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("record_v", [True, False])
+@pytest.mark.parametrize("use_adex", [True, False])
+@pytest.mark.parametrize("T", [0, 1, 7, 45, 129])
+def test_neuron_scan_ragged_chained(cuda, T, use_adex, record_v):
+    """Window lengths that are no multiple of the kernel's 64-step chunk
+    (and T = 0), 70 columns (a partial block of 32), two windows chained
+    through the returned state: spikes, the five state fields, the rate
+    counters and the v record bit-equal to the plain version."""
+    cfg = BSS2.reduced()
+    N, C = 3, 70
+    inst = sample_instance(dataclasses.replace(cfg, n_cols=C),
+                           torch.Generator().manual_seed(T), (N,),
+                           device=cuda)
+    p = inst["neuron_params"]
+    rng = np.random.default_rng(T + 100 * use_adex)
+    kw = dict(dt=cfg.dt, use_adex=use_adex,
+              decays=adex.decay_factors(p, cfg.dt), record_v=record_v)
+    packed = neuron_ops.pack_params(p, kw["decays"], (N, C))
+    st_g = st_r = adex.init_state((N, C), p)._replace(v=t(rng.uniform(
+        -58, -45, (N, C)).astype(np.float32)).to(cuda))
+    rc_g = rc_r = t(rng.integers(0, 4, (N, C)).astype(np.float32)).to(cuda)
+    n_spk = 0.0
+    for _ in range(2):
+        shape = (T, N, C)
+        ie = t(((rng.random(shape) < 0.15)
+                * rng.uniform(0, 600, shape)).astype(np.float32)).to(cuda)
+        ii = t(((rng.random(shape) < 0.05)
+                * rng.uniform(0, 100, shape)).astype(np.float32)).to(cuda)
+        n0 = kernels.LAUNCHES["neuron_scan"]
+        g = neuron_ops.neuron_window(st_g, rc_g, ie, ii, p,
+                                     packed_params=packed, **kw)
+        r = neuron_window_ref(st_r, rc_r, ie, ii, p, **kw)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["neuron_scan"] == n0 + 1
+        assert len(g[2]) == len(r[2]) == (2 if record_v else 1)
+        for a, b in zip((*g[0], g[1], *g[2]), (*r[0], r[1], *r[2])):
+            assert a.shape == b.shape and torch.equal(a, b)
+        n_spk += float(g[2][0].sum())
+        st_g, rc_g, st_r, rc_r = g[0], g[1], r[0], r[1]
+    assert T < 7 or n_spk > 0
+
+
+def test_neuron_scan_chain_floor_probe(cuda):
+    """The measurement probe runs (no launch counted) and, fed currents
+    that are the same at every step, equals the window on them."""
+    cfg = BSS2.reduced()
+    inst = sample_instance(cfg, torch.Generator().manual_seed(4), (2,),
+                           device=cuda)
+    p = inst["neuron_params"]
+    rng = np.random.default_rng(4)
+    C = cfg.n_cols
+    step = rng.uniform(0, 300, (2, C)).astype(np.float32)
+    ie = t(np.broadcast_to(step, (40, 2, C)).copy()).to(cuda)
+    ii = torch.zeros_like(ie)
+    kw = dict(dt=cfg.dt, decays=adex.decay_factors(p, cfg.dt))
+    st0 = adex.init_state((2, C), p)
+    rc0 = torch.zeros((2, C), device=cuda)
+    n0 = kernels.LAUNCHES["neuron_scan"]
+    got = neuron_ops.chain_floor_probe(st0, rc0, ie, ii, p, **kw)
+    want = neuron_window_ref(st0, rc0, ie, ii, p, use_adex=True, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["neuron_scan"] == n0
+    for a, b in zip((*got[0], got[1], got[2][0]), (*want[0], want[1],
+                                                   want[2][0])):
         assert torch.equal(a, b)
 
 
@@ -358,6 +426,82 @@ def test_ppuvm_exec_main_path_shape(cuda, rule):
     ops = vm_corpus.prefixed_operands(rng, (16, 256, 512))
     if rule == "rstdp":
         ops["mod"] = ops["mod"][:1]
+    _assert_vm_equal(*_vm_both(vm_corpus.shipped_programs()[rule], ops,
+                               cuda), rule)
+
+
+@pytest.mark.parametrize("shape", [(3, 7, 37), (2, 5, 130), (1, 9, 258)])
+@pytest.mark.parametrize("w_dtype", [np.int8, np.int32])
+def test_ppuvm_exec_ragged_lanes(cuda, shape, w_dtype):
+    """Rows whose length is no multiple of the kernel's 4 lanes a thread
+    (the scalar form), int8 and int32 weights, with and without mod /
+    noise."""
+    rng = np.random.RandomState(shape[-1])
+    for _ in range(3):
+        words = vm_corpus.pad(vm_corpus.gen_program(rng))
+        ops = vm_corpus.prefixed_operands(rng, shape)
+        ops["weights"] = ops["weights"].astype(w_dtype)
+        _assert_vm_equal(*_vm_both(words, ops, cuda), str(shape))
+        ops = dict(ops, mod=None, noise=None)
+        _assert_vm_equal(*_vm_both(words, ops, cuda), f"{shape} bare")
+
+
+def test_ppuvm_exec_unaligned_plane(cuda):
+    """A qc plane that starts 4 bytes past a 16-byte boundary takes the
+    scalar form on an otherwise aligned shape."""
+    rng = np.random.RandomState(21)
+    ops = vm_corpus.prefixed_operands(rng, (2, 16, 64))
+    dev = {k: t(v).to(cuda) for k, v in ops.items()}
+    buf = torch.empty(dev["qc"].numel() + 1, dtype=torch.int32, device=cuda)
+    qc = buf[1:].view(dev["qc"].shape)
+    qc.copy_(dev["qc"])
+    assert qc.data_ptr() % 16 != 0
+    words = torch.as_tensor(vm_corpus.shipped_programs()["signed_dw"],
+                            device=cuda)
+    args = (dev["weights"], qc, dev["qa"], dev["rates"], dev["mod"],
+            dev["noise"])
+    _assert_vm_equal(vm_ops.run_program(words, *args),
+                     run_program_ref(words, *args), "unaligned qc")
+
+
+@pytest.mark.parametrize("op", range(isa.N_OPS + 1))
+def test_ppuvm_exec_one_word_programs(cuda, op):
+    """A single word of every opcode (and one past the last: a NOP), its
+    register fields, shift and immediate drawn at random."""
+    rng = np.random.RandomState(op)
+    ops = vm_corpus.prefixed_operands(rng, (2, 3, 10))
+    for _ in range(8):
+        word = (op << 26) | int(rng.randint(0, 1 << 26))
+        words = np.array([word], np.uint32).view(np.int32)
+        _assert_vm_equal(*_vm_both(words, ops, cuda), f"op {op} {word:#x}")
+
+
+def test_ppuvm_exec_word_limit(cuda):
+    """A program of exactly MAX_WORDS words (the decoded words fill the
+    kernel's shared memory) is bit-equal; one word more is refused."""
+    words = np.concatenate([vm_corpus.gen_program(np.random.RandomState(s))
+                            for s in range(1500)])
+    words = np.resize(words, vm_ops.MAX_WORDS).astype(np.int32)
+    ops = vm_corpus.gen_operands(np.random.RandomState(5))
+    _assert_vm_equal(*_vm_both(words, ops, cuda), "MAX_WORDS words")
+    longer = torch.as_tensor(np.resize(words, vm_ops.MAX_WORDS + 1),
+                             device=cuda)
+    args = [t(ops[k]).to(cuda) for k in ("weights", "qc", "qa", "rates")]
+    with pytest.raises(ValueError, match="at most"):
+        vm_ops.run_program(longer, *args)
+
+
+@pytest.mark.parametrize("rule", ["signed_dw", "rstdp"])
+def test_ppuvm_exec_int8_weights_main_path_shape(cuda, rule):
+    """The synapse store's int8 weights read as they are, at the main
+    path's [16, 256, 512] (path C and apply_rstdp_program pass int8)."""
+    rng = np.random.RandomState(13)
+    ops = vm_corpus.prefixed_operands(rng, (16, 256, 512))
+    ops["weights"] = ops["weights"].astype(np.int8)
+    if rule == "rstdp":
+        ops["mod"] = ops["mod"][:1]
+    else:
+        ops["noise"] = None
     _assert_vm_equal(*_vm_both(vm_corpus.shipped_programs()[rule], ops,
                                cuda), rule)
 

@@ -210,6 +210,70 @@ class TestNeuronScan:
             assert torch.equal(a, b)
 
 
+    @pytest.mark.parametrize("use_adex", [True, False])
+    @pytest.mark.parametrize("T", [1, 7, 45])
+    def test_chained_windows_match_reference(self, T, use_adex):
+        """The inputs of the card's ragged-window cases
+        (``test_torch_cuda.py::test_neuron_scan_ragged_chained``) on the
+        CPU: window lengths that are no multiple of the kernel's chunk, two
+        windows chained through the returned state, the v record on."""
+        cfg, jp, ie, ii, v0 = _neuron_operands(2 * T, (3,), seed=T)
+        tp = {k: t(v) for k, v in jp.items()}
+        j_st, t_st = _states(v0)
+        j_rc = rc = np.zeros((3, cfg.n_cols), np.float32)
+        t_rc = t(rc)
+        kw = dict(dt=cfg.dt, use_adex=use_adex, record_v=True)
+        for w in (slice(0, T), slice(T, 2 * T)):
+            j_st, j_rc, j_recs = j_neuron_ops.neuron_window(
+                j_st, j_rc, ie[w], ii[w], jp, impl="ref", **kw)
+            t_st, t_rc, t_recs = neuron_ops.neuron_window(
+                t_st, t_rc, t(ie[w]), t(ii[w]), tp, **kw)
+            assert_spikes_match(t_recs[0], j_recs[0], t_recs[1], j_recs[1],
+                                spike_threshold(jp))
+            np.testing.assert_array_equal(t_rc.numpy(), np.asarray(j_rc))
+            close(t_recs[1], j_recs[1])
+            for a, b in zip(t_st, j_st):
+                close(a, b)
+
+
+def test_launchers_match_argtypes():
+    """Every ``extern "C"`` launcher in ``csrc/`` has a ctypes signature in
+    ``_build.ARGTYPES`` with as many arguments, and every signature names a
+    launcher: a mismatch would pass pointers as the wrong arguments on the
+    card. ``ppuvm_exec``'s word limit is the same in the wrapper and the
+    kernel."""
+    import re
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ppuvm_exec import ops as vm_ops
+    found = {}
+    for path in sorted(_build.CSRC.glob("*.cu")):
+        text = path.read_text()
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                       text):
+            found[name] = len(params.split(","))
+        if path.name == "ppuvm_exec.cu":
+            limit = int(re.search(r"MAX_WORDS = (\d+);", text).group(1))
+            assert limit == vm_ops.MAX_WORDS
+    assert set(found) == set(_build.ARGTYPES)
+    for name, n in found.items():
+        assert n == len(_build.ARGTYPES[name]), name
+
+
+def test_kernel_variants_name_real_constants():
+    """``benchmarks/torch_kernel_variants.py`` changes only constants the
+    kernel sources define, and loads only launchers they export."""
+    from benchmarks import torch_kernel_variants as tv
+    from repro_torch.kernels import _build
+    for name, variants in tv.VARIANTS.items():
+        assert variants[0] == {}
+        for consts in variants:
+            text = tv.variant_source(name, consts)
+            for const, value in consts.items():
+                assert f"constexpr int {const} = {value};" in text
+        assert set(tv.LAUNCHERS[name]) <= set(_build.ARGTYPES)
+
+
 # ----------------------------------------------------------------- corr
 
 def _corr_operands(T, N, R, C, seed):

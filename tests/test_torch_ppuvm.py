@@ -249,6 +249,36 @@ class TestRunProgram:
         for a, b in zip(_port(words, o), want):
             np.testing.assert_array_equal(a, b)
 
+    @pytest.mark.parametrize("shape", [(3, 7, 37), (2, 5, 130)])
+    def test_int8_weights_ragged_columns(self, shape):
+        """The inputs of the card's ragged-lane cases
+        (``test_torch_cuda.py::test_ppuvm_exec_ragged_lanes``): rows that
+        are no multiple of the kernel's 4 lanes a thread, the weights given
+        as int8 (the synapse store's type), against the NumPy interpreter
+        on int32 weights."""
+        rng = np.random.RandomState(shape[-1])
+        for _ in range(3):
+            words = corpus.pad(corpus.gen_program(rng))
+            ops = corpus.prefixed_operands(rng, shape)
+            want = j_interp.run_program_np(words, **ops)
+            w8 = dict(ops, weights=ops["weights"].astype(np.int8))
+            for a, b in zip(_port(words, w8), want):
+                np.testing.assert_array_equal(a, b)
+
+    @pytest.mark.parametrize("op", range(isa.N_OPS + 1))
+    def test_one_word_programs(self, op):
+        """A single word of every opcode (and one past the last, a NOP) with
+        random fields, as the card's ``test_ppuvm_exec_one_word_programs``
+        draws them, against the NumPy interpreter."""
+        rng = np.random.RandomState(op)
+        ops = corpus.prefixed_operands(rng, (2, 3, 10))
+        for _ in range(8):
+            word = (op << 26) | int(rng.randint(0, 1 << 26))
+            words = np.array([word], np.uint32).view(np.int32)
+            want = j_interp.run_program_np(words, **ops)
+            for a, b in zip(_port(words, ops), want):
+                np.testing.assert_array_equal(a, b, err_msg=f"{word:#x}")
+
     def test_rates_to_fixed(self):
         r = np.array([0.0, 0.5, 1.5, 2.5, 127.0, 127.9, 128.0, 1000.0,
                       -3.5, -200.0], np.float32)
