@@ -6,7 +6,8 @@ A variant is a kernel source of ``src/repro_torch/csrc`` with some of its
 ``constexpr int`` constants changed (block shape, chunk length). Each is
 built with the port's own nvcc flags into a library of its own under
 ``build/variants/``, run through the port's wrapper on the main path's
-shapes, held bit for bit against the plain version and timed as
+shapes, held against the plain version (bit for bit; ``synray_sparse``,
+which sums in another order, within 1e-4) and timed as
 ``chip_smoke.py`` times a kernel (median of CUDA-event timings behind a
 device-side sleep). The first variant of each kernel is the source as it
 is. Compare variants only within one run: the card's clocks and power
@@ -30,10 +31,13 @@ VARIANTS = {
     "neuron_scan": [{}, {"TC": 32}, {"TC": 32, "THREADS": 64}, {"TC": 16}],
     "ppuvm_exec": [{}, {"TY": 8}, {"TY": 2}, {"TX": 16, "TY": 8},
                    {"TX": 64, "TY": 2}, {"K": 8}],
+    "synray_sparse": [{}, {"CW": 1}, {"CW": 1, "NW": 8, "UPW": 16},
+                      {"NW": 8, "UPW": 16}, {"UPW": 4}],
 }
 LAUNCHERS = {"neuron_scan": ("neuron_scan_launch",
                              "neuron_scan_floor_launch"),
-             "ppuvm_exec": ("ppuvm_exec_launch",)}
+             "ppuvm_exec": ("ppuvm_exec_launch",),
+             "synray_sparse": ("synray_sparse_window_launch",)}
 
 
 def variant_source(name: str, consts: dict) -> str:
@@ -139,6 +143,48 @@ def vm_cases():
     return cases, {}
 
 
+def sparse_cases():
+    """Phase 2's no-stimulus Dale half (16 instances, T = 128, 128 rows
+    read in place from the [T, 16, 256] planes, 512 columns), the window
+    form against its plain version on the card: gated (behind the
+    census's flag, as the route runs it; the census is taken once, with
+    the port's own library) and ordered (no flag, as sparse="always"
+    runs it)."""
+    import numpy as np
+    import torch
+    import chip_smoke
+    from repro_torch.core import events
+    from repro_torch.kernels.census import ops as census_ops
+    from repro_torch.kernels.synray_sparse import ops
+    from repro_torch.kernels.synray_sparse.ref import sparse_window_ref
+    rng = np.random.default_rng(0)
+    T, N, R, C = 128, 16, 256, 512
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).cuda()
+    w = dev(rng.integers(0, 64, (N, R, C), dtype=np.int8))[:, 0::2]
+    st = dev(rng.integers(0, 4, (N, R, C), dtype=np.int8))[:, 0::2]
+    ev = dev((rng.random((T, N, R)) < chip_smoke.BG_PROB).astype(np.float32)
+             * rng.uniform(0.2, 1.2, (T, N, R)).astype(np.float32))[..., 0::2]
+    ea = dev(np.broadcast_to(rng.integers(0, 4, (N, R), dtype=np.int8),
+                             (T, N, R)))[..., 0::2]
+    kw = dict(max_events=chip_smoke.MAX_EVENTS, k_cap=chip_smoke.K_CAP)
+    recs = events.regroup_window(ev.permute(1, 0, 2), ea.permute(1, 0, 2),
+                                 kw["max_events"], kw["k_cap"])
+    want = sparse_window_ref(*recs, w, st).permute(1, 0, 2)
+    flag = census_ops.census(ev, kw["max_events"], kw["k_cap"])
+
+    def gated():
+        return ops.sparse_current_window(ev, ea, w, st, flag=flag, **kw)
+
+    def ordered():
+        return ops.sparse_current_window(ev, ea, w, st, **kw)
+
+    def check(got):
+        return bool(torch.allclose(got, want, rtol=1e-4, atol=1e-4))
+    return {"gated": (gated, check), "ordered": (ordered, check)}, {}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write the rows to this file")
@@ -157,7 +203,8 @@ def main() -> int:
     print(smi)
     rows = []
     for name, (cases, extra) in (("neuron_scan", neuron_case()),
-                                 ("ppuvm_exec", vm_cases())):
+                                 ("ppuvm_exec", vm_cases()),
+                                 ("synray_sparse", sparse_cases())):
         for consts in VARIANTS[name]:
             _build._lib = build_variant(name, consts)
             row = dict(kernel=name, consts=consts)

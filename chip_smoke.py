@@ -8,8 +8,8 @@ Phases, each reported on its own line:
 1. Device and build: the card's name and power limit (``nvidia-smi``),
    then the CUDA kernels built from ``src/repro_torch/csrc`` (timed), and
    ``-Xptxas -v``'s report held to the redesigned kernels' budgets:
-   ``ppuvm_exec`` with a 0-byte stack frame, neither it nor
-   ``neuron_scan`` spilling.
+   ``ppuvm_exec`` with a 0-byte stack frame, none of it, ``neuron_scan``
+   and ``synray_sparse`` spilling.
 2. Each kernel against its plain PyTorch version on the card, at the
    main-path shapes (16 instances of the full 256 x 512 chip, T = 128),
    inputs from a numpy seed: ``neuron_scan``, ``corr`` and ``ppu_update``
@@ -17,8 +17,13 @@ Phases, each reported on its own line:
    (they sum rows with FMAs in another order than the plain versions'
    products), ``synray``'s const_addr form (the main path's) equal to its
    general form bit for bit and both timed beside ``torch.bmm`` on the
-   resolved mask (the ratio is logged), and ``synray_sparse`` equal to
-   ``synray`` bit for bit on a window that fits. ``neuron_scan`` is timed
+   resolved mask (the ratio is logged). ``synray_sparse``'s window form
+   (the route's: the records kept as ``regroup_window`` keeps them, no
+   pack) on a no-stimulus Dale half read in place: equal bit for bit to
+   ``synray`` and to its record form fed ``regroup_window``'s records,
+   timed behind the census's flag beside the census, the pack it
+   replaced, the record form, ``synray`` and ``torch.bmm`` (its library
+   yardstick); ``census`` equal to its plain version. ``neuron_scan`` is timed
    as the main path calls it (parameters packed once), also on the host
    clock with its wrapper, beside its chain floor (``chain_floor_ms``: the
    kernel with the currents in registers). Times are medians of
@@ -28,37 +33,45 @@ Phases, each reported on its own line:
 3. Path A, the main path: the §5 experiment at full width (``BSS2``, 128
    inputs x 512 neurons, 16 instances, 128 steps, ``backend="blocked"``,
    ``sparse_mode`` left at its default) for 6 trials, stimuli A, B, none,
-   A, B, none. The census gate sends the no-stimulus windows to
-   ``synray_sparse`` and the pattern windows to ``synray``: the run must
-   count exactly 8 synray, 4 synray_sparse, 6 neuron_scan and 6 corr
-   launches. The census of every window is printed; the state must be
-   finite with whole-number rate counters; the first trial and the first
-   no-stimulus trial, rerun on the CPU from the same state and draws, must
-   take the same route and agree with the card (spikes equal up to flips
-   at threshold, see ``check_against_cpu``). Then ``synray`` (both Dale
-   halves) and ``corr`` are checked and timed again on the operands of
-   the first pattern trial, at the §5 densities.
+   A, B, none. Every window goes through the census gate on the device:
+   ``census``, ``synray_sparse`` and ``synray`` launch (12 each, with 6
+   ``neuron_scan`` and 6 ``corr``), and the census's flag lets the sparse
+   kernel compute the no-stimulus windows and the dense one the pattern
+   windows, as the device's route counter must show (read after the
+   run). The census of every window is printed; the state must be
+   finite with whole-number rate counters; one more no-stimulus trial
+   runs under ``set_sync_debug_mode("error")`` (no device-to-host read);
+   the first trial and the first no-stimulus trial, rerun on the CPU from
+   the same state and draws, must take the same route and agree with the
+   card (spikes equal up to flips at threshold, see
+   ``check_against_cpu``). The gate's host-clock cost and the routes
+   interleaved on one no-stimulus trial (``route_ab``) are logged. Then
+   ``synray`` (both Dale halves) and ``corr`` are checked and timed again
+   on the operands of the first pattern trial, at the §5 densities.
 4. Path B, the fixed-function R-STDP update: three windows of ``AnnCore
    .run`` at 16 x 256 x 512, each followed by ``VectorUnit.apply_rstdp``
    (3 ``ppu_update`` launches); the first update, rerun on the CPU from
    the same state, must give the same codes (up to .5 ties).
 5. The §5 closed loop at the default 32 x 16 geometry on the card: 450
-   trials, the port's own generator, seed 0; both populations' trailing
-   median reward must exceed 0.75.
+   trials, the port's own generator, seed 0, held to tier 3
+   (``tests/test_rstdp.py``): both populations' trailing median reward
+   above 0.85, the even columns' A-channel weights above 5 and 10 above
+   the odd columns'.
 6. The PPU-VM kernel ``ppuvm_exec`` against its plain version on the card,
    weights and registers bit for bit: the 200-program fuzz corpus of
    ``tests/test_ppuvm_fuzz.py`` at 8 x 8 (regenerated with numpy and the
    port's assembler by ``tests/_torch_ppuvm.py``), the edge corpus, the
    unknown-opcode program, a prefixed [3, 40, 136] shape with ragged
-   tails, and ``signed_dw_program`` / ``rstdp_program`` at [16, 256, 512]
-   on int8 weights, as their callers pass them (timed, and again on int32
-   weights; ``bound_ms`` counts each plane read once in the type it has,
-   the weights and the 8 registers written once as int32). No PyTorch
-   call computes the VM; beside it, ``ppu_update`` on the same R-STDP
-   update as a yardstick.
+   tails, two programs longer than the ``MAX_WORDS`` words the kernel
+   decodes at once, and ``signed_dw_program`` / ``rstdp_program`` at
+   [16, 256, 512] on int8 weights, as their callers pass them (timed,
+   and again on int32 weights; ``bound_ms`` counts each plane read once
+   in the type it has, the weights and the 8 registers written once as
+   int32). No PyTorch call computes the VM; beside it, ``ppu_update`` on
+   the same R-STDP update as a yardstick.
 7. Path C, the vm rule at full width: path A's configuration with
    ``rule_impl="vm"``, 3 trials (A, B, none): exactly 3 ``ppuvm_exec``
-   launches; the first trial rerun on the CPU (as in phase 3, weight codes
+   launches, the routes dense, dense, sparse; the first trial rerun on the CPU (as in phase 3, weight codes
    equal where no spike flipped) and its VM update rerun on the CPU from
    the card's window state (registers, so dw, bit for bit); the same
    trial with the python rule within 0.15 on the signed weights.
@@ -97,6 +110,9 @@ SRC = {
              "src/repro/kernels/corr/kernel.py:56"),
     "synray_sparse": ("src/repro_torch/csrc/synray_sparse.cu",
                       "src/repro/kernels/synray_sparse/kernel.py:51"),
+    # no TPU kernel: the device form of the reference's lax.cond predicate
+    "census": ("src/repro_torch/csrc/census.cu",
+               "src/repro/core/synapse.py:250"),
     "ppu_update": ("src/repro_torch/csrc/ppu_update.cu",
                    "src/repro/kernels/ppu_update/kernel.py:51"),
     "ppuvm_exec": ("src/repro_torch/csrc/ppuvm_exec.cu",
@@ -155,20 +171,22 @@ def phase_build():
             if "registers" in line or "spill" in line:
                 log(f"    {name}: {line.strip()}")
     # the redesigned kernels' register budgets: ppuvm_exec keeps the VM's
-    # register file in registers (no stack frame), neither spills
-    for name, no_stack in (("neuron_scan.cu", False), ("ppuvm_exec.cu", True)):
-        frames = [tuple(map(int, m)) for m in re.findall(
-            r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
-            r"spill loads", _build.BUILD_LOG.get(name, ""))]
+    # register file in registers (no stack frame), none of them spills
+    for name, no_stack in (("neuron_scan.cu", False), ("ppuvm_exec.cu", True),
+                           ("synray_sparse.cu", False)):
+        frames = [(fn, *map(int, m)) for fn, *m in re.findall(
+            r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, "
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+            _build.BUILD_LOG.get(name, ""))]
         if not frames:
             raise AssertionError(f"{name}: no -Xptxas -v report in the build "
                                  "log")
-        if any(st or sl for _, st, sl in frames):
+        if any(st or sl for _, _, st, sl in frames):
             raise AssertionError(f"{name} spills: {frames}")
-        if no_stack and any(f for f, _, _ in frames):
+        if no_stack and any(f for _, f, _, _ in frames):
             raise AssertionError(f"{name}: stack frame {frames}")
         log(f"[1] {name}: {len(frames)} functions, stack frames "
-            f"{sorted({f for f, _, _ in frames})} bytes, no spills")
+            f"{sorted({f for _, f, _, _ in frames})} bytes, no spills")
     return smi
 
 
@@ -231,7 +249,8 @@ def phase_kernels():
     lam = float(np.exp(-0.2 / 5.0))
     rows["corr"] = corr_row((pre, post, tp0, tq0, ac0, aa0),
                             dict(lam=lam), "[2]")
-    rows["synray_sparse"] = _check_synray_sparse(rng, dev, N, T, R, C)
+    rows["synray_sparse"], rows["census"] = _check_synray_sparse(
+        rng, dev, N, T, R, C)
     rows["ppu_update"] = _check_ppu_update(rng, dev, N, R, C)
     for name, r in rows.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -386,10 +405,18 @@ def corr_row(ops, kw, tag):
 
 def _check_synray_sparse(rng, dev, N, T, R, C):
     """synray_sparse on a no-stimulus window of one Dale half (the §5
-    background rate, row-constant addresses): equal to the dense synray
-    kernel bit for bit, and to its plain version within 1e-4."""
+    background rate, row-constant addresses, the half read in place from
+    the full [T, N, R] planes as the main path reads it): the window form
+    (the route's: no pack) equal to the dense synray kernel bit for bit,
+    to the record form fed ``regroup_window``'s records bit for bit, and
+    to its plain version within 1e-4; timed as the gated route launches it
+    (behind the census's flag), beside the census, the pack it replaced,
+    the record form, the dense kernel and ``torch.bmm`` on the same
+    window. Returns the ``synray_sparse`` and ``census`` rows."""
     import torch
     from repro_torch.core import events
+    from repro_torch.kernels.census import ops as census_ops
+    from repro_torch.kernels.census.ref import census_ref
     from repro_torch.kernels.synray import ops as synray_ops
     from repro_torch.kernels.synray_sparse import ops as sparse_ops
     from repro_torch.kernels.synray_sparse.ref import sparse_window_ref
@@ -398,50 +425,99 @@ def _check_synray_sparse(rng, dev, N, T, R, C):
     Rh = R // 2
     w = dev(rng.integers(0, 64, (N, R, C), dtype=np.int8))
     st = dev(rng.integers(0, 4, (N, R, C), dtype=np.int8))
+    ev_full = dev((rng.random((T, N, R)) < BG_PROB).astype(np.float32)
+                  * rng.uniform(0.2, 1.2, (T, N, R)).astype(np.float32))
+    ea_full = dev(np.broadcast_to(rng.integers(0, 4, (N, R), dtype=np.int8),
+                                  (T, N, R)))
+    ev, ea = ev_full[..., 0::2], ea_full[..., 0::2]
     w_h, st_h = w[:, 0::2, :], st[:, 0::2, :]
-    ev = dev((rng.random((T, N, Rh)) < BG_PROB).astype(np.float32)
-             * rng.uniform(0.2, 1.2, (T, N, Rh)).astype(np.float32))
-    ea = dev(np.broadcast_to(rng.integers(0, 4, (N, Rh), dtype=np.int8),
-                             (T, N, Rh)))
-    n_ev, k_max = (int(x) for x in events.window_stats(ev))
-    if not (n_ev <= MAX_EVENTS and k_max <= K_CAP):
+    kw = dict(max_events=MAX_EVENTS, k_cap=K_CAP)
+    flag = census_ops.census(ev, MAX_EVENTS, K_CAP)
+    c_plain = census_ref(ev, MAX_EVENTS, K_CAP)
+    torch.cuda.synchronize()
+    if not torch.equal(flag, c_plain):
+        raise AssertionError(f"census {flag.tolist()} differs from its plain "
+                             f"version {c_plain.tolist()}")
+    fits, n_ev, k_max = flag.tolist()
+    if not fits:
         raise AssertionError(f"synray_sparse: the test window does not fit "
                              f"({n_ev}, {k_max})")
-    ev_n = ev.permute(1, 0, 2).contiguous()                # [N, T, Rh]
-    ea_n = ea.permute(1, 0, 2).contiguous()
-    recs = events.regroup_window(ev_n, ea_n, MAX_EVENTS, K_CAP)
-    got = sparse_ops.sparse_window(*recs, w_h, st_h)
+    got = sparse_ops.sparse_current_window(ev, ea, w_h, st_h, flag=flag, **kw)
+    ordered = sparse_ops.sparse_current_window(ev, ea, w_h, st_h, **kw)
     dense = synray_ops.synaptic_current(ev, ea, w_h, st_h, const_addr=True)
-    want = sparse_window_ref(*recs, w_h, st_h)
+    ev_n, ea_n = ev.permute(1, 0, 2), ea.permute(1, 0, 2)     # [N, T, Rh]
+    recs = events.regroup_window(ev_n, ea_n, MAX_EVENTS, K_CAP)
+    rec = sparse_ops.sparse_window(*recs, w_h, st_h)
+    want = sparse_window_ref(*recs, w_h, st_h).permute(1, 0, 2)
     torch.cuda.synchronize()
-    if not torch.equal(got, dense.permute(1, 0, 2)):
+    if not torch.equal(got, dense):
         raise AssertionError("synray_sparse differs from the dense synray "
                              "kernel on a window that fits")
+    if not (torch.equal(got, rec.permute(1, 0, 2))
+            and torch.equal(got, ordered)):
+        raise AssertionError("synray_sparse: the window form (gated or "
+                             "ordered) differs from the record form on "
+                             "regroup_window's records")
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     err = float((got - want).abs().max())
-    # what this window needs: the records, the store rows that fired
-    # (weight and address bytes), the output; one FMA per matched column
+    # what this window needs: the efficacy and address planes as strided
+    # reads (every 32-byte sector of the full [T, N, R] planes), the two
+    # stores of the half, the output; one FMA per kept record and matched
+    # column
     rows_t, addr_t, eff_t = recs
     live = eff_t != 0
-    n_rows = sum(int(torch.unique(rows_t[n][live[n]]).numel())
-                 for n in range(N))
     nn = torch.arange(N, device=w.device).reshape(-1, 1, 1)
     match = st_h[nn, rows_t.long()].to(torch.int32) == addr_t.unsqueeze(-1)
     n_fma = float((match & live.unsqueeze(-1)).sum())
-    n_bytes = N * T * K_CAP * 12 + 2 * n_rows * C + N * T * C * 4
+    n_bytes = T * N * R * 5 + 2 * N * Rh * C + T * N * C * 4
     b_ms, b_by = bound_ms(n_bytes, 2 * n_fma)
+    w_eff = w_h.float() * (st_h == ea[0].unsqueeze(-1)).float()
+    ev_c = ev_n.contiguous()
+    lib_ms = time_ms(lambda: torch.bmm(ev_c, w_eff), 25)
+    ms = time_ms(lambda: sparse_ops.sparse_current_window(
+        ev, ea, w_h, st_h, flag=flag, **kw), 25)
     row = dict(
-        max_abs_err=err, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        ms=time_ms(lambda: sparse_ops.sparse_window(*recs, w_h, st_h), 25),
-        plain_ms=time_ms(lambda: sparse_window_ref(*recs, w_h, st_h), 5))
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        ms=ms, plain_ms=time_ms(lambda: sparse_window_ref(
+            *events.regroup_window(ev_n, ea_n, MAX_EVENTS, K_CAP), w_h,
+            st_h), 5))
+    # the census: the efficacy plane once (every sector), the census out
+    c_bytes = T * N * R * 4 + 12
+    cb_ms, cb_by = bound_ms(c_bytes, T * N * Rh)
+    census_row = dict(
+        max_abs_err=0.0, bound_ms=cb_ms, bound_by=cb_by, library_ms=None,
+        ms=time_ms(lambda: census_ops.census(ev, MAX_EVENTS, K_CAP), 25),
+        plain_ms=time_ms(lambda: census_ref(ev, MAX_EVENTS, K_CAP), 25))
     pack_ms = time_ms(lambda: events.regroup_window(ev_n, ea_n, MAX_EVENTS,
                                                     K_CAP), 25)
+    rec_ms = time_ms(lambda: sparse_ops.sparse_window(*recs, w_h, st_h), 25)
+    ordered_ms = time_ms(lambda: sparse_ops.sparse_current_window(
+        ev, ea, w_h, st_h, **kw), 25)
     dense_ms = time_ms(lambda: synray_ops.synaptic_current(
         ev, ea, w_h, st_h, const_addr=True), 25)
-    log(f"    synray_sparse window: {n_ev} events (worst instance), "
-        f"k_max={k_max}; pack (regroup_window)={pack_ms:.4f} ms, dense "
-        f"synray on the same window={dense_ms:.4f} ms, equal bit for bit")
-    return row
+    skip_ms = time_ms(lambda: synray_ops.synaptic_current(
+        ev, ea, w_h, st_h, const_addr=True, flag=flag), 25)
+
+    def gated():
+        f = census_ops.census(ev, MAX_EVENTS, K_CAP)
+        out = sparse_ops.sparse_current_window(ev, ea, w_h, st_h, flag=f,
+                                               **kw)
+        synray_ops.synaptic_current(ev, ea, w_h, st_h, const_addr=True,
+                                    flag=f, out=out)
+    gated_ms = time_ms(gated, 25)
+    log(f"[2] synray_sparse window at [T={T}, N={N}, R={Rh} (a Dale half "
+        f"in place), C={C}]: {n_ev} events (worst instance), k_max={k_max}, "
+        f"{n_fma:.0f} FMAs; window form {ms:.4f} ms (behind the census's "
+        f"flag; no pack), bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.2f} "
+        f"MB), {ms / b_ms:.2f}x the bound; its ordered form (no census, as "
+        f"sparse=\"always\" runs it) {ordered_ms:.4f} ms; census "
+        f"{census_row['ms']:.4f} ms; the pack it replaced (regroup_window) "
+        f"{pack_ms:.4f} ms; record form {rec_ms:.4f} ms; dense synray "
+        f"{dense_ms:.4f} ms, behind a "
+        f"flag that skips it {skip_ms:.4f} ms; torch.bmm (mask resolved) "
+        f"{lib_ms:.4f} ms; census + both route kernels {gated_ms:.4f} ms; "
+        f"gated == ordered == dense == record form bit for bit")
+    return row, census_row
 
 
 def _check_ppu_update(rng, dev, N, R, C):
@@ -511,13 +587,26 @@ def _route_spy(log_to):
     return lambda: setattr(synapse, "window_route", real)
 
 
+def _device_routes(snaps, n_trials):
+    """Per trial, the route both of its Dale halves took on the device,
+    from clones of ``synapse.route_counts`` taken after each trial (read
+    after the run): "sparse", "dense", or the counts when they differ."""
+    import torch
+    counts = torch.stack(snaps).cpu().tolist()
+    out = []
+    for i in range(n_trials):
+        d = [a - b for a, b in zip(counts[i + 1], counts[i])]
+        out.append({(0, 2): "sparse", (2, 0): "dense"}.get(tuple(d), d))
+    return out
+
+
 def phase_main_path():
     """Path A: the full-width §5 slice with the reference's default
     ``sparse_mode``, 6 trials of 16 instances of the chip."""
     import numpy as np
     import torch
     from repro_torch import kernels
-    from repro_torch.core import events
+    from repro_torch.core import events, synapse
 
     init, trial, meta, kw = _full_width()
     stims = [1, 2, 0, 1, 2, 0]
@@ -526,45 +615,52 @@ def phase_main_path():
 
     gate_log = []
     restore = _route_spy(gate_log)
+    routes_dev = synapse.route_counts("cuda")
+    synapse.reset_route_counts()
+    snaps = [routes_dev.clone()]
     kernels.reset_launches()
-    times, states, metrics, per_trial = [], [], [], []
+    times, states, metrics = [], [], []
     state = state0
     try:
         for i, stim in enumerate(stims):
-            before = dict(kernels.LAUNCHES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
             state, m = trial(state, stim, draws.events[i], draws.xi[i])
             b.record()
+            snaps.append(routes_dev.clone())     # a device copy, no read
             b.synchronize()
             times.append(a.elapsed_time(b))
             states.append(state)
             metrics.append(m)
-            per_trial.append({k: kernels.LAUNCHES[k] - before[k]
-                              for k in before})
     finally:
         restore()
     counts = dict(kernels.LAUNCHES)
-    want = {"synray": 8, "synray_sparse": 4, "neuron_scan": 6, "corr": 6,
-            "ppu_update": 0, "ppuvm_exec": 0}
+    # every window is gated on the device: the census and both route
+    # kernels launch, and the flag lets one of the two compute
+    want = {"synray": 12, "synray_sparse": 12, "census": 12,
+            "neuron_scan": 6, "corr": 6, "ppu_update": 0, "ppuvm_exec": 0}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     if len(gate_log) != 2 * len(stims):
         raise AssertionError(f"{len(gate_log)} gated windows, expected "
                              f"{2 * len(stims)}")
+    routes = _device_routes(snaps, len(stims))
+    log(f"[3] routes on the device after the 6 trials (dense, sparse): "
+        f"{routes_dev.tolist()}")
     for i, stim in enumerate(stims):
-        routes = [out[0] for _, out in gate_log[2 * i:2 * i + 2]]
         for h, (ev, (route, me, kc)) in enumerate(gate_log[2 * i:2 * i + 2]):
             n_ev, k_max = (int(x) for x in events.window_stats(ev))
             log(f"[3] trial {i} (stim {stim}) {('exc', 'inh')[h]} half: "
                 f"census n_events={n_ev} k_max={k_max} vs capacities "
-                f"({me}, {kc}) -> {route}")
+                f"({me}, {kc}) -> {route}: {routes[i]} on the device")
+            if route != "gate":
+                raise AssertionError(f"trial {i}: the window was routed "
+                                     f"{route} on the host")
         expect = "sparse" if stim == 0 else "dense"
-        if routes != [expect, expect]:
-            raise AssertionError(f"trial {i} (stim {stim}) took {routes}")
-        if per_trial[i]["synray_sparse" if stim == 0 else "synray"] != 2:
-            raise AssertionError(f"trial {i}: launches {per_trial[i]}")
+        if routes[i] != expect:
+            raise AssertionError(f"trial {i} (stim {stim}) took {routes[i]}")
+    no_host_read(trial, states[-1], 0, draws.events[2], draws.xi[2])
 
     for x in _flatten(state):
         if x.is_floating_point() and not bool(torch.isfinite(x).all()):
@@ -587,8 +683,8 @@ def phase_main_path():
     for i in (0, stims.index(0)):
         before = state0 if i == 0 else states[i - 1]
         check_against_cpu(meta, kw, before, stims[i], draws.events[i],
-                          draws.xi[i], states[i], metrics[i],
-                          gate_log[2 * i][1][0], f"trial {i}")
+                          draws.xi[i], states[i], metrics[i], routes[i],
+                          f"trial {i}")
     addr = torch.zeros(draws.events[0].shape, dtype=torch.int8,
                        device="cuda")
     i0 = stims.index(0)
@@ -658,7 +754,8 @@ def kernels_on_trial(trial, state, stim, events_t, xi, label):
 
 def route_ab(state, stim, events_t, xi, pairs=6):
     """The first no-stimulus trial run again, alternately with the
-    default census gate (sparse route) and with ``sparse_mode="never"``
+    default census gate (on the device: the census, the sparse kernel and
+    the skipped dense one) and with ``sparse_mode="never"``
     (dense), on the same instance, state and draws: the end-to-end price
     or gain of the route, within one call (dense, sparse, sparse, dense,
     ...)."""
@@ -672,7 +769,8 @@ def route_ab(state, stim, events_t, xi, pairs=6):
                              "weights on a window that fits")
     text = _interleaved(trials, state, stim, events_t, xi, pairs)
     log(f"[3] no-stimulus trial, routes interleaved ({pairs} pairs): sparse "
-        f"{text['sparse']}, dense {text['dense']}; weights equal")
+        f"(census gate on the device) {text['sparse']}, dense "
+        f"(sparse_mode=\"never\") {text['dense']}; weights equal")
 
 
 def _interleaved(trials, state, stim, events_t, xi, pairs):
@@ -774,22 +872,55 @@ def check_against_cpu(meta, kw, state_before, stim, events_t, xi, s_g, m_g,
     return int(cols.sum()), int((dq > 0).sum())
 
 
-def gate_cost(events_t):
-    """Host-clock cost of the census gate on one Dale half of a
-    no-stimulus window: the census and its one device-to-host read."""
+def no_host_read(trial, state, stim, events_t, xi):
+    """One more no-stimulus trial (the gate's and both routes' kernels
+    warmed up by the run) under ``torch.cuda.set_sync_debug_mode
+    ("error")``: any device-to-host read in the trial raises."""
     import torch
     from repro_torch.core import synapse
-    ev = events_t[..., 0::2].contiguous()
-    times = []
-    for _ in range(21):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        synapse.window_route(ev, 512, const_addr=True)
-        times.append((time.perf_counter() - t0) * 1e3)
-    times.sort()
-    log(f"[3] census gate (window_stats + census_fits + one device-to-host "
-        f"read), host clock: median {times[len(times) // 2]:.4f} ms, min "
-        f"{times[0]:.4f} ms over {len(times)}")
+    before = synapse.route_counts("cuda").clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trial(state, stim, events_t, xi)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    d = (synapse.route_counts("cuda") - before).tolist()
+    if d != [0, 2]:
+        raise AssertionError(f"the no-stimulus trial took routes {d}")
+    log("[3] one no-stimulus trial under set_sync_debug_mode('error'): no "
+        "device-to-host read; both Dale halves sparse on the device")
+
+
+def gate_cost(events_t):
+    """Host-clock cost of the census gate on one Dale half of a
+    no-stimulus window: the census kernel's launch and run (the route is
+    decided on the device, nothing is read back), beside the host gate it
+    replaced (``window_stats`` + ``census_fits`` + one device-to-host
+    read), each from a synchronised start to a synchronised end."""
+    import torch
+    from repro_torch.core import events
+    from repro_torch.kernels.census import ops as census_ops
+
+    def host_ms(fn):
+        times = []
+        for _ in range(21):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        times.sort()
+        return times[len(times) // 2], times[0]
+    ev = events_t[..., 0::2]
+    dev_ms = host_ms(lambda: census_ops.census(ev, MAX_EVENTS, K_CAP))
+    old_ms = host_ms(lambda: bool(events.census_fits(
+        *events.window_stats(ev), MAX_EVENTS, K_CAP)))
+    log(f"[3] census gate, host clock (median, min of 21): on the device "
+        f"(census kernel, no read back) {dev_ms[0]:.4f} ms, "
+        f"{dev_ms[1]:.4f} ms; the host gate it replaced (window_stats + "
+        f"census_fits + one device-to-host read) {old_ms[0]:.4f} ms, "
+        f"{old_ms[1]:.4f} ms")
 
 
 def phase_breakdown(core, st, ev, addr, trial_ms, label):
@@ -900,7 +1031,10 @@ def _flatten(tree):
 
 
 def phase_closed_loop():
-    """The §5 closed loop at 32 x 16 on the card (tests/test_rstdp.py)."""
+    """The §5 closed loop at 32 x 16 on the card, held to the tier-3
+    criteria of ``tests/test_rstdp.py``: both populations' trailing median
+    reward above 0.85, and A-channel weight discrimination (the even
+    columns' A-channel weights above 5 and 10 above the odd columns')."""
     import numpy as np
     from repro_torch.core.hybrid import run_training
     t0 = time.perf_counter()
@@ -914,12 +1048,18 @@ def phase_closed_loop():
         return float(np.mean(np.median(mr[-n:, sel], axis=1)))
     te, to = trailing(even), trailing(~even)
     w = out["w_signed_final"]
-    gap = float(w[ma][:, even].mean() - w[ma][:, ~even].mean())
+    w_even = float(w[ma][:, even].mean())
+    w_odd = float(w[ma][:, ~even].mean())
     log(f"[5] closed loop 32 x 16, 450 trials, seed 0: trailing <R> even="
-        f"{te:.4f} odd={to:.4f}, A-channel weight gap={gap:.3f} "
-        f"({secs:.1f} s, {1e3 * secs / 450:.2f} ms/trial)")
-    if not (te > 0.75 and to > 0.75):
+        f"{te:.4f} odd={to:.4f} (> 0.85 each); A-channel weights even "
+        f"columns {w_even:.3f} (> 5), odd columns {w_odd:.3f} (gap "
+        f"{w_even - w_odd:.3f} > 10) ({secs:.1f} s, {1e3 * secs / 450:.2f} "
+        f"ms/trial)")
+    if not (te > 0.85 and to > 0.85):
         raise AssertionError(f"the closed loop did not learn: {te}, {to}")
+    if not (w_even > 5.0 and w_even > w_odd + 10.0):
+        raise AssertionError(f"no A-channel weight discrimination: even "
+                             f"{w_even}, odd {w_odd}")
 
 
 def _vm_corpus():
@@ -976,9 +1116,20 @@ def phase_ppuvm_kernel(ppu_update_ms):
         both(words, dict(ops, mod=None, noise=None),
              f"[3, 40, 136] program {i}, no mod or noise")
         n += 2
+    # programs longer than the words the kernel decodes at once: run a
+    # chunk of MAX_WORDS words at a time on every tile
+    base = np.concatenate([vmc.gen_program(np.random.RandomState(s))
+                           for s in range(1500)])
+    for n_words in (vm_ops.MAX_WORDS + 1, 3 * vm_ops.MAX_WORDS + 5):
+        both(np.resize(base, n_words).astype(np.int32),
+             vmc.prefixed_operands(rng, (3, 40, 136)),
+             f"{n_words} words at [3, 40, 136]")
+        n += 1
     log(f"[6] ppuvm_exec: {n} programs (200-seed fuzz corpus at 8 x 8, edge "
-        f"corpus, unknown opcodes, [3, 40, 136] ragged) bit-equal to the "
-        f"plain version, weights and registers")
+        f"corpus, unknown opcodes, [3, 40, 136] ragged, {vm_ops.MAX_WORDS + 1}"
+        f" and {3 * vm_ops.MAX_WORDS + 5} words: longer than the "
+        f"{vm_ops.MAX_WORDS} decoded at once) bit-equal to the plain "
+        f"version, weights and registers")
 
     N, R, C = 16, 256, 512
     ops = vmc.prefixed_operands(rng, (N, R, C))
@@ -1022,6 +1173,7 @@ def phase_path_c(trial_ms_a):
     import numpy as np
     import torch
     from repro_torch import kernels
+    from repro_torch.core import synapse
     from repro_torch.core.ppu import VectorUnit
     from repro_torch.ppuvm import programs
 
@@ -1029,30 +1181,32 @@ def phase_path_c(trial_ms_a):
     stims = [1, 2, 0]
     draws = meta["draw"](torch.Generator().manual_seed(12), stims)
     state0 = init()
-    gate_log = []
-    restore = _route_spy(gate_log)
+    routes_dev = synapse.route_counts("cuda")
+    synapse.reset_route_counts()
+    snaps = [routes_dev.clone()]
     kernels.reset_launches()
     times, states, metrics = [], [], []
     state = state0
-    try:
-        for i, stim in enumerate(stims):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            state, m = trial(state, stim, draws.events[i], draws.xi[i])
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-            states.append(state)
-            metrics.append(m)
-    finally:
-        restore()
+    for i, stim in enumerate(stims):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = trial(state, stim, draws.events[i], draws.xi[i])
+        b.record()
+        snaps.append(routes_dev.clone())
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+        states.append(state)
+        metrics.append(m)
     counts = dict(kernels.LAUNCHES)
-    want = {"synray": 4, "synray_sparse": 2, "neuron_scan": 3, "corr": 3,
-            "ppu_update": 0, "ppuvm_exec": 3}
+    want = {"synray": 6, "synray_sparse": 6, "census": 6, "neuron_scan": 3,
+            "corr": 3, "ppu_update": 0, "ppuvm_exec": 3}
     if counts != want:
         raise AssertionError(f"path C launch counts {counts}, expected "
                              f"{want}")
+    routes = _device_routes(snaps, len(stims))
+    if routes != ["dense", "dense", "sparse"]:
+        raise AssertionError(f"path C routes {routes}")
     for x in _flatten(state):
         if x.is_floating_point() and not bool(torch.isfinite(x).all()):
             raise AssertionError("non-finite state after path C")
@@ -1062,7 +1216,7 @@ def phase_path_c(trial_ms_a):
 
     cols, differing = check_against_cpu(
         meta, kw, state0, stims[0], draws.events[0], draws.xi[0], states[0],
-        metrics[0], gate_log[0][1][0], "path C trial 0", phase=7)
+        metrics[0], routes[0], "path C trial 0", phase=7)
     if cols == 0 and differing:
         raise AssertionError(f"path C: {differing} weight codes differ "
                              "between the card and the CPU")

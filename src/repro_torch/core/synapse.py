@@ -5,7 +5,9 @@ carries a source address and the synapse forwards current only when the
 stored address matches. The hot operation — events x weights -> per-column
 currents — is the masked product of ``repro_torch.kernels.synray``, or
 at low event density its event-sparse twin ``repro_torch.kernels.
-synray_sparse`` over the packed event records of ``core.events``.
+synray_sparse`` over the window's fired rows (the records of
+``core.events``), the route chosen by the window's census
+(``repro_torch.kernels.census``).
 """
 from __future__ import annotations
 
@@ -81,40 +83,81 @@ def _dense_window(weights, addresses, row_events_t, event_addr_t, gain,
 
 def _sparse_window(weights, addresses, row_events_t, event_addr_t, gain,
                    max_events, k_cap):
-    """The event-sparse whole-window path: regroup the window into [N, T,
-    K] records and gather-accumulate only the fired rows
-    (``synray_sparse``). Equal to the dense kernel bit for bit on the card
-    as long as the window fits the capacities; overflow drops records."""
-    from repro_torch.kernels import (fold_instance, fold_instance_time,
-                                     unfold_instance_time)
+    """The event-sparse whole-window path: gather-accumulate only the
+    fired rows (``synray_sparse``; on the card one launch that reads the
+    window in place, on the CPU the records of ``events.regroup_window``
+    and the plain version). Equal to the dense kernel bit for bit on the
+    card as long as the window fits the capacities; overflow drops
+    records."""
     from repro_torch.kernels.synray_sparse import ops as sparse_ops
-    prefix = tuple(weights.shape[:-2])
-    i = sparse_ops.synaptic_current_sparse(
-        fold_instance_time(row_events_t.to(torch.float32), 1),
-        fold_instance_time(event_addr_t, 1),
-        fold_instance(weights, 2), fold_instance(addresses, 2),
-        max_events=max_events, k_cap=k_cap)
-    return unfold_instance_time(i, prefix) * gain
+    return sparse_ops.sparse_current_window(
+        row_events_t.to(torch.float32), event_addr_t, weights, addresses,
+        max_events=max_events, k_cap=k_cap) * gain
+
+
+def _gated_window(weights, addresses, row_events_t, event_addr_t, gain,
+                  const_addr, max_events, k_cap):
+    """Both routes under the device's census, the reference's ``lax.cond``
+    (``repro/core/synapse.py:250-257``) with no read back to the host:
+    the census kernel writes the flag and counts the route
+    (``route_counts``), then the sparse kernel runs where the window fits
+    and the dense kernel where it does not, into one buffer."""
+    from repro_torch.kernels.census import ops as census_ops
+    from repro_torch.kernels.synray import ops as synray_ops
+    from repro_torch.kernels.synray_sparse import ops as sparse_ops
+    ev = row_events_t.to(torch.float32)
+    flag = census_ops.census(ev, max_events, k_cap,
+                             routes=route_counts(ev.device))
+    out = torch.empty((*ev.shape[:-1], weights.shape[-1]),
+                      dtype=torch.float32, device=ev.device)
+    sparse_ops.sparse_current_window(
+        ev, event_addr_t, weights, addresses, max_events=max_events,
+        k_cap=k_cap, flag=flag, out=out)
+    synray_ops.synaptic_current(ev, event_addr_t, weights, addresses,
+                                const_addr=const_addr, flag=flag, out=out)
+    return out * gain
+
+
+# The gate's decisions per device, int64 [dense, sparse] on the device:
+# the census adds to it where it decides, so a run reads the routes it
+# took after its timed region, with no read inside it.
+_ROUTES = {}
+
+
+def route_counts(device) -> torch.Tensor:
+    """The [dense, sparse] decision counter of ``device``."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _ROUTES:
+        _ROUTES[device] = torch.zeros(2, dtype=torch.int64, device=device)
+    return _ROUTES[device]
+
+
+def reset_route_counts() -> None:
+    for c in _ROUTES.values():
+        c.zero_()
 
 
 def window_route(row_events_t, C: int, *, const_addr: bool = False,
                  sparse: str = "auto", max_events: int = None,
                  k_cap: int = None):
     """The route of one window: ``(route, max_events, k_cap)`` with route
-    "dense" or "sparse", by the reference's rules
+    "dense", "sparse" or "gate", by the reference's rules
     (``repro/core/synapse.py:223-258``).
 
     "never" is dense; "auto" below ``SPARSE_MIN_DENSE_WORK`` is dense
-    without a census; "always" is sparse. Otherwise the gate reads the
-    window's census (``events.window_stats``: the worst instance of the
-    prefix, one decision for the whole call) back to the host, one
-    device-to-host read per window, and takes sparse when it fits the
-    capacities (``events.census_fits``), else dense. The reference
-    branches on the device (``lax.cond``); a host branch is the simple
-    form of the same decision. On the card it is also the route's cost:
-    the read stops the host from queueing work ahead of the device, and
-    with the packing's small launches the sparse route is slower end to
-    end than the dense one at the §5 density (PERF.md §5)."""
+    without a census; "always" is sparse. Otherwise the window's census
+    decides (``kernels.census``: ``events.window_stats`` over the worst
+    instance of the prefix, one decision for the whole call, and
+    ``events.census_fits``): sparse when the window fits the capacities,
+    else dense. On the card the decision stays on the device, as the
+    reference's ``lax.cond`` keeps it: the route is "gate", and
+    ``synaptic_current_window`` launches the census and both route
+    kernels, each of which runs only on its side of the flag. On the CPU
+    the census's plain version is read back and the host branches (the
+    plain version of the gate). Either way the decision is added to
+    ``route_counts``."""
     if sparse not in ("auto", "never", "always"):
         raise ValueError(f"unknown sparse mode {sparse!r}")
     T = row_events_t.shape[0]
@@ -129,8 +172,12 @@ def window_route(row_events_t, C: int, *, const_addr: bool = False,
     if k_cap is None:
         k_cap = events.default_k_cap(R, thr)
     if sparse == "auto":
-        n, kmax = events.window_stats(row_events_t)
-        if not bool(events.census_fits(n, kmax, max_events, k_cap)):
+        if row_events_t.device.type != "cpu":
+            return "gate", max_events, k_cap
+        from repro_torch.kernels.census import ops as census_ops
+        fits = census_ops.census(row_events_t.to(torch.float32), max_events,
+                                 k_cap, routes=route_counts("cpu"))[0]
+        if not bool(fits):
             return "dense", max_events, k_cap
     return "sparse", max_events, k_cap
 
@@ -149,7 +196,9 @@ def synaptic_current_window(weights, addresses, row_events_t, event_addr_t,
 
     ``sparse`` selects the event-sparse route (``window_route``): "auto"
     (default) takes it when the window's census fits the capacities and
-    falls back to dense otherwise, so overflow never drops records;
+    goes dense otherwise, so overflow never drops records (on the card
+    the census, the sparse and the dense kernel are all launched, and
+    the flag decides which one computes);
     "never" is dense; "always" forces sparse, where overflow drops
     records. The density threshold ``SPARSE_THRESHOLD``, or
     ``SPARSE_THRESHOLD_CONST_ADDR`` with ``const_addr``, sizes the default
@@ -159,6 +208,9 @@ def synaptic_current_window(weights, addresses, row_events_t, event_addr_t,
     route, max_events, k_cap = window_route(
         row_events_t, weights.shape[-1], const_addr=const_addr,
         sparse=sparse, max_events=max_events, k_cap=k_cap)
+    if route == "gate":
+        return _gated_window(weights, addresses, row_events_t, event_addr_t,
+                             gain, const_addr, max_events, k_cap)
     if route == "sparse":
         return _sparse_window(weights, addresses, row_events_t, event_addr_t,
                               gain, max_events, k_cap)

@@ -18,7 +18,13 @@
 //   * each block decodes the words into shared memory once (opcode with
 //     unknown ones made NOP, the three register fields mod 8, which
 //     operands the word reads, and one payload: SPLAT's immediate, the
-//     clamped shift of MULF / SHL / SHR, LDMOD's clamped slot);
+//     clamped shift of MULF / SHL / SHR, LDMOD's clamped slot). A program
+//     longer than MAX_WORDS words (48 KB decoded) is decoded and run
+//     MAX_WORDS words at a time on each tile instead, each chunk's decode
+//     between two block barriers, the register file staying in registers
+//     across the chunks (every thread of a block walks the same tiles, so
+//     every thread reaches each barrier; a tile's operands live in
+//     registers, so no decode overwrites them);
 //   * a thread runs K consecutive columns of one row (K lanes) through the
 //     program, so each word's dispatch is paid once for K lanes;
 //   * the register file is 8 x K named registers: a word's register
@@ -70,7 +76,7 @@ constexpr int TY = 4;            // rows a block
 constexpr int THREADS = TX * TY;
 constexpr int N_REGS = 8;
 constexpr int WMAX = 63;
-constexpr int MAX_WORDS = 12288;  // 48 KB of decoded words
+constexpr int MAX_WORDS = 12288;  // words decoded at a time: 48 KB
 
 enum Op {
   NOP = 0, SPLAT = 1, MOV = 2, ADD = 3, SUB = 4, MULF = 5, SHL = 6, SHR = 7,
@@ -243,11 +249,150 @@ __device__ __forceinline__ void load_rates(const float* __restrict__ x,
     v[k] = sat16((int)((unsigned)__float2int_rz(rintf(f[k])) << 8));
 }
 
+// this thread's lanes of a tile: the first lane, its column, how many
+struct Place {
+  long long i, nc;
+  int nk;
+  bool live;
+};
+
+// Words [0, n) of the decoded program on this thread's K lanes.
+template <bool VEC>
+__device__ __forceinline__ void run_words(const int* s_dec, int n,
+                                          RegFile& f, int (&wm)[K],
+                                          const Lanes& L, const Place& at,
+                                          const float* __restrict__ rates,
+                                          const int* __restrict__ mod,
+                                          long long NC) {
+  for (int p = 0; p < n; ++p) {
+    const int d = s_dec[p];
+    const int payload = d >> 16;
+    int a[K], b[K], v[K];
+    if (d & READS_A) get(f, (d >> 8) & 0x7, a);
+    if (d & READS_B) get(f, (d >> 11) & 0x7, b);
+    // the word's result in v, written to rd at the one place below
+    switch (d & 0x1F) {
+      case SPLAT:
+#pragma unroll
+        for (int k = 0; k < K; ++k) v[k] = payload;
+        break;
+      case MOV:
+#pragma unroll
+        for (int k = 0; k < K; ++k) v[k] = a[k];
+        break;
+      case ADD:
+#pragma unroll
+        for (int k = 0; k < K; ++k) v[k] = sat16(wrap_add(a[k], b[k]));
+        break;
+      case SUB:
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          v[k] = sat16((int)((unsigned)a[k] - (unsigned)b[k]));
+        break;
+      case MULF: {
+        const unsigned half = (1u << payload) >> 1;
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          v[k] = sat16((int)((unsigned)a[k] * (unsigned)b[k] + half)
+                       >> payload);
+        break;
+      }
+      case SHL:
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          v[k] = sat16((int)((unsigned)a[k] << payload));
+        break;
+      case SHR:
+#pragma unroll
+        for (int k = 0; k < K; ++k) v[k] = a[k] >> payload;
+        break;
+      case CMPGE:
+#pragma unroll
+        for (int k = 0; k < K; ++k) v[k] = a[k] >= b[k] ? 256 : 0;
+        break;
+      case SEL: {
+        int dd[K];
+        get(f, (d >> 5) & 0x7, dd);
+#pragma unroll
+        for (int k = 0; k < K; ++k) v[k] = dd[k] != 0 ? a[k] : b[k];
+        break;
+      }
+      case MAXS:
+#pragma unroll
+        for (int k = 0; k < K; ++k) v[k] = max(a[k], b[k]);
+        break;
+      case MINS:
+#pragma unroll
+        for (int k = 0; k < K; ++k) v[k] = min(a[k], b[k]);
+        break;
+      case LDW:
+#pragma unroll
+        for (int k = 0; k < K; ++k) v[k] = (int)((unsigned)wm[k] << 8);
+        break;
+      case LDCAUSAL:
+#pragma unroll
+        for (int k = 0; k < K; ++k) v[k] = L.qc[k];
+        break;
+      case LDACAUSAL:
+#pragma unroll
+        for (int k = 0; k < K; ++k) v[k] = L.qa[k];
+        break;
+      case LDRATE:
+        load_rates<VEC>(rates + at.nc, at.nk, v);
+        break;
+      case LDMOD:
+        if (mod) {
+          load<VEC>(mod + payload * NC + at.nc, at.nk, v);
+        } else {
+#pragma unroll
+          for (int k = 0; k < K; ++k) v[k] = 0;
+        }
+        break;
+      case LDNOISE:
+#pragma unroll
+        for (int k = 0; k < K; ++k) v[k] = L.nz[k];
+        break;
+      case STW:
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          wm[k] = min(max(wrap_add(a[k], 128) >> 8, 0), WMAX);
+        continue;                            // writes no register
+      default:
+        continue;                            // NOP, unknown opcodes
+    }
+    set(f, (d >> 5) & 0x7, v);
+  }}
+
+__device__ __forceinline__ void start_lanes(RegFile& f, int (&wm)[K],
+                                          const Lanes& L) {
+#pragma unroll
+for (int k = 0; k < K; ++k) wm[k] = L.w[k];
+#pragma unroll
+for (int j = 0; j < N_REGS; ++j)
+#pragma unroll
+  for (int k = 0; k < K; ++k) f.r[j][k] = 0;
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store_lanes(const RegFile& f,
+                                            const int (&wm)[K],
+                                            const Place& at,
+                                            int* __restrict__ w_out,
+                                            int* __restrict__ regs_out,
+                                            long long total) {
+  store<VEC>(w_out + at.i, at.nk, wm);
+#pragma unroll
+  for (int j = 0; j < N_REGS; ++j)
+    store<VEC>(regs_out + j * total + at.i, at.nk, f.r[j]);
+}
+
 // Persistent blocks walk the tiles (an instance, TY rows, TX * K columns)
 // with a stride of the grid; each thread reads its next tile's operands
 // before it runs the program on the current one, so the loads of one
-// tile overlap the program of the last.
-template <bool VEC, typename WT>
+// tile overlap the program of the last. CHUNKED: the program is longer
+// than MAX_WORDS words and is decoded a chunk at a time on every tile
+// (no read-ahead there; the launcher takes the scalar lanes for it).
+template <bool VEC, bool CHUNKED, typename WT>
 __global__ void __launch_bounds__(THREADS)
 ppuvm_exec_kernel(const int* __restrict__ words, int n_words,
                   const WT* __restrict__ w, const int* __restrict__ qc,
@@ -258,9 +403,11 @@ ppuvm_exec_kernel(const int* __restrict__ words, int n_words,
                   int* __restrict__ regs_out, int N, int R, int C) {
   extern __shared__ int s_dec[];
   const int tid = threadIdx.y * TX + threadIdx.x;
-  for (int p = tid; p < n_words; p += THREADS)
-    s_dec[p] = decode((unsigned)words[p], n_mod);
-  __syncthreads();
+  if (!CHUNKED) {
+    for (int p = tid; p < n_words; p += THREADS)
+      s_dec[p] = decode((unsigned)words[p], n_mod);
+    __syncthreads();
+  }
 
   const int tiles_x = (C + TX * K - 1) / (TX * K);
   const int tiles_y = (R + TY - 1) / TY;
@@ -268,12 +415,7 @@ ppuvm_exec_kernel(const int* __restrict__ words, int n_words,
   const long long total = (long long)N * R * C;
   const long long NC = (long long)N * C;
 
-  // this thread's lanes of tile t: the first lane, its column, how many
-  struct Place {
-    long long i, nc;
-    int nk;
-    bool live;
-  };
+  // this thread's lanes of tile t
   const auto place = [&](int t) {
     Place q{0, 0, 0, false};
     if (t >= n_tiles) return q;
@@ -289,6 +431,32 @@ ppuvm_exec_kernel(const int* __restrict__ words, int n_words,
     return q;
   };
 
+  if (CHUNKED) {
+    // each tile's operands read as it starts (a program this long
+    // outlasts any read-ahead; the registers are the file's), then the
+    // program a chunk at a time; every thread reaches the barriers, live
+    // lanes or not
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      const Place at = place(t);
+      Lanes L{};
+      if (at.live) load_lanes<VEC>(L, w, qc, qa, noise, at.i, at.nk);
+      int wm[K];
+      RegFile f;
+      start_lanes(f, wm, L);
+      for (int p0 = 0; p0 < n_words; p0 += MAX_WORDS) {
+        const int pn = min(MAX_WORDS, n_words - p0);
+        __syncthreads();   // every thread is done with the last chunk
+        // one word at a time: the file and the tile's operands are live
+#pragma unroll 1
+        for (int p = tid; p < pn; p += THREADS)
+          s_dec[p] = decode((unsigned)words[p0 + p], n_mod);
+        __syncthreads();
+        if (at.live) run_words<VEC>(s_dec, pn, f, wm, L, at, rates, mod, NC);
+      }
+      if (at.live) store_lanes<VEC>(f, wm, at, w_out, regs_out, total);
+    }
+    return;
+  }
   Place at = place(blockIdx.x);
   Lanes L{};
   if (at.live) load_lanes<VEC>(L, w, qc, qa, noise, at.i, at.nk);
@@ -299,143 +467,46 @@ ppuvm_exec_kernel(const int* __restrict__ words, int n_words,
                                    next.nk);
     if (at.live) {
       int wm[K];
-#pragma unroll
-      for (int k = 0; k < K; ++k) wm[k] = L.w[k];
       RegFile f;
-#pragma unroll
-      for (int j = 0; j < N_REGS; ++j)
-#pragma unroll
-        for (int k = 0; k < K; ++k) f.r[j][k] = 0;
-
-      for (int p = 0; p < n_words; ++p) {
-        const int d = s_dec[p];
-        const int payload = d >> 16;
-        int a[K], b[K], v[K];
-        if (d & READS_A) get(f, (d >> 8) & 0x7, a);
-        if (d & READS_B) get(f, (d >> 11) & 0x7, b);
-        // the word's result in v, written to rd at the one place below
-        switch (d & 0x1F) {
-          case SPLAT:
-#pragma unroll
-            for (int k = 0; k < K; ++k) v[k] = payload;
-            break;
-          case MOV:
-#pragma unroll
-            for (int k = 0; k < K; ++k) v[k] = a[k];
-            break;
-          case ADD:
-#pragma unroll
-            for (int k = 0; k < K; ++k) v[k] = sat16(wrap_add(a[k], b[k]));
-            break;
-          case SUB:
-#pragma unroll
-            for (int k = 0; k < K; ++k)
-              v[k] = sat16((int)((unsigned)a[k] - (unsigned)b[k]));
-            break;
-          case MULF: {
-            const unsigned half = (1u << payload) >> 1;
-#pragma unroll
-            for (int k = 0; k < K; ++k)
-              v[k] = sat16((int)((unsigned)a[k] * (unsigned)b[k] + half)
-                           >> payload);
-            break;
-          }
-          case SHL:
-#pragma unroll
-            for (int k = 0; k < K; ++k)
-              v[k] = sat16((int)((unsigned)a[k] << payload));
-            break;
-          case SHR:
-#pragma unroll
-            for (int k = 0; k < K; ++k) v[k] = a[k] >> payload;
-            break;
-          case CMPGE:
-#pragma unroll
-            for (int k = 0; k < K; ++k) v[k] = a[k] >= b[k] ? 256 : 0;
-            break;
-          case SEL: {
-            int dd[K];
-            get(f, (d >> 5) & 0x7, dd);
-#pragma unroll
-            for (int k = 0; k < K; ++k) v[k] = dd[k] != 0 ? a[k] : b[k];
-            break;
-          }
-          case MAXS:
-#pragma unroll
-            for (int k = 0; k < K; ++k) v[k] = max(a[k], b[k]);
-            break;
-          case MINS:
-#pragma unroll
-            for (int k = 0; k < K; ++k) v[k] = min(a[k], b[k]);
-            break;
-          case LDW:
-#pragma unroll
-            for (int k = 0; k < K; ++k) v[k] = (int)((unsigned)wm[k] << 8);
-            break;
-          case LDCAUSAL:
-#pragma unroll
-            for (int k = 0; k < K; ++k) v[k] = L.qc[k];
-            break;
-          case LDACAUSAL:
-#pragma unroll
-            for (int k = 0; k < K; ++k) v[k] = L.qa[k];
-            break;
-          case LDRATE:
-            load_rates<VEC>(rates + at.nc, at.nk, v);
-            break;
-          case LDMOD:
-            if (mod) {
-              load<VEC>(mod + payload * NC + at.nc, at.nk, v);
-            } else {
-#pragma unroll
-              for (int k = 0; k < K; ++k) v[k] = 0;
-            }
-            break;
-          case LDNOISE:
-#pragma unroll
-            for (int k = 0; k < K; ++k) v[k] = L.nz[k];
-            break;
-          case STW:
-#pragma unroll
-            for (int k = 0; k < K; ++k)
-              wm[k] = min(max(wrap_add(a[k], 128) >> 8, 0), WMAX);
-            continue;                            // writes no register
-          default:
-            continue;                            // NOP, unknown opcodes
-        }
-        set(f, (d >> 5) & 0x7, v);
-      }
-      store<VEC>(w_out + at.i, at.nk, wm);
-#pragma unroll
-      for (int j = 0; j < N_REGS; ++j)
-        store<VEC>(regs_out + j * total + at.i, at.nk, f.r[j]);
+      start_lanes(f, wm, L);
+      run_words<VEC>(s_dec, n_words, f, wm, L, at, rates, mod, NC);
+      store_lanes<VEC>(f, wm, at, w_out, regs_out, total);
     }
     at = next;
     L = L_next;
   }
 }
 
-template <bool VEC, typename WT>
-int launch(const void* words, int n_words, const void* w, const void* qc,
-           const void* qa, const void* rates, const void* mod, int n_mod,
-           const void* noise, void* w_out, void* regs, int N, int R, int C,
-           cudaStream_t stream) {
-  const long long tiles = (long long)N * ((R + TY - 1) / TY)
-                          * ((C + TX * K - 1) / (TX * K));
+// the launch's operands, as ppuvm_exec_launch takes them
+struct Operands {
+  const void *words;
+  int n_words;
+  const void *w, *qc, *qa, *rates, *mod;
+  int n_mod;
+  const void* noise;
+  void *w_out, *regs;
+  int N, R, C;
+};
+
+template <bool VEC, bool CHUNKED, typename WT>
+int launch(const Operands& o, cudaStream_t stream) {
+  const long long tiles = (long long)o.N * ((o.R + TY - 1) / TY)
+                          * ((o.C + TX * K - 1) / (TX * K));
   if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
   // as many blocks as fit on the card at once, each walking its tiles
-  const size_t smem = (size_t)n_words * sizeof(int);
+  const size_t smem = (size_t)min(o.n_words, MAX_WORDS) * sizeof(int);
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, ppuvm_exec_kernel<VEC, WT>, THREADS, smem);
+      &per_sm, ppuvm_exec_kernel<VEC, CHUNKED, WT>, THREADS, smem);
   const long long fit = (long long)sms * (per_sm > 0 ? per_sm : 1);
   const int blocks = (int)(tiles < fit ? tiles : fit);
-  ppuvm_exec_kernel<VEC, WT><<<blocks, dim3(TX, TY), smem, stream>>>(
-      (const int*)words, n_words, (const WT*)w, (const int*)qc,
-      (const int*)qa, (const float*)rates, (const int*)mod, n_mod,
-      (const int*)noise, (int*)w_out, (int*)regs, N, R, C);
+  ppuvm_exec_kernel<VEC, CHUNKED, WT><<<blocks, dim3(TX, TY), smem,
+                                        stream>>>(
+      (const int*)o.words, o.n_words, (const WT*)o.w, (const int*)o.qc,
+      (const int*)o.qa, (const float*)o.rates, (const int*)o.mod, o.n_mod,
+      (const int*)o.noise, (int*)o.w_out, (int*)o.regs, o.N, o.R, o.C);
   return (int)cudaGetLastError();
 }
 
@@ -445,7 +516,7 @@ bool aligned(const void* p, unsigned bytes) {
 
 }  // namespace
 
-// words int32 [P] (on the card, P <= 12288); w int8 or int32 [N, R, C]
+// words int32 [P]; w int8 or int32 [N, R, C]
 // (w_bytes 1 or 4); qc, qa, noise int32 [N, R, C] (noise may be null: a
 // zero plane); rates float32 [N, C] (the rate counters); mod int32
 // [n_mod, N, C] (null: one zero slot); w_out int32 [N, R, C]; regs int32
@@ -457,22 +528,22 @@ extern "C" int ppuvm_exec_launch(const void* words, int n_words,
                                  const void* noise, void* w_out, void* regs,
                                  int N, int R, int C, void* stream) {
   if ((long long)N * R * C == 0) return 0;
-  if (n_words < 0 || n_words > MAX_WORDS || (w_bytes != 1 && w_bytes != 4))
+  if (n_words < 0 || (w_bytes != 1 && w_bytes != 4))
     return (int)cudaErrorInvalidValue;
   if (n_mod < 1) n_mod = 1;
-  const cudaStream_t s = (cudaStream_t)stream;
   const bool vec = C % K == 0 && aligned(w, 4 * w_bytes) && aligned(qc, 16)
                    && aligned(qa, 16) && aligned(rates, 16)
                    && aligned(mod, 16) && aligned(noise, 16)
                    && aligned(w_out, 16) && aligned(regs, 16);
-  if (w_bytes == 1)
-    return vec ? launch<true, int8_t>(words, n_words, w, qc, qa, rates, mod,
-                                      n_mod, noise, w_out, regs, N, R, C, s)
-               : launch<false, int8_t>(words, n_words, w, qc, qa, rates,
-                                       mod, n_mod, noise, w_out, regs, N, R,
-                                       C, s);
-  return vec ? launch<true, int>(words, n_words, w, qc, qa, rates, mod,
-                                 n_mod, noise, w_out, regs, N, R, C, s)
-             : launch<false, int>(words, n_words, w, qc, qa, rates, mod,
-                                  n_mod, noise, w_out, regs, N, R, C, s);
+  const Operands o{words, n_words, w, qc, qa, rates, mod, n_mod, noise,
+                   w_out, regs, N, R, C};
+  // the instantiation: scalar or 16-byte lanes, or a chunked program
+  // (longer than MAX_WORDS words: its lanes are read one at a time, its
+  // time is the words'), then int32 or int8 weights
+  int (*const form[6])(const Operands&, cudaStream_t) = {
+      launch<false, false, int>, launch<false, false, int8_t>,
+      launch<true, false, int>,  launch<true, false, int8_t>,
+      launch<false, true, int>,  launch<false, true, int8_t>};
+  const int i = n_words > MAX_WORDS ? 4 : 2 * vec;
+  return form[i + (w_bytes == 1)](o, (cudaStream_t)stream);
 }

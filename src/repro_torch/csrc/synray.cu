@@ -51,6 +51,12 @@
 //
 // Operands are read through strides, so the Dale halves (every other row
 // of the [R, C] store) and the time-major event windows are read in place.
+//
+// A flag pointer gates the launch on the device, as the reference's
+// lax.cond between the routes (repro/core/synapse.py:252-257): null runs
+// the kernel; else every block returns at once when *flag != 0 (the
+// census, census.cu, found that the window fits the sparse route, and
+// synray_sparse.cu writes the output).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -103,6 +109,7 @@ struct Args {
   const int8_t* w;
   const int8_t* addr;
   float* out;
+  const int* flag;  // null: run; else run only where *flag == 0
   int B, R, C;
   long long ev_sn, ev_sb, ev_sr, ea_sn, ea_sb, ea_sr;
   long long w_sn, w_sr, a_sn, a_sr, o_sn, o_sb;
@@ -148,6 +155,7 @@ __device__ void load_chunk(Stage& s, const Args& p, int n, int b0, int c0,
 
 template <bool CONST>
 __global__ void __launch_bounds__(NT) synray_kernel(Args p) {
+  if (p.flag != nullptr && *p.flag != 0) return;
   extern __shared__ __align__(16) unsigned char smem[];
   Stage* ring = reinterpret_cast<Stage*>(smem);
   float(*s_wf)[BC] = reinterpret_cast<float(*)[BC]>(smem + WF_OFF);
@@ -300,17 +308,18 @@ int launch(const Args& p, int N, cudaStream_t stream) {
 }  // namespace
 
 extern "C" int synray_launch(const void* ev, const void* ea, const void* w,
-                             const void* addr, void* out, int N, int B, int R,
-                             int C, long long ev_sn, long long ev_sb,
-                             long long ev_sr, long long ea_sn, long long ea_sb,
+                             const void* addr, void* out, const void* flag,
+                             int N, int B, int R, int C, long long ev_sn,
+                             long long ev_sb, long long ev_sr,
+                             long long ea_sn, long long ea_sb,
                              long long ea_sr, long long w_sn, long long w_sr,
                              long long a_sn, long long a_sr, long long o_sn,
                              long long o_sb, int const_addr, void* stream) {
   if (N == 0 || B == 0 || C == 0) return 0;
   Args p{(const float*)ev, (const int8_t*)ea, (const int8_t*)w,
-         (const int8_t*)addr, (float*)out, B, R, C, ev_sn, ev_sb, ev_sr,
-         ea_sn, ea_sb, ea_sr, w_sn, w_sr, a_sn, a_sr, o_sn, o_sb,
-         false, false};
+         (const int8_t*)addr, (float*)out, (const int*)flag, B, R, C,
+         ev_sn, ev_sb, ev_sr, ea_sn, ea_sb, ea_sr, w_sn, w_sr, a_sn, a_sr,
+         o_sn, o_sb, false, false};
   p.vec_in = aligned16(w) && aligned16(addr) && w_sn % 16 == 0 &&
              w_sr % 16 == 0 && a_sn % 16 == 0 && a_sr % 16 == 0;
   p.vec_out = aligned16(out) && o_sn % 4 == 0 && o_sb % 4 == 0;

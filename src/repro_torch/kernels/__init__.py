@@ -10,9 +10,15 @@ through the kernels.
 
   synray         masked event x 6-bit-weight synaptic-current product
                  (replaces ``repro/kernels/synray``)
-  synray_sparse  the same product over regrouped [T, K] event records,
-                 equal to ``synray`` bit for bit on windows that fit
-                 (replaces ``repro/kernels/synray_sparse``)
+  synray_sparse  the same product over the window's fired rows, the
+                 records kept as ``core.events.regroup_window`` keeps
+                 them (or over given [T, K] records), equal to ``synray``
+                 bit for bit on windows that fit (replaces
+                 ``repro/kernels/synray_sparse``)
+  census         the sparse route's gate: the window census and its
+                 no-drop predicate as a device flag that the two route
+                 kernels read (no TPU kernel: the reference's
+                 ``lax.cond`` predicate)
   neuron_scan    T-step AdEx window with the state in registers
                  (replaces ``repro/kernels/neuron_scan``)
   corr           T-step correlation-sensor window with per-step saturation
@@ -32,8 +38,8 @@ from __future__ import annotations
 import math
 
 # launch counts per kernel name; each wrapper adds one where it launches
-LAUNCHES = {"synray": 0, "synray_sparse": 0, "neuron_scan": 0, "corr": 0,
-            "ppu_update": 0, "ppuvm_exec": 0}
+LAUNCHES = {"synray": 0, "synray_sparse": 0, "census": 0, "neuron_scan": 0,
+            "corr": 0, "ppu_update": 0, "ppuvm_exec": 0}
 
 
 def reset_launches() -> None:

@@ -33,10 +33,11 @@ COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # the kernel rounds after every operation like PyTorch's eager kernels do
 # and matches their results bit for bit. synray and synray_sparse
 # accumulate with explicit fmaf (the same chain, so the two routes agree
-# bit for bit) and keep the default flags.
+# bit for bit) and keep the default flags, as does census (integers only).
 PER_SOURCE = {
     "synray.cu": [],
     "synray_sparse.cu": [],
+    "census.cu": [],
     "neuron_scan.cu": ["-fmad=false"],
     "corr.cu": ["-fmad=false"],
     "ppu_update.cu": ["-fmad=false"],
@@ -46,10 +47,10 @@ PER_SOURCE = {
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.c_longlong
 ARGTYPES = {
-    # ev, ea, w, addr, out, N, B, R, C,
+    # ev, ea, w, addr, out, flag, N, B, R, C,
     # ev strides (n, b, r), ea strides (n, b, r), w strides (n, r),
     # addr strides (n, r), out strides (n, b), const_addr, stream
-    "synray_launch": [_VP] * 5 + [_I] * 4 + [_LL] * 12 + [_I, _VP],
+    "synray_launch": [_VP] * 6 + [_I] * 4 + [_LL] * 12 + [_I, _VP],
     # ie, ii, state_in[6], params, spikes, state_out[6], v_rec, N, T, C,
     # dt, use_adex, stream
     "neuron_scan_launch": [_VP] * 7 + [_I] * 3 + [_F, _I, _VP],
@@ -59,10 +60,18 @@ ARGTYPES = {
     # pre, post, tp0, tq0, ac0, aa0, ac, aa, tp, tq, N, T, R, C, lam, sat,
     # stream
     "corr_launch": [_VP] * 10 + [_I] * 4 + [_F, _F, _VP],
-    # rows, addr, eff, w, addr_store, out, N, T, K, C, record
+    # rows, addr, eff, w, addr_store, out, flag, N, T, K, R, C, record
     # instance stride, w strides (n, r), addr_store strides (n, r),
     # out strides (n, t), stream
-    "synray_sparse_launch": [_VP] * 6 + [_I] * 4 + [_LL] * 7 + [_VP],
+    "synray_sparse_launch": [_VP] * 7 + [_I] * 5 + [_LL] * 7 + [_VP],
+    # ev, ea, w, addr_store, out, flag, N, T, R, C, ev strides (t, n, r),
+    # ea strides (t, n, r), w strides (n, r), addr_store strides (n, r),
+    # out strides (n, t), max_events, k_cap, stream
+    "synray_sparse_window_launch": [_VP] * 6 + [_I] * 4 + [_LL] * 12
+                                   + [_I, _I, _VP],
+    # ev, T, N, R, ev strides (t, n, r), max_events, k_cap, part, ticket,
+    # out, routes, stream
+    "census_launch": [_VP] + [_I] * 3 + [_LL] * 3 + [_I] * 2 + [_VP] * 5,
     # w, a_causal, a_acausal, offset, gain, mod, xi, w_out, elig, N, R, C,
     # eta, cadc_scale, 1/cadc_max, cadc_max, wmax, stream
     "ppu_update_launch": [_VP] * 9 + [_I] * 3 + [_F] * 5 + [_VP],

@@ -9,11 +9,13 @@ tensors run the plain version (``ref.py``); CUDA tensors launch the
 kernel, which equals the plain version bit for bit, or raise. The words
 must already lie on the card: the wrapper never copies them host to
 device (put a program on the device once, when it is uploaded). The
-kernel decodes at most ``MAX_WORDS`` words (its shared memory) and reads
-int8 and int32 weight planes as they are (the synapse store's int8 needs
-no conversion launch), and converts the float32 rate counters to Q8.8
-itself (``rates_to_fixed``): on the card the wrapper launches nothing but
-the kernel for the operands path C passes.
+kernel takes a program of any length: it decodes up to ``MAX_WORDS``
+words into its shared memory once, and a longer program ``MAX_WORDS``
+words at a time on every tile. It reads int8 and int32 weight planes as
+they are (the synapse store's int8 needs no conversion launch), and
+converts the float32 rate counters to Q8.8 itself (``rates_to_fixed``):
+on the card the wrapper launches nothing but the kernel for the operands
+path C passes.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from repro_torch import kernels
 from repro_torch.kernels.ppuvm_exec.ref import run_program_ref
 from repro_torch.ppuvm import isa
 
-MAX_WORDS = 12288     # csrc/ppuvm_exec.cu: 48 KB of decoded words
+MAX_WORDS = 12288     # csrc/ppuvm_exec.cu: words decoded at a time (48 KB)
 
 
 def run_program(words, weights, qc, qa, rates, mod=None, noise=None):
@@ -43,9 +45,6 @@ def run_program(words, weights, qc, qa, rates, mod=None, noise=None):
             and words.is_contiguous()):
         raise ValueError(f"ppuvm_exec: words must be a contiguous int32 [P] "
                          f"tensor on {dev} (upload the program once)")
-    if words.numel() > MAX_WORDS:
-        raise ValueError(f"ppuvm_exec: {words.numel()} words, the kernel "
-                         f"takes at most {MAX_WORDS}")
     lane = tuple(weights.shape)
     prefix, (R, C) = lane[:-2], lane[-2:]
     N = math.prod(prefix)

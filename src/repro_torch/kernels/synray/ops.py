@@ -12,6 +12,12 @@ only and folds the match into its staged weights (the const-address form,
 which the main path runs). On the CPU the keyword changes nothing: the
 plain version matches every step's address, which on constant addresses
 is the same product.
+
+``flag`` (the int32 census of ``kernels.census``, whose first element is 1
+where the window fits the sparse route) gates the product on the device:
+it runs only where the flag is 0, as the dense branch of the reference's
+``lax.cond``; ``out`` (a contiguous float32 [T, ..., C] tensor) is written
+in place, so the sparse route's kernel can write the same buffer.
 """
 from __future__ import annotations
 
@@ -29,13 +35,16 @@ def _check(cond, msg):
 
 
 def synaptic_current(events_t, event_addr_t, weights, addresses, *,
-                     const_addr: bool = False):
+                     const_addr: bool = False, flag=None, out=None):
     """i[t, ..., c] = sum_r ev[t, ..., r] * w[..., r, c]
     * (addr[..., r, c] == ea[t, ..., r]); with ``const_addr`` the card
-    reads ``ea[0, ..., r]`` for every step."""
+    reads ``ea[0, ..., r]`` for every step. With ``flag``, nothing is
+    computed where ``flag[0] != 0`` (``out`` is returned as it is)."""
     if events_t.device.type == "cpu":
-        return synaptic_current_ref(events_t, event_addr_t, weights,
-                                    addresses)
+        if flag is not None and int(flag[0]) != 0:
+            return out
+        i = synaptic_current_ref(events_t, event_addr_t, weights, addresses)
+        return i if out is None else out.copy_(i)
     from repro_torch.kernels import _build
     dev = events_t.device
     _check(dev.type == "cuda", f"unsupported device {dev}")
@@ -61,15 +70,22 @@ def synaptic_current(events_t, event_addr_t, weights, addresses, *,
     a = addresses.reshape(N, R, C)
     _check(w.stride(2) == 1 and a.stride(2) == 1,
            "weights/addresses need contiguous columns")
-    out = torch.empty((T, N, C), dtype=torch.float32, device=dev)
+    if out is None:
+        out = torch.empty((T, *prefix, C), dtype=torch.float32, device=dev)
+    _check(out.device == dev and out.dtype == torch.float32
+           and tuple(out.shape) == (T, *prefix, C) and out.is_contiguous(),
+           f"out must be a contiguous float32 {(T, *prefix, C)} on {dev}")
+    _check(flag is None or (flag.device == dev and flag.dtype == torch.int32),
+           f"flag must be int32 on {dev}")
+    o = out.view(T, N, C)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _build.lib().synray_launch(
         ev.data_ptr(), ea.data_ptr(), w.data_ptr(), a.data_ptr(),
-        out.data_ptr(), N, T, R, C,
+        o.data_ptr(), None if flag is None else flag.data_ptr(), N, T, R, C,
         ev.stride(1), ev.stride(0), ev.stride(2),
         ea.stride(1), ea.stride(0), ea.stride(2),
         w.stride(0), w.stride(1), a.stride(0), a.stride(1),
-        out.stride(1), out.stride(0), int(bool(const_addr)), stream)
+        o.stride(1), o.stride(0), int(bool(const_addr)), stream)
     _build.check(err, "synray")
     kernels.LAUNCHES["synray"] += 1
-    return out.reshape(T, *prefix, C)
+    return out

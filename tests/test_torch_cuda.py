@@ -17,8 +17,11 @@ within rtol = atol = 1e-4 of their plain versions (they sum rows with
 FMAs); ``synray``'s const-address form bit-equal to its general form on
 constant addresses, and ``synray_sparse`` equal to ``synray`` bit for bit
 on every window that fits its capacities, in either form (the same FMA
-chain); the main path on the card
-against the CPU: spike counts equal and the signed weights within 1e-4.
+chain); ``synray_sparse``'s window form bit-equal to its record form fed
+``regroup_window``'s records, overflowing windows included; ``census``
+equal to its plain version (integers); the main path on the card
+against the CPU: spike counts equal and the signed weights within 1e-4,
+and a full-width no-stimulus trial with no read back to the host.
 """
 import dataclasses
 import math
@@ -34,6 +37,8 @@ from repro_torch.configs.bss2 import BSS2
 from repro_torch.core import adex, events
 from repro_torch.core import hybrid as th
 from repro_torch.core import synapse
+from repro_torch.kernels.census import ops as census_ops
+from repro_torch.kernels.census.ref import census_ref
 from repro_torch.kernels.corr import ops as corr_ops
 from repro_torch.kernels.corr.ref import correlation_window_ref
 from repro_torch.kernels.neuron_scan import ops as neuron_ops
@@ -258,7 +263,7 @@ def test_main_path_on_card_matches_cpu(cuda):
             first = (st, m)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"synray": 6, "synray_sparse": 0,
-                                "neuron_scan": 3, "corr": 3,
+                                "census": 0, "neuron_scan": 3, "corr": 3,
                                 "ppu_update": 0, "ppuvm_exec": 0}
     inst_c = {k: (v.cpu() if torch.is_tensor(v) else
                   {kk: vv.cpu() for kk, vv in v.items()})
@@ -306,8 +311,12 @@ def test_synray_sparse_equals_dense_kernel(cuda, p, const):
         assert kernels.LAUNCHES["synray"] == n0["synray"] + 1
         assert kernels.LAUNCHES["synray_sparse"] == n0["synray_sparse"] + 1
         assert torch.equal(dense, sparse)
-        route, me, kc = synapse.window_route(args[2], C, const_addr=const,
-                                             sparse="auto")
+        # the gate's decision from its plain version (on the card the
+        # route is "gate": the census decides on the device)
+        assert synapse.window_route(args[2], C, const_addr=const,
+                                    sparse="auto")[0] == "gate"
+        route, me, kc = synapse.window_route(args[2].cpu(), C,
+                                             const_addr=const, sparse="auto")
         if route == "sparse":
             assert torch.equal(dense, synapse.synaptic_current_window(
                 *args, const_addr=const, sparse="always", max_events=me,
@@ -354,8 +363,9 @@ def test_ppu_update_bit_equal(cuda, prefix):
 
 
 def test_census_gate_routes_on_card(cuda):
-    """Above the floor with the defaults: a no-stimulus trial goes sparse
-    (two synray_sparse launches), a pattern trial dense (two synray)."""
+    """Above the floor with the defaults: a no-stimulus trial goes sparse,
+    a pattern trial dense, as the device's route counter records (every
+    gated window launches the census and both route kernels)."""
     ecfg = th.RSTDPConfig(n_inputs=64, n_neurons=256, pattern_size=16,
                           trial_steps=128)
     cfg = dataclasses.replace(BSS2, n_rows=128, n_cols=256)
@@ -364,15 +374,103 @@ def test_census_gate_routes_on_card(cuda):
         generator=torch.Generator().manual_seed(5), device=cuda)
     draws = meta["draw"](torch.Generator().manual_seed(6), [0, 1])
     st = init()
+    routes = synapse.route_counts(cuda)
+    synapse.reset_route_counts()
     kernels.reset_launches()
     st, _ = trial(st, 0, draws.events[0], draws.xi[0])
-    torch.cuda.synchronize()
-    assert (kernels.LAUNCHES["synray_sparse"], kernels.LAUNCHES["synray"]) \
-        == (2, 0)
+    assert routes.tolist() == [0, 2]
     st, _ = trial(st, 1, draws.events[1], draws.xi[1])
+    assert routes.tolist() == [2, 2]
+    assert {k: kernels.LAUNCHES[k] for k in ("census", "synray_sparse",
+                                             "synray")} == \
+        {"census": 4, "synray_sparse": 4, "synray": 4}
+
+
+def test_no_host_read_in_the_trial(cuda):
+    """A full-width no-stimulus trial of path A (16 instances of the
+    256 x 512 chip, T = 128: every window through the census gate) makes
+    no device-to-host read once warmed up."""
+    ecfg = th.RSTDPConfig(n_inputs=128, n_neurons=512, pattern_size=24,
+                          trial_steps=128)
+    init, trial, meta = th.make_experiment(
+        cfg=BSS2, ecfg=ecfg, prefix=(16,), backend="blocked",
+        generator=torch.Generator().manual_seed(11), device=cuda)
+    draws = meta["draw"](torch.Generator().manual_seed(12), [0, 0])
+    st, _ = trial(init(), 0, draws.events[0], draws.xi[0])
     torch.cuda.synchronize()
-    assert (kernels.LAUNCHES["synray_sparse"], kernels.LAUNCHES["synray"]) \
-        == (2, 2)
+    synapse.reset_route_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, _ = trial(st, 0, draws.events[1], draws.xi[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert synapse.route_counts(cuda).tolist() == [0, 2]
+
+
+def _halves(ev, ea, w, a, cuda):
+    """Both Dale halves of [T, N, 2R] planes and [N, 2R, C] stores, as
+    strided views on the card."""
+    ev, ea, w, a = (t(x).to(cuda) for x in (ev, ea, w, a))
+    return [(ev[..., h::2], ea[..., h::2], w[:, h::2], a[:, h::2])
+            for h in (0, 1)]
+
+
+# (T, N, 2R, C, density, max_events, k_cap, const, -0.0): ragged T and C,
+# overflow of each capacity across the window's chunks, -0.0, an empty
+# window, every row firing, more rows than one staged tile and more than
+# the window form takes
+WINDOW_CASES = {
+    "main": (128, 16, 256, 512, 0.008, 328, 16, True, False),
+    "ragged": (77, 3, 90, 300, 0.05, 10_000, 64, False, False),
+    "max_events": (128, 2, 256, 96, 0.05, 500, 64, True, False),
+    "k_cap": (100, 2, 180, 70, 0.05, 10_000, 3, False, False),
+    "both": (100, 2, 180, 70, 0.05, 380, 6, False, False),
+    "neg_zero": (50, 2, 96, 100, 0.1, 10_000, 48, True, True),
+    "empty": (20, 2, 64, 64, 0.0, 100, 8, True, False),
+    "all_fire": (20, 2, 64, 64, 1.0, 10_000, 32, True, False),
+    "all_fire_capped": (20, 2, 64, 64, 1.0, 100, 7, True, False),
+    "unstaged": (12, 1, 1700, 70, 0.02, 10_000, 64, True, False),
+    "record_rows": (3, 1, 8300, 40, 0.002, 10_000, 64, True, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+def test_synray_sparse_window_form(cuda, case):
+    """The window form bit-equal to the record form fed
+    ``regroup_window``'s records (drops included), within 1e-4 of the
+    plain version, and, where the window fits, bit-equal to the dense
+    ``synray``; the census equal to its plain version, and census +
+    sparse + dense into one buffer equal to the route it picks."""
+    T, N, R2, C, p, me, kc, const, neg = WINDOW_CASES[case]
+    ev, ea, w, a = _sparse_operands(T, N, R2, C, p, seed=R2 + C, const=const)
+    if neg:
+        z = ev == 0
+        ev[z] = np.where(np.random.default_rng(1).random(int(z.sum())) < 0.5,
+                         -0.0, 0.0)
+    for v in _halves(ev, ea, w, a, cuda):
+        n0 = kernels.LAUNCHES["synray_sparse"]
+        got = sparse_ops.sparse_current_window(*v, max_events=me, k_cap=kc)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["synray_sparse"] == n0 + 1
+        recs = events.regroup_window(v[0].permute(1, 0, 2),
+                                     v[1].permute(1, 0, 2), me, kc)
+        rec = sparse_ops.sparse_window(*recs, v[2], v[3]).permute(1, 0, 2)
+        plain = sparse_window_ref(*recs, v[2], v[3]).permute(1, 0, 2)
+        assert torch.equal(got.view(torch.int32),
+                           rec.contiguous().view(torch.int32))
+        torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
+        flag = census_ops.census(v[0], me, kc)
+        assert torch.equal(flag, census_ref(v[0], me, kc))
+        fits = bool(flag[0])
+        dense = synray_ops.synaptic_current(*v, const_addr=const)
+        if fits:
+            assert torch.equal(got, dense)
+        out = torch.full_like(got, float("nan"))
+        sparse_ops.sparse_current_window(*v, max_events=me, k_cap=kc,
+                                         flag=flag, out=out)
+        synray_ops.synaptic_current(*v, const_addr=const, flag=flag, out=out)
+        assert torch.equal(out.view(torch.int32),
+                           (got if fits else dense).view(torch.int32))
 
 
 def _vm_both(words, ops, cuda):
@@ -477,18 +575,20 @@ def test_ppuvm_exec_one_word_programs(cuda, op):
 
 
 def test_ppuvm_exec_word_limit(cuda):
-    """A program of exactly MAX_WORDS words (the decoded words fill the
-    kernel's shared memory) is bit-equal; one word more is refused."""
-    words = np.concatenate([vm_corpus.gen_program(np.random.RandomState(s))
-                            for s in range(1500)])
-    words = np.resize(words, vm_ops.MAX_WORDS).astype(np.int32)
-    ops = vm_corpus.gen_operands(np.random.RandomState(5))
-    _assert_vm_equal(*_vm_both(words, ops, cuda), "MAX_WORDS words")
-    longer = torch.as_tensor(np.resize(words, vm_ops.MAX_WORDS + 1),
-                             device=cuda)
-    args = [t(ops[k]).to(cuda) for k in ("weights", "qc", "qa", "rates")]
-    with pytest.raises(ValueError, match="at most"):
-        vm_ops.run_program(longer, *args)
+    """Programs of MAX_WORDS words (decoded once a block, filling its
+    shared memory), one word more and 3 x MAX_WORDS + 5 words (decoded
+    and run a chunk at a time on every tile, the register file carried
+    across the chunks) are bit-equal to the plain version, on a shape of
+    one tile and on a ragged prefixed one of several."""
+    base = np.concatenate([vm_corpus.gen_program(np.random.RandomState(s))
+                           for s in range(1500)])
+    rng = np.random.RandomState(5)
+    for n_words in (vm_ops.MAX_WORDS, vm_ops.MAX_WORDS + 1,
+                    3 * vm_ops.MAX_WORDS + 5):
+        words = np.resize(base, n_words).astype(np.int32)
+        for ops in (vm_corpus.gen_operands(rng),
+                    vm_corpus.prefixed_operands(rng, (3, 40, 136))):
+            _assert_vm_equal(*_vm_both(words, ops, cuda), f"{n_words} words")
 
 
 @pytest.mark.parametrize("rule", ["signed_dw", "rstdp"])

@@ -53,6 +53,20 @@ class TestCensus:
             assert got.dtype == torch.int32
             assert int(got) == int(want)
 
+    @pytest.mark.parametrize("p", DENSITIES)
+    def test_census_plain_matches_reference(self, p):
+        """The census kernel's plain version: (fits, n_events, k_max) as
+        an int32 tensor, the reference's window_stats and census_fits, at
+        capacities that the sweep's windows fit and overflow."""
+        from repro_torch.kernels.census.ref import census_ref
+        ev, _ = _window(24, 16, seed=11, p=p, prefix=(3,))
+        n, k = je.window_stats(ev)
+        for me, kc in ((10, 2), (60, 8), (24 * 16, 16)):
+            got = census_ref(t(ev), me, kc)
+            assert got.dtype == torch.int32
+            assert got.tolist() == [int(bool(je.census_fits(n, k, me, kc))),
+                                    int(n), int(k)]
+
     def test_window_stats_hand_counted(self):
         ev = torch.zeros((4, 2, 8))
         ev[0, 0, :3] = 1.0

@@ -3,11 +3,19 @@
 - ``kernels/synray_sparse``: the plain version against the reference's
   ``sparse_window_ref`` on the same regrouped records, and the whole
   pack-regroup-compute path against the reference's
-  ``synaptic_current_sparse(impl="ref")``, drops included.
+  ``synaptic_current_sparse(impl="ref")``, drops included; the window
+  form's plain version (``sparse_current_window``: ``regroup_window``
+  then the plain version) on Dale halves read in place, through overflow
+  of either capacity, -0.0 efficacies, an empty window and every row
+  firing.
 - ``synapse.synaptic_current_window`` with "never", "always" and "auto"
   above the static floor: the route (the census gate's decision, read
   from the reference's telemetry counters) must match exactly, the
-  currents within tolerance.
+  currents within tolerance; the gate's plain version (``kernels.census``:
+  the census and its flag as an int32 tensor) equal to the reference's
+  ``window_stats`` / ``census_fits``, its decisions counted in
+  ``route_counts``; the device's composition (census, then both route
+  kernels under its flag) run with the plain versions.
 - ``AnnCore``: sparse against dense within the port.
 - A teacher-forced §5 trial above the floor against the reference's
   ``make_experiment``, with the reference's instance and draws: same
@@ -40,6 +48,7 @@ from repro_torch.core import events as t_events
 from repro_torch.core import hybrid as th
 from repro_torch.core import synapse as t_syn
 from repro_torch.core.anncore import AnnCore
+from repro_torch.kernels.census import ops as t_census_ops
 from repro_torch.kernels.synray_sparse import ops as t_sparse_ops
 from repro_torch.kernels.synray_sparse.ref import sparse_window_ref
 from repro_torch.verif.mismatch import sample_instance
@@ -106,6 +115,52 @@ class TestKernelPlain:
         assert got.shape == (N, T, C) and got.dtype == torch.float32
         close(got, want)
 
+    # (density, max_events, k_cap, -0.0 efficacies)
+    WINDOW_CASES = {"fits": (0.03, 10_000, 40, False),
+                    "max_events": (0.08, 60, 40, False),
+                    "k_cap": (0.08, 10_000, 2, False),
+                    "both": (0.3, 90, 3, False),
+                    "neg_zero": (0.08, 10_000, 40, True),
+                    "empty": (0.0, 50, 4, False),
+                    "all_fire": (1.0, 24 * 32, 32, False)}
+
+    @pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+    def test_window_form_matches_reference(self, case):
+        """The window form's plain version on both Dale halves of a
+        time-major window read in place, against the reference's
+        pack-regroup-compute path and its forced sparse route, drops
+        included."""
+        p, max_events, k_cap, neg = self.WINDOW_CASES[case]
+        N, T, R, C = 2, 24, 64, 40
+        w, a, ev, ea, gain = _operands(T, R, C, seed=12, p=p, prefix=(N,))
+        if neg:
+            z = ev == 0
+            ev[z] = np.where(np.random.default_rng(13).random(
+                int(z.sum())) < 0.5, -0.0, 0.0)
+            assert (np.signbit(ev) & (ev == 0)).any()
+        kw = dict(max_events=max_events, k_cap=k_cap)
+        for h in (0, 1):
+            v = (ev[..., h::2], ea[..., h::2], w[:, h::2], a[:, h::2])
+            got = t_sparse_ops.sparse_current_window(*(t(x)[...] for x in v),
+                                                     **kw)
+            tv = [t(x) for x in (ev, ea, w, a)]
+            in_place = t_sparse_ops.sparse_current_window(
+                tv[0][..., h::2], tv[1][..., h::2], tv[2][:, h::2],
+                tv[3][:, h::2], **kw)
+            assert torch.equal(got, in_place)
+            want = j_sparse_ops.synaptic_current_sparse(
+                v[0].transpose(1, 0, 2), v[1].transpose(1, 0, 2), v[2],
+                v[3], impl="ref", **kw)
+            assert got.shape == (T, N, C)
+            close(got, np.asarray(want).transpose(1, 0, 2))
+            forced = t_syn.synaptic_current_window(
+                tv[2][:, h::2], tv[3][:, h::2], tv[0][..., h::2],
+                tv[1][..., h::2], t(gain), sparse="always", **kw)
+            close(forced, j_syn.synaptic_current_window(
+                *v[2:], v[0], v[1], gain, sparse="always", **kw))
+        if case == "empty":
+            assert float(got.abs().max()) == 0.0
+
     def test_wrapper_dispatch(self):
         """CPU tensors run the plain version and count no launch."""
         from repro_torch import kernels
@@ -163,6 +218,52 @@ class TestGate:
         got = t_syn.synaptic_current_window(t(w), t(a), t(ev), t(ea),
                                             t(gain))
         close(got, want)
+
+    @pytest.mark.parametrize("p", [0.004, 0.03, 0.2])
+    @pytest.mark.parametrize("const_addr", [False, True])
+    def test_census_flag_matches_reference(self, p, const_addr):
+        """The gate's plain version: ``kernels.census`` gives the flag and
+        the census as an int32 [3] tensor, equal to the reference's
+        ``window_stats`` and ``census_fits`` at the default capacities,
+        and ``window_route`` adds its decision to ``route_counts``."""
+        w, a, ev, ea, gain = _operands(self.T, self.R, self.C, seed=4, p=p,
+                                       const=const_addr)
+        thr = (j_syn.SPARSE_THRESHOLD_CONST_ADDR if const_addr
+               else j_syn.SPARSE_THRESHOLD)
+        me = je.default_max_events(self.T, self.R, thr)
+        kc = je.default_k_cap(self.R, thr)
+        n, k = je.window_stats(ev)
+        fits = bool(je.census_fits(n, k, me, kc))
+        got = t_census_ops.census(t(ev), me, kc)
+        assert got.dtype == torch.int32
+        assert got.tolist() == [int(fits), int(n), int(k)]
+        counts = t_syn.route_counts("cpu")
+        before = counts.clone()
+        route, _, _ = t_syn.window_route(t(ev), self.C, const_addr=const_addr)
+        assert route == ("sparse" if fits else "dense")
+        assert (counts - before).tolist() == [int(not fits), int(fits)]
+
+    @pytest.mark.parametrize("p_worst", [0.004, 0.1])
+    def test_gated_window_matches_reference(self, p_worst):
+        """The device's form of the gate, run with the plain versions: the
+        census's flag lets the sparse route compute where the window fits
+        and the dense one where it does not, into one buffer; one dense
+        instance among sparse ones sends the call dense. Against the
+        reference's ``lax.cond`` route."""
+        w, a, ev, ea, gain = _operands(self.T, self.R, self.C, seed=5,
+                                       p=0.004, prefix=(3,))
+        fired = np.random.default_rng(6).random((self.T, self.R)) < p_worst
+        ev[:, 1] = np.where(fired, np.float32(0.7), ev[:, 1])
+        want, want_route = _ref_route(w, a, ev, ea, gain, sparse="auto")
+        me = je.default_max_events(self.T, self.R, j_syn.SPARSE_THRESHOLD)
+        kc = je.default_k_cap(self.R, j_syn.SPARSE_THRESHOLD)
+        counts = t_syn.route_counts("cpu")
+        before = counts.clone()
+        got = t_syn._gated_window(t(w), t(a), t(ev), t(ea), t(gain), False,
+                                  me, kc)
+        close(got, want)
+        fits = want_route == "sparse"
+        assert (counts - before).tolist() == [int(not fits), int(fits)]
 
     def test_below_floor_is_dense(self):
         w, a, ev, ea, gain = _operands(13, 16, 16, seed=7, p=0.01)
