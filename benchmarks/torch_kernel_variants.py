@@ -1,6 +1,6 @@
 """Time variants of the port's CUDA kernels on a card.
 
-    python3 benchmarks/torch_kernel_variants.py [--json FILE]
+    python3 benchmarks/torch_kernel_variants.py [--json FILE] [--kernel K]
 
 A variant is a kernel source of ``src/repro_torch/csrc`` with some of its
 ``constexpr int`` constants changed (block shape, chunk length). Each is
@@ -33,11 +33,14 @@ VARIANTS = {
                    {"TX": 64, "TY": 2}, {"K": 8}],
     "synray_sparse": [{}, {"CW": 1}, {"CW": 1, "NW": 8, "UPW": 16},
                       {"NW": 8, "UPW": 16}, {"UPW": 4}],
+    "stp_scan": [{}, {"CHUNK": 8}, {"CHUNK": 32}, {"THREADS": 32},
+                 {"THREADS": 128}],
 }
 LAUNCHERS = {"neuron_scan": ("neuron_scan_launch",
                              "neuron_scan_floor_launch"),
              "ppuvm_exec": ("ppuvm_exec_launch",),
-             "synray_sparse": ("synray_sparse_window_launch",)}
+             "synray_sparse": ("synray_sparse_window_launch",),
+             "stp_scan": ("stp_scan_launch",)}
 
 
 def variant_source(name: str, consts: dict) -> str:
@@ -185,9 +188,40 @@ def sparse_cases():
     return {"gated": (gated, check), "ordered": (ordered, check)}, {}
 
 
+def stp_cases():
+    """Phase 2's stp_scan windows: the main path's [T=128, 16, 256] and the
+    closed loop's [T=256, 32], at the §5 background rate."""
+    import numpy as np
+    import torch
+    import chip_smoke
+    from repro_torch.core import stp
+    from repro_torch.kernels.stp_scan import ops
+    from repro_torch.kernels.stp_scan.ref import stp_scan_ref
+    rng = np.random.default_rng(0)
+    kw = dict(u=0.2, recovery=stp.recovery_factor(20.0, 0.2))
+    cases = {}
+    for name, shape in (("main", (128, 16, 256)), ("loop", (256, 32))):
+        sp = torch.from_numpy((rng.random(shape) < chip_smoke.BG_PROB
+                               ).astype(np.float32)).cuda()
+        r0 = torch.from_numpy(rng.random(shape[1:]).astype(np.float32)).cuda()
+        sc = torch.from_numpy(rng.normal(1.0, 0.25, shape[1:]).astype(
+            np.float32)).cuda()
+        want = stp_scan_ref(r0, sp, sc, **kw)
+
+        def run(r0=r0, sp=sp, sc=sc):
+            return ops.stp_scan(r0, sp, sc, **kw)
+
+        def check(got, want=want):
+            return all(torch.equal(a, b) for a, b in zip(got, want))
+        cases[name] = (run, check)
+    return cases, {}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write the rows to this file")
+    ap.add_argument("--kernel", action="append", choices=sorted(VARIANTS),
+                    help="only this kernel's variants (repeatable)")
     args = ap.parse_args()
     sys.path.insert(0, str(REPO / "src"))
     sys.path.insert(0, str(REPO))
@@ -202,9 +236,10 @@ def main() -> int:
                          text=True, check=True).stdout.strip()
     print(smi)
     rows = []
-    for name, (cases, extra) in (("neuron_scan", neuron_case()),
-                                 ("ppuvm_exec", vm_cases()),
-                                 ("synray_sparse", sparse_cases())):
+    makers = {"neuron_scan": neuron_case, "ppuvm_exec": vm_cases,
+              "synray_sparse": sparse_cases, "stp_scan": stp_cases}
+    for name in args.kernel or makers:
+        cases, extra = makers[name]()
         for consts in VARIANTS[name]:
             _build._lib = build_variant(name, consts)
             row = dict(kernel=name, consts=consts)

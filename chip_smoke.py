@@ -8,8 +8,8 @@ Phases, each reported on its own line:
 1. Device and build: the card's name and power limit (``nvidia-smi``),
    then the CUDA kernels built from ``src/repro_torch/csrc`` (timed), and
    ``-Xptxas -v``'s report held to the redesigned kernels' budgets:
-   ``ppuvm_exec`` with a 0-byte stack frame, none of it, ``neuron_scan``
-   and ``synray_sparse`` spilling.
+   ``ppuvm_exec`` and ``stp_scan`` with a 0-byte stack frame, none of
+   them, ``neuron_scan`` and ``synray_sparse`` spilling.
 2. Each kernel against its plain PyTorch version on the card, at the
    main-path shapes (16 instances of the full 256 x 512 chip, T = 128),
    inputs from a numpy seed: ``neuron_scan``, ``corr`` and ``ppu_update``
@@ -26,7 +26,10 @@ Phases, each reported on its own line:
    yardstick); ``census`` equal to its plain version. ``neuron_scan`` is timed
    as the main path calls it (parameters packed once), also on the host
    clock with its wrapper, beside its chain floor (``chain_floor_ms``: the
-   kernel with the currents in registers). Times are medians of
+   kernel with the currents in registers). ``stp_scan`` bit-equal to its
+   plain loop at [T=128, 16, 256] and at the closed loop's [T=256, 32],
+   also with resources at 0 and a negative scale (-0.0 efficacies) and at
+   1, timed beside the loop. Times are medians of
    CUDA-event timings; ``bound_ms`` is the larger of bytes over 3.35 TB/s
    and operations over 67 TFLOP/s (float32, outside the tensor cores),
    counted from the data (non-zero events, spikes).
@@ -35,17 +38,26 @@ Phases, each reported on its own line:
    ``sparse_mode`` left at its default) for 6 trials, stimuli A, B, none,
    A, B, none. Every window goes through the census gate on the device:
    ``census``, ``synray_sparse`` and ``synray`` launch (12 each, with 6
-   ``neuron_scan`` and 6 ``corr``), and the census's flag lets the sparse
-   kernel compute the no-stimulus windows and the dense one the pattern
-   windows, as the device's route counter must show (read after the
-   run). The census of every window is printed; the state must be
-   finite with whole-number rate counters; one more no-stimulus trial
+   ``stp_scan``, 6 ``neuron_scan`` and 6 ``corr``), and the census's flag
+   lets the sparse kernel compute the no-stimulus windows and the dense
+   one the pattern windows, as the device's route counter must show (read
+   after the run). The census of every window is printed; the state must
+   be finite with whole-number rate counters; one more no-stimulus trial
    runs under ``set_sync_debug_mode("error")`` (no device-to-host read);
    the first trial and the first no-stimulus trial, rerun on the CPU from
    the same state and draws, must take the same route and agree with the
    card (spikes equal up to flips at threshold, see
-   ``check_against_cpu``). The gate's host-clock cost and the routes
-   interleaved on one no-stimulus trial (``route_ab``) are logged. Then
+   ``check_against_cpu``). The same 6 trials from the same state and
+   draws as replays of one captured trial graph (``TrialGraph``): the
+   histories, final state and device route counts equal the eager run's
+   bit for bit, one replay launches what one eager trial launched; eager
+   and graph trials timed in turns. ``torch.profiler`` traces (kept in
+   ``build/profile/``) of 3 eager trials and of 3 replays, each after 3
+   more in the profiler's warm-up step: the device's busy share, kernel
+   time by name, kernels a trial and the longest idle gaps (a trace
+   without device time says so and splits one trial with CUDA events
+   instead). The gate's host-clock cost and the routes interleaved on
+   one no-stimulus trial (``route_ab``) are logged. Then
    ``synray`` (both Dale halves) and ``corr`` are checked and timed again
    on the operands of the first pattern trial, at the §5 densities.
 4. Path B, the fixed-function R-STDP update: three windows of ``AnnCore
@@ -53,10 +65,12 @@ Phases, each reported on its own line:
    (3 ``ppu_update`` launches); the first update, rerun on the CPU from
    the same state, must give the same codes (up to .5 ties).
 5. The §5 closed loop at the default 32 x 16 geometry on the card: 450
-   trials, the port's own generator, seed 0, held to tier 3
+   trials, the port's own generator, seed 0, in ``run_training``'s
+   default mode (a captured trial graph, replayed), held to tier 3
    (``tests/test_rstdp.py``): both populations' trailing median reward
    above 0.85, the even columns' A-channel weights above 5 and 10 above
-   the odd columns'.
+   the odd columns'; equal bit for bit to a ``scan=False`` run (eager
+   trials), both timed.
 6. The PPU-VM kernel ``ppuvm_exec`` against its plain version on the card,
    weights and registers bit for bit: the 200-program fuzz corpus of
    ``tests/test_ppuvm_fuzz.py`` at 8 x 8 (regenerated with numpy and the
@@ -74,11 +88,13 @@ Phases, each reported on its own line:
    launches, the routes dense, dense, sparse; the first trial rerun on the CPU (as in phase 3, weight codes
    equal where no spike flipped) and its VM update rerun on the CPU from
    the card's window state (registers, so dw, bit for bit); the same
-   trial with the python rule within 0.15 on the signed weights.
+   trial with the python rule within 0.15 on the signed weights; the 3
+   trials as graph replays, bit-equal to the eager ones.
 8. ``VectorUnit.apply_rstdp_program`` against ``apply_rstdp`` at 16 x 256
    x 512 with one injected xi: weights within one code; both timed (the
    ratio is recorded, not claimed).
-9. A 60-trial vm-rule closed loop at 32 x 16, T = 128, seed 0: the median
+9. A 60-trial vm-rule closed loop at 32 x 16, T = 128, seed 0, as graph
+   replays (the default) and as eager trials, bit-equal: the median
    reward of the last 15 trials above that of the first 15.
 10. Playback on the card: the three golden programs
    (``tests/golden/playback_*.npz``) through the port's ``FastBackend``
@@ -117,6 +133,9 @@ SRC = {
                    "src/repro/kernels/ppu_update/kernel.py:51"),
     "ppuvm_exec": ("src/repro_torch/csrc/ppuvm_exec.cu",
                    "src/repro/kernels/ppuvm_exec/kernel.py:64"),
+    # no TPU kernel: the reference's STP lax.scan (stp_body)
+    "stp_scan": ("src/repro_torch/csrc/stp_scan.cu",
+                 "src/repro/core/anncore.py:333"),
 }
 # the §5 background rate and the const_addr capacities of one Dale half
 # at full width (events.default_max_events / default_k_cap at 0.02)
@@ -173,7 +192,7 @@ def phase_build():
     # the redesigned kernels' register budgets: ppuvm_exec keeps the VM's
     # register file in registers (no stack frame), none of them spills
     for name, no_stack in (("neuron_scan.cu", False), ("ppuvm_exec.cu", True),
-                           ("synray_sparse.cu", False)):
+                           ("synray_sparse.cu", False), ("stp_scan.cu", True)):
         frames = [(fn, *map(int, m)) for fn, *m in re.findall(
             r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, "
             r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -252,6 +271,7 @@ def phase_kernels():
     rows["synray_sparse"], rows["census"] = _check_synray_sparse(
         rng, dev, N, T, R, C)
     rows["ppu_update"] = _check_ppu_update(rng, dev, N, R, C)
+    rows["stp_scan"] = stp_row(rng, dev, N, T, R)
     for name, r in rows.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"[2] {name}: kernel_ms={r['ms']:.4f} plain_ms="
@@ -520,6 +540,60 @@ def _check_synray_sparse(rng, dev, N, T, R, C):
     return row, census_row
 
 
+def stp_row(rng, dev, N, T, R):
+    """stp_scan bit-equal to its plain version (the sign of zero included)
+    at the main path's [T=128, 16, 256] and the closed loop's [T=256, 32],
+    on spikes at the §5 rates (background and pattern bursts), with
+    resources at 0 and 1 and negative scales (-0.0 efficacies). Timed at
+    the main-path shape beside its plain loop; the bound counts the spikes
+    read and the efficacies written (4 bytes each), r0, the scale and r_T,
+    and 14 operations a step and lane."""
+    import numpy as np
+    import torch
+    from repro_torch.core import stp
+    from repro_torch.kernels.stp_scan import ops as stp_ops
+    from repro_torch.kernels.stp_scan.ref import stp_scan_ref
+    kw = dict(u=0.2, recovery=stp.recovery_factor(20.0, 0.2))
+
+    def operands(T_, prefix, R_):
+        # background, and pattern bursts on a sixth of the rows
+        sp = rng.random((T_, *prefix, R_)) < BG_PROB
+        k = R_ // 6
+        sp[::16, ..., :k] |= rng.random((len(range(0, T_, 16)), *prefix,
+                                         k)) < 0.8
+        r0 = rng.random((*prefix, R_)).astype(np.float32)
+        scale = rng.normal(1.0, 0.25, (*prefix, R_)).astype(np.float32)
+        return dev(r0), dev(sp.astype(np.float32)), dev(scale)
+
+    def check(r0, sp, scale, label):
+        got = stp_ops.stp_scan(r0, sp, scale, **kw)
+        want = stp_scan_ref(r0, sp, scale, **kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("eff", "r_T"), got, want):
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                raise AssertionError(f"stp_scan {label}: {name} differs from "
+                                     f"the plain version")
+    main = operands(T, (N,), R)
+    check(*main, f"[T={T}, {N}, {R}]")
+    check(*operands(256, (), 32), "[T=256, 32]")
+    r0, sp, scale = main
+    check(torch.zeros_like(r0), sp, -scale.abs(), "r0 = 0, negative scale")
+    check(torch.ones_like(r0), sp, scale, "r0 = 1")
+    n_bytes = 2 * T * N * R * 4 + 3 * N * R * 4
+    b_ms, b_by = bound_ms(n_bytes, 14 * T * N * R)
+    ms = time_ms(lambda: stp_ops.stp_scan(r0, sp, scale, **kw), 25)
+    small = operands(256, (), 32)
+    small_ms = time_ms(lambda: stp_ops.stp_scan(*small, **kw), 25)
+    plain_ms = time_ms(lambda: stp_scan_ref(r0, sp, scale, **kw), 3)
+    log(f"[2] stp_scan at [T={T}, N={N}, R={R}]: {ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.2f} MB), plain loop "
+        f"{plain_ms:.4f} ms; at [T=256, 32] {small_ms:.4f} ms; bit-equal to "
+        f"the plain version there and with r0 = 0 and a negative scale "
+        f"(-0.0 efficacies) and r0 = 1")
+    return dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, ms=ms, plain_ms=plain_ms)
+
+
 def _check_ppu_update(rng, dev, N, R, C):
     """ppu_update at 16 x 256 x 512: bit-equal to its plain version."""
     import torch
@@ -639,7 +713,8 @@ def phase_main_path():
     # every window is gated on the device: the census and both route
     # kernels launch, and the flag lets one of the two compute
     want = {"synray": 12, "synray_sparse": 12, "census": 12,
-            "neuron_scan": 6, "corr": 6, "ppu_update": 0, "ppuvm_exec": 0}
+            "neuron_scan": 6, "corr": 6, "ppu_update": 0, "ppuvm_exec": 0,
+            "stp_scan": 6}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     if len(gate_log) != 2 * len(stims):
@@ -685,13 +760,10 @@ def phase_main_path():
         check_against_cpu(meta, kw, before, stims[i], draws.events[i],
                           draws.xi[i], states[i], metrics[i], routes[i],
                           f"trial {i}")
-    addr = torch.zeros(draws.events[0].shape, dtype=torch.int8,
-                       device="cuda")
+    graph_vs_eager(trial, state0, stims, draws, states[-1], metrics,
+                   snaps[-1].tolist(), counts, "[3]")
+    phase_profile(trial, meta, state0, stims, draws)
     i0 = stims.index(0)
-    for i in (0, i0):
-        phase_breakdown(meta["core"], (state0 if i == 0 else states[i - 1]
-                                       ).core, draws.events[i], addr,
-                        times[i], f"trial {i} (stim {stims[i]})")
     gate_cost(draws.events[i0])
     route_ab(states[i0 - 1], stims[i0], draws.events[i0], draws.xi[i0])
     kernels_on_trial(trial, state0, stims[0], draws.events[0], draws.xi[0],
@@ -923,29 +995,244 @@ def gate_cost(events_t):
         f"{old_ms[1]:.4f} ms")
 
 
-def phase_breakdown(core, st, ev, addr, trial_ms, label):
-    """Where a full-width trial's time goes: CUDA events around each phase
-    of ``AnnCore._run_windowed`` (median of 5), the rest being the PPU
-    update and the trial's bookkeeping."""
+def graph_vs_eager(trial, state0, stims, draws, state_e, metrics_e,
+                   routes_e, counts_e, tag):
+    """The eager run's trials again as replays of one captured trial graph
+    (``TrialGraph``) from the same state and draws: one replay launches
+    what one eager trial launched, and the histories, the final state and
+    the device's route counts equal the eager run's bit for bit. Then a
+    second graph of the same trials, its replays timed with CUDA events in
+    turns with eager trials on the same inputs (eager, graph, graph,
+    eager, ...). Returns the median eager and graph trial times."""
+    import numpy as np
     import torch
-    from repro_torch.core import correlation
-
-    def timed(fn):
-        return time_ms(fn, 5)
-    ie, ii = core._window_currents(st, ev, addr)[1:]
-    spikes = core._neuron_window(st.neuron, st.rate_counters, ie, ii,
-                                 False)[2][0]
-    tau = core.cfg.neuron.tau_syn_exc
-    t_cur = timed(lambda: core._window_currents(st, ev, addr))
-    t_neu = timed(lambda: core._neuron_window(st.neuron, st.rate_counters,
-                                              ie, ii, False))
-    t_cor = timed(lambda: correlation.window(
-        st.corr, ev, spikes, tau_pre=tau, tau_post=tau, dt=core.cfg.dt))
+    from repro_torch.core import hybrid as th
+    from repro_torch.core import synapse
+    n = len(stims)
+    routes = synapse.route_counts("cuda")
+    t0 = time.perf_counter()
+    graph = th.TrialGraph(th.TrialLoop(trial, state0, stims, draws))
+    capture_s = time.perf_counter() - t0
+    per_trial = {k: v // n for k, v in counts_e.items()}
+    if graph.launches != per_trial:
+        raise AssertionError(f"{tag} the captured trial launches "
+                             f"{graph.launches}, an eager one {per_trial}")
+    synapse.reset_route_counts()
+    for _ in range(n):
+        graph.replay()
     torch.cuda.synchronize()
-    log(f"[3] {label} breakdown (ms): STP scan + 2 gated synaptic windows="
-        f"{t_cur:.3f}, neuron window={t_neu:.3f}, corr window={t_cor:.3f}, "
-        f"PPU and rest={trial_ms - t_cur - t_neu - t_cor:.3f} (of "
-        f"{trial_ms:.3f})")
+    if routes.tolist() != routes_e:
+        raise AssertionError(f"{tag} graph routes {routes.tolist()}, eager "
+                             f"{routes_e}")
+    hist = graph.loop.history()
+    for k in metrics_e[0]:
+        if not torch.equal(hist[k], torch.stack([m[k] for m in metrics_e])):
+            raise AssertionError(f"{tag} graph replay: {k} differs from the "
+                                 f"eager trials")
+    if hist["stim"].tolist() != list(stims):
+        raise AssertionError(f"{tag} graph replay read stimuli "
+                             f"{hist['stim'].tolist()}")
+    for a, b in zip(_flatten(graph.loop.state), _flatten(state_e)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag} graph replay: the final state "
+                                 "differs from the eager run's")
+    log(f"{tag} {n} trials as replays of one captured trial graph: "
+        f"histories, final state and device routes {routes.tolist()} equal "
+        f"to the eager run bit for bit; one replay launches {per_trial}; "
+        f"warm-up and capture {capture_s:.2f} s, graph pool "
+        f"{graph.pool_bytes / 2**20:.1f} MiB")
+    timed = th.TrialGraph(th.TrialLoop(trial, state0, stims, draws))
+    times = {"eager": [], "graph": []}
+    st = state0
+
+    def eager(i):
+        nonlocal st
+        st, _ = trial(st, stims[i], draws.events[i], draws.xi[i])
+    for i in range(n):
+        runs = (("eager", eager), ("graph", lambda i: timed.replay()))
+        for k, fn in (runs if i % 2 == 0 else runs[::-1]):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn(i)
+            b.record()
+            b.synchronize()
+            times[k].append(a.elapsed_time(b))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"{tag} trial ms, eager and graph in turns: eager median "
+        f"{med['eager']:.3f} [{', '.join(f'{t:.3f}' for t in times['eager'])}]"
+        f"; graph replay median {med['graph']:.3f} ["
+        f"{', '.join(f'{t:.3f}' for t in times['graph'])}]")
+    return med
+
+
+def _trace_summary(path, n_trials):
+    """From a chrome trace of ``torch.profiler``: the traced window (first
+    event start to last event end: the active step), the device's busy time
+    (the union of its kernel, copy and set intervals), kernel time by name,
+    the number of kernels and the longest gaps between device intervals."""
+    # the profiler's own span ("Trace") also covers its warm-up step
+    events = [e for e in json.loads(Path(path).read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e
+              and e.get("cat") != "Trace"]
+    if not events:
+        return None
+    start = min(float(e["ts"]) for e in events)
+    end = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e)
+                 for e in events if str(e.get("cat", "")).lower()
+                 in ("kernel", "gpu_memcpy", "gpu_memset"))
+    merged = []
+    for a, b, _ in dev:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    busy = sum(b - a for a, b in merged)
+    gaps = sorted((b2[0] - b1[1] for b1, b2 in zip(merged, merged[1:])),
+                  reverse=True)
+    by_name = {}
+    for a, b, e in dev:
+        name = _kernel_name(e["name"])
+        t, c = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + b - a, c + 1)
+    n_kernels = sum(1 for *_, e in dev
+                    if str(e.get("cat", "")).lower() == "kernel")
+    return dict(window_us=end - start, busy_us=busy, by_name=by_name,
+                span_us=merged[-1][1] - merged[0][0] if merged else None,
+                kernels_per_trial=n_kernels / n_trials,
+                lead_us=merged[0][0] - start if merged else None,
+                gaps_us=gaps[:5])
+
+
+def _kernel_name(name):
+    """A demangled kernel name without its argument list, at most 90
+    characters."""
+    name = re.sub(r"^void ", "", name.replace("(anonymous namespace)::", ""))
+    if name.endswith(")"):
+        depth = 0
+        for i in range(len(name) - 1, -1, -1):
+            depth += {")": 1, "(": -1}.get(name[i], 0)
+            if depth == 0:
+                name = name[:i]
+                break
+    return name[:90]
+
+
+def phase_profile(trial, meta, state0, stims, draws, n=3):
+    """Where a full-width trial's time goes: ``torch.profiler`` traces
+    (CPU and CUDA activities) of eager path-A trials and of replays of the
+    same trials captured as a graph. Each runs ``2 n`` trials from
+    ``state0``: the profiler's warm-up step takes the first ``n`` (the
+    graph's first replays, which upload it and set up the tracing), its
+    active step the last ``n``, each from a synchronised start to a
+    synchronised end. For each: the device's busy share of the traced
+    window and of its own span (first kernel start to last kernel end),
+    kernel time by name (top 10), kernels per trial and the longest idle
+    gaps between device intervals. A trace with no device time is
+    reported on a line of its own, and one eager trial is then split with
+    CUDA events instead."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.core import hybrid as th
+    out_dir = REPO / "build" / "profile"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    stims = list(stims[:n]) * 2
+    graph = th.TrialGraph(th.TrialLoop(trial, state0, stims, draws))
+    st = state0
+
+    def eager(k):
+        nonlocal st
+        for i in range(k * n, (k + 1) * n):
+            st, _ = trial(st, stims[i], draws.events[i], draws.xi[i])
+
+    def replays(k):
+        for _ in range(n):
+            graph.replay()
+    for label, fn in (("eager", eager), ("graph", replays)):
+        path = out_dir / f"trace_{label}.json"
+        done = {}
+
+        def ready(p, path=path, done=done):
+            p.export_chrome_trace(str(path))
+            done["averages"] = p.key_averages()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=ready) as prof:
+            for k in range(2):
+                torch.cuda.synchronize()
+                fn(k)
+                torch.cuda.synchronize()
+                prof.step()
+        dev_us = sum(getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0)) or 0
+                     for e in done.get("averages", ()))
+        summ = _trace_summary(path, n)
+        if not dev_us or summ is None or not summ["by_name"]:
+            log(f"[3] profiler, {label}: NO DEVICE TIME in the trace "
+                f"(key_averages self device total {dev_us}); one eager trial "
+                f"split with CUDA events instead")
+            split_with_events(trial, meta, state0, stims[0], draws)
+            continue
+        top = sorted(summ["by_name"].items(), key=lambda kv: -kv[1][0])[:10]
+        w, b, span = summ["window_us"], summ["busy_us"], summ["span_us"]
+        log(f"[3] profiler, {label}, trials {n}-{2 * n - 1} (stim "
+            f"{stims[n:]}; trials 0-{n - 1} in the warm-up step): window "
+            f"{w / 1e3:.3f} ms, device busy {b / 1e3:.3f} ms = {b / w:.4f} of "
+            f"it (idle {1 - b / w:.4f}); device span {span / 1e3:.3f} ms, "
+            f"busy {b / span:.4f} of it; {summ['kernels_per_trial']:.1f} "
+            f"kernels a trial; key_averages self device total "
+            f"{dev_us / 1e3:.3f} ms")
+        log(f"[3] profiler, {label}, kernel ms (count) by name: "
+            + "; ".join(f"{k} {t / 1e3:.4f} ({c})" for k, (t, c) in top))
+        log(f"[3] profiler, {label}: before the first device interval "
+            f"{summ['lead_us'] / 1e3:.3f} ms; longest gaps between device "
+            f"intervals (ms): "
+            + ", ".join(f"{g / 1e3:.4f}" for g in summ["gaps_us"]))
+
+
+def split_with_events(trial, meta, state, stim, draws):
+    """One eager trial with a CUDA event recorded after each phase's call
+    (STP scan, the two synaptic windows, neuron window, correlation
+    window; the PPU update to the trial's end): device-timeline ms between
+    them."""
+    import torch
+    from repro_torch.core import correlation, synapse
+    from repro_torch.kernels.stp_scan import ops as stp_ops
+    marks = [("start", torch.cuda.Event(enable_timing=True))]
+    core = meta["core"]
+    patched = [(stp_ops, "stp_scan"), (synapse, "synaptic_current_window"),
+               (correlation, "window"), (core, "_neuron_window")]
+    real = {(m, k): getattr(m, k) for m, k in patched}
+
+    def marking(fn, name):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+            return out
+        return wrapped
+    for (m, k), fn in real.items():
+        setattr(m, k, marking(fn, k))
+    try:
+        torch.cuda.synchronize()
+        marks[0][1].record()
+        trial(state, stim, draws.events[0], draws.xi[0])
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        marks.append(("PPU and rest", end))
+        end.synchronize()
+    finally:
+        for (m, k), fn in real.items():
+            if m is core:
+                del core._neuron_window
+            else:
+                setattr(m, k, fn)
+    log("[3] one eager trial split with CUDA events (ms on the device "
+        "timeline, the phase ending at each mark): " + ", ".join(
+            f"{name} {a.elapsed_time(b):.4f}"
+            for (_, a), (name, b) in zip(marks, marks[1:])))
 
 
 def phase_path_b(state, draws, meta):
@@ -1030,16 +1317,48 @@ def _flatten(tree):
             yield from _flatten(v)
 
 
+def _run_modes(label, **kw):
+    """``run_training`` on the card in its default mode (one captured trial
+    graph, replayed) and with ``scan=False`` (eager trials), in turns
+    (graph, eager): the histories bit-equal, both times on the host clock
+    from a synchronised start to the result on the host. Returns the
+    default run's ``(out, meta, seconds)`` and the eager run's launch
+    counts."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.hybrid import run_training
+    runs = {}
+    for name, mode in (("graph", {}), ("eager", dict(scan=False))):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _, meta = run_training(device="cuda", **mode, **kw)
+        runs[name] = (out, meta, time.perf_counter() - t0,
+                      dict(kernels.LAUNCHES))
+    (o_g, meta, s_g, n_g), (o_e, _, s_e, n_e) = runs["graph"], runs["eager"]
+    for k in o_e:
+        if not np.array_equal(o_g[k], o_e[k]):
+            raise AssertionError(f"{label}: {k} differs between the graph "
+                                 "and the eager run")
+    n = kw["n_trials"]
+    log(f"{label} run_training, {n} trials: graph (default) {s_g:.2f} s = "
+        f"{1e3 * s_g / n:.3f} ms/trial, eager (scan=False) {s_e:.2f} s = "
+        f"{1e3 * s_e / n:.3f} ms/trial, {s_e / s_g:.2f}x; histories bit-equal;"
+        f" launches counted by the wrappers: graph "
+        f"{ {k: v for k, v in n_g.items() if v} } (warm-up and capture), "
+        f"eager { {k: v for k, v in n_e.items() if v} }")
+    return o_g, meta, s_g, n_e
+
+
 def phase_closed_loop():
     """The §5 closed loop at 32 x 16 on the card, held to the tier-3
     criteria of ``tests/test_rstdp.py``: both populations' trailing median
     reward above 0.85, and A-channel weight discrimination (the even
-    columns' A-channel weights above 5 and 10 above the odd columns')."""
+    columns' A-channel weights above 5 and 10 above the odd columns'). The
+    default mode (the trial graph) and eager trials agree bit for bit."""
     import numpy as np
-    from repro_torch.core.hybrid import run_training
-    t0 = time.perf_counter()
-    out, _, meta = run_training(n_trials=450, seed=0, device="cuda")
-    secs = time.perf_counter() - t0
+    out, meta, secs, _ = _run_modes("[5]", n_trials=450, seed=0)
     even = meta["even"].cpu().numpy() > 0
     ma = meta["mask_a"] > 0
     mr = out["mean_reward"]
@@ -1200,13 +1519,15 @@ def phase_path_c(trial_ms_a):
         metrics.append(m)
     counts = dict(kernels.LAUNCHES)
     want = {"synray": 6, "synray_sparse": 6, "census": 6, "neuron_scan": 3,
-            "corr": 3, "ppu_update": 0, "ppuvm_exec": 3}
+            "corr": 3, "ppu_update": 0, "ppuvm_exec": 3, "stp_scan": 3}
     if counts != want:
         raise AssertionError(f"path C launch counts {counts}, expected "
                              f"{want}")
     routes = _device_routes(snaps, len(stims))
     if routes != ["dense", "dense", "sparse"]:
         raise AssertionError(f"path C routes {routes}")
+    graph_vs_eager(trial, state0, stims, draws, states[-1], metrics,
+                   snaps[-1].tolist(), counts, "[7]")
     for x in _flatten(state):
         if x.is_floating_point() and not bool(torch.isfinite(x).all()):
             raise AssertionError("non-finite state after path C")
@@ -1293,16 +1614,14 @@ def phase_rstdp_program(state, draws, meta):
 
 
 def phase_vm_loop():
-    """60 trials of the vm rule at 32 x 16, T = 128, on the card."""
+    """60 trials of the vm rule at 32 x 16, T = 128, on the card, as graph
+    replays (the default) and as eager trials, bit-equal."""
     import numpy as np
-    from repro_torch import kernels
-    from repro_torch.core.hybrid import RSTDPConfig, run_training
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    out, _, _ = run_training(n_trials=60, ecfg=RSTDPConfig(trial_steps=128),
-                             seed=0, rule_impl="vm", device="cuda")
-    secs = time.perf_counter() - t0
-    n = kernels.LAUNCHES["ppuvm_exec"]
+    from repro_torch.core.hybrid import RSTDPConfig
+    out, _, secs, n_e = _run_modes("[9]", n_trials=60,
+                                   ecfg=RSTDPConfig(trial_steps=128), seed=0,
+                                   rule_impl="vm")
+    n = n_e["ppuvm_exec"]
     mr = np.median(out["mean_reward"], axis=1)
     first, last = float(mr[:15].mean()), float(mr[-15:].mean())
     log(f"[9] vm-rule closed loop 32 x 16, T=128, 60 trials, seed 0: median "

@@ -13,7 +13,8 @@ Backends (``repro/core/anncore.py`` has the same three):
     accumulators. Ground truth for the equivalence tests.
 
 ``fused`` (the ``auto`` pick on the CPU)
-    STP efficacy trajectory first (it depends only on the input events),
+    STP efficacy trajectory first (it depends only on the input events;
+    ``stp_scan``),
     then the whole window's synaptic currents as one time-batched product
     per Dale half (``synray``), a neuron-only dt loop, and the
     correlation-sensor window replayed once (``corr``).
@@ -155,17 +156,15 @@ class AnnCore:
     def _window_currents(self, state: AnnCoreState, row_spikes_t,
                          row_addr_t):
         """Phases 1+2 of the fused and blocked backends: the STP efficacy
-        trajectory and the window's synaptic currents, one product per
-        Dale half on strided row views of the store."""
+        trajectory (``stp_scan``: one launch on the card, the step loop on
+        the CPU) and the window's synaptic currents, one product per Dale
+        half on strided row views of the store."""
+        from repro_torch.kernels.stp_scan import ops as stp_ops
         cfg = self.cfg
-        s = state.stp
-        eff = []
-        for t in range(row_spikes_t.shape[0]):
-            sp = row_spikes_t[t]
-            eff.append(stp.efficacy(s, sp, u=cfg.stp_u,
-                                    scale=self.stp_scale))
-            s = stp.update(s, sp, u=cfg.stp_u, recovery=self.stp_recovery)
-        eff_t = torch.stack(eff)
+        eff_t, r_t = stp_ops.stp_scan(
+            state.stp.r, row_spikes_t.to(torch.float32), self.stp_scale,
+            u=cfg.stp_u, recovery=self.stp_recovery)
+        s = stp.STPState(r=r_t)
 
         syn = state.syn
         gain = self.inst["weight_gain"]

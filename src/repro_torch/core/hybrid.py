@@ -6,15 +6,26 @@ with no host round trip. The experiment is §5's pattern-discrimination
 task: inputs with Poisson background, patterns A/B on overlapping
 channels; even neurons are rewarded for firing on A, odd ones on B.
 
-``run_training`` is a Python loop over trials on the device. Like the
-reference's ``scanned_training`` it draws every trial's events (and the
-exploration noise) in one batch before the loop. The draws come from a
-``torch.Generator``, or are injected (``Draws``): ``repro_torch.convert``
-replays the reference's ``jax.random`` key chain so both packages see the
-same numbers. The rule runs as Python tensor code (``rule_impl="python"``)
-or as a PPU-VM program (``rule_impl="vm"``, the ``ppuvm_exec`` kernel on
-the card). Not ported yet: wafer mode, faults, telemetry, and the
-host-loop baseline.
+Like the reference's ``scanned_training``, a run draws every trial's
+events (and the exploration noise) in one batch before the first trial.
+The draws come from a ``torch.Generator``, or are injected (``Draws``):
+``repro_torch.convert`` replays the reference's ``jax.random`` key chain
+so both packages see the same numbers. ``run_training`` has the
+reference's three modes (``repro/core/hybrid.py:521-620``):
+
+- ``fused=True, scan=True`` (the default): the whole experiment as one
+  device dispatch. On a CUDA device one trial is captured as a CUDA graph
+  (``TrialGraph``) that reads its stimulus and draws from device-resident
+  tensors at a step counter it advances itself, and the graph is replayed
+  once a trial: the host does one ``replay()`` a trial. On the CPU, which
+  has no graphs, the same trial body (``TrialLoop``) runs trial by trial.
+- ``fused=True, scan=False``: a Python loop of eager trials.
+- ``fused=False``: the host-in-the-loop baseline (``host_loop_trial``).
+
+All three give the same histories and final state bit for bit. The rule
+runs as Python tensor code (``rule_impl="python"``) or as a PPU-VM program
+(``rule_impl="vm"``, the ``ppuvm_exec`` kernel on the card). Not ported
+yet: wafer mode, faults and telemetry.
 """
 from __future__ import annotations
 
@@ -25,7 +36,7 @@ from typing import Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import kernels, resolve_device
 from repro_torch.configs.bss2 import BSS2, BSS2Config
 from repro_torch.core import synapse
 from repro_torch.core.anncore import AnnCore, AnnCoreState
@@ -65,6 +76,24 @@ class Draws(NamedTuple):
     """Every random number a run consumes after the instance."""
     events: torch.Tensor          # [n_trials, T, *prefix, 2I] float32 {0,1}
     xi: torch.Tensor              # [n_trials, *prefix, I, C] float32
+
+
+def _leaves(tree):
+    """The tensors of a tree of NamedTuples, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [x for v in tree for x in _leaves(v)]
+
+
+def _rebuild(tree, leaves):
+    """``tree`` with its tensors replaced by ``leaves`` (in order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, torch.Tensor):
+            return next(it)
+        return type(t)(*(build(v) for v in t))
+    return build(tree)
 
 
 def _patterns(ecfg: RSTDPConfig) -> Tuple[np.ndarray, np.ndarray]:
@@ -138,8 +167,11 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
       device: where the experiment runs; ``None`` means ``cuda`` and
         raises without a card.
 
-    ``trial(state, stim, events, xi)`` runs one trial with its draws;
-    ``meta["train"](state, stims, draws)`` runs a batch of them and
+    ``trial(state, stim, events, xi)`` runs one trial with its draws
+    (``stim`` an int or a 0-d int32 tensor on the device);
+    ``meta["train"](state, stims, draws)`` runs a batch of them from a
+    Python loop, ``meta["scanned_training"](state, stims, draws)`` runs the
+    same batch as one device dispatch (see ``make_scanned_training``), and
     ``meta["draw"](generator, stims)`` draws them.
     """
     device = resolve_device(device)
@@ -155,6 +187,11 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
     I, C, T = ecfg.n_inputs, ecfg.n_neurons, ecfg.trial_steps
     mask_a, mask_b = _patterns(ecfg)
     even = (torch.arange(C, device=device) % 2 == 0).to(torch.float32)
+    odd, nobody = 1.0 - even, torch.zeros_like(even)
+    # the stimuli as 0-d device tensors, made once: a trial given an int
+    # takes one of these, so it builds nothing from host data
+    stim_of = {k: torch.tensor(k, dtype=torch.int32, device=device)
+               for k in (0, 1, 2)}
     if inst is None:
         if generator is None:
             generator = torch.Generator().manual_seed(7)
@@ -186,11 +223,12 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
             core=st, w_signed=w0,
             mean_reward=torch.zeros((*prefix, C), device=device))
 
-    def _reward(rates, stim: int):
+    def _reward(rates, stim):
+        """The reference's ``where`` form (``repro/core/hybrid.py:368-
+        373``) on a 0-d int32 ``stim``: no branch on the host."""
         fired = (rates >= ecfg.fire_thresh).to(torch.float32)
-        if stim == 0:
-            return 1.0 - fired
-        own_shown = even if stim == 1 else 1.0 - even
+        own_shown = torch.where(stim == 1, even,
+                                torch.where(stim == 2, odd, nobody))
         return torch.where(own_shown > 0, fired, 1.0 - fired)
 
     def _signed_rule(w_rows, obs, rule_state, *, reward):
@@ -233,10 +271,14 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
         return (cs2, dict(mean_reward=mean_r, w_signed=w_signed),
                 dict(causal=qc, acausal=qa))
 
-    def trial(state: ExperimentState, stim: int, events, xi):
+    def trial(state: ExperimentState, stim, events, xi):
         """One training trial: emulate the window, reward, PPU update.
-        ``events`` [T, *prefix, 2I]; ``xi`` [*prefix, I, C]."""
-        stim = int(stim)
+        ``stim`` in {0: none, 1: A, 2: B}, an int or a 0-d int32 tensor on
+        the device; ``events`` [T, *prefix, 2I]; ``xi`` [*prefix, I, C]."""
+        if not isinstance(stim, torch.Tensor):
+            if int(stim) not in stim_of:
+                raise ValueError(f"stim must be 0, 1 or 2, got {stim}")
+            stim = stim_of[int(stim)]
         cs, _ = core.run(state.core, events, addr)
         rates = cs.rate_counters
         r = _reward(rates, stim)
@@ -276,13 +318,163 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
             state, m = trial(state, stim, draws.events[i], draws.xi[i])
             hist.append(m)
         out = {k: torch.stack([h[k] for h in hist]) for k in hist[0]}
-        out["stim"] = torch.as_tensor(np.asarray(stims, np.int32))
+        out["stim"] = torch.as_tensor(stims, dtype=torch.int32)
         return state, out
+
+    def scanned_training(state: ExperimentState, stims, draws: Draws):
+        """Run ``len(stims)`` trials as ``TrialLoop``'s body: on a CUDA
+        device one captured ``TrialGraph`` replayed once a trial, on the
+        CPU the body trial by trial. Returns ``(state, hist)`` as ``train``
+        does, bit for bit."""
+        loop = TrialLoop(trial, state, stims, draws)
+        run = TrialGraph(loop).replay if device.type == "cuda" else loop.body
+        for _ in range(loop.n):
+            run()
+        return loop.state, loop.history()
 
     meta = dict(cfg=cfg, ecfg=ecfg, inst=inst, core=core, ppu=ppu,
                 mask_a=mask_a, mask_b=mask_b, even=even, train=train,
-                draw=draw)
+                draw=draw, scanned_training=scanned_training)
     return init, trial, meta
+
+
+class TrialLoop:
+    """The experiment as a loop of one body with no host work in it.
+
+    ``body()`` runs the trial at the loop's step counter, a tensor on the
+    device: it reads that trial's stimulus, events and xi from the
+    device-resident ``stims`` and ``draws``, writes the trial's metrics into
+    ``[n_trials, ...]`` histories at the counter, copies the new state into
+    the loop's own state tensors (``state``, cloned from the given state)
+    and advances the counter. Nothing in it reads the host or builds a
+    tensor from host data, so a CUDA graph can capture it (``TrialGraph``).
+    The histories are allocated by the first ``body()`` (from its metrics'
+    shapes)."""
+
+    def __init__(self, trial, state: ExperimentState, stims, draws: Draws):
+        dev = state.w_signed.device
+        self.trial = trial
+        self.initial = state
+        self.state = _rebuild(state, [x.clone() for x in _leaves(state)])
+        self.stims = torch.as_tensor(stims, dtype=torch.int32).to(dev)
+        self.n = self.stims.shape[0]
+        if self.n == 0:
+            raise ValueError("TrialLoop: no trials to run")
+        if draws.events.shape[0] < self.n or draws.xi.shape[0] < self.n:
+            raise ValueError(f"TrialLoop: draws for {draws.events.shape[0]} "
+                             f"trials, {self.n} stimuli")
+        self.events, self.xi = draws.events.to(dev), draws.xi.to(dev)
+        self.step = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.hist = None
+
+    def body(self):
+        i = self.step
+        new, m = self.trial(self.state,
+                            self.stims.index_select(0, i).reshape(()),
+                            self.events.index_select(0, i)[0],
+                            self.xi.index_select(0, i)[0])
+        if self.hist is None:
+            self.hist = {k: v.new_empty((self.n, *v.shape))
+                         for k, v in m.items()}
+        for k, v in m.items():
+            self.hist[k].index_copy_(0, i, v.unsqueeze(0))
+        self._assign(new)
+        self.step += 1
+
+    def _assign(self, new: ExperimentState):
+        """Copy ``new`` into the loop's state tensors. A leaf the trial
+        passed through unchanged is the state tensor itself; a leaf that
+        shares memory with another state tensor is copied out first, so
+        no copy reads what an earlier one wrote."""
+        dst = _leaves(self.state)
+        src = _leaves(new)
+        held = {x.untyped_storage().data_ptr() for x in dst}
+        src = [s if s is d or s.untyped_storage().data_ptr() not in held
+               else s.clone() for s, d in zip(src, dst)]
+        for s, d in zip(src, dst):
+            if s.shape != d.shape or s.dtype != d.dtype:
+                raise ValueError(f"TrialLoop: a state tensor changed from "
+                                 f"{d.dtype}{tuple(d.shape)} to "
+                                 f"{s.dtype}{tuple(s.shape)}")
+            if s is not d:
+                d.copy_(s)
+
+    def reset(self):
+        """The state back to the given state, the counter to 0."""
+        for d, s in zip(_leaves(self.state), _leaves(self.initial)):
+            d.copy_(s)
+        self.step.zero_()
+
+    def history(self):
+        """The metrics stacked [n_trials, ...] and the stimuli."""
+        return dict(self.hist, stim=self.stims)
+
+
+class TrialGraph:
+    """``TrialLoop.body`` captured once as a CUDA graph; ``replay()`` runs
+    the next trial.
+
+    Before the capture one body runs on a side stream, on the loop's clone
+    of the state: it builds the kernels, fills the lazy caches on the path
+    (``AnnCore``'s packed neuron parameters, the census's ticket, the
+    device's route counter) and allocates the histories. Then the loop's
+    state and counter are reset and the route counter is set back to its
+    value before that trial. The capture runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a trial that reads the
+    host, or copies host data to the device, raises instead of being
+    captured. Nothing falls back to eager trials.
+
+    ``launches`` holds the kernel launches the wrappers counted while the
+    trial was captured: what each replay launches (the wrappers' own
+    counts do not move under replay). ``pool_bytes`` is what the capture
+    added to the allocator's reserved memory: the graph's private pool,
+    which holds the trial's intermediate tensors."""
+
+    def __init__(self, loop: TrialLoop):
+        dev = loop.step.device
+        if dev.type != "cuda":
+            raise ValueError(f"TrialGraph: CUDA graphs need a CUDA device, "
+                             f"not {dev}")
+        self.loop = loop
+        routes = synapse.route_counts(dev)
+        before = routes.clone()
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            loop.body()
+            loop.reset()
+            routes.copy_(before)
+        cur.wait_stream(side)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        counted = dict(kernels.LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                loop.body()
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        self.launches = {k: v - counted[k] for k, v in kernels.LAUNCHES.items()}
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+
+    def replay(self):
+        self.graph.replay()
+
+
+def make_scanned_training(meta):
+    """The whole experiment as one device dispatch (the reference's
+    ``make_scanned_training``, ``repro/core/hybrid.py:512-518``):
+    ``scanned(state, stims, draws) -> (state, hist)``, which is
+    ``meta["scanned_training"]``. On a CUDA device it captures one trial
+    (``TrialGraph``) and replays it once a trial; a capture that fails
+    raises. On the CPU, which has no graphs, it runs the same trial body
+    trial by trial. (The reference jits here; eager PyTorch has nothing
+    to compile, so the capture happens at each call.)"""
+    return meta["scanned_training"]
 
 
 def stimuli(n_trials: int) -> np.ndarray:
@@ -291,13 +483,20 @@ def stimuli(n_trials: int) -> np.ndarray:
 
 
 def run_training(n_trials: int = 300, ecfg: RSTDPConfig = RSTDPConfig(),
-                 seed: int = 0, cfg: BSS2Config = None,
-                 backend: str = "auto", sparse_mode: str = None,
-                 rule_impl: str = "python", device=None, inst: Dict = None,
-                 draws: Draws = None):
+                 seed: int = 0, cfg: BSS2Config = None, fused: bool = True,
+                 scan: bool = None, backend: str = "auto",
+                 sparse_mode: str = None, rule_impl: str = "python",
+                 device=None, inst: Dict = None, draws: Draws = None):
     """Full §5 experiment. Returns ``(out, state, meta)``: ``out`` the
     metrics history as numpy arrays stacked [n_trials, ...] plus
     ``w_signed_final``; ``state`` the final ``ExperimentState``.
+
+    Modes, as the reference's (``scan=None`` means ``scan=fused``):
+      fused=True, scan=True   one device dispatch: ``make_scanned_training``
+                              (a captured trial graph replayed on the card)
+      fused=True, scan=False  a Python loop of eager trials (``train``)
+      fused=False             host-in-the-loop: ``host_loop_trial``
+    All three give the same results bit for bit.
 
     ``seed`` seeds the instance generator (``seed``) and the run's draws
     (``seed + 1``), both CPU ``torch.Generator``s, so a seed gives the same
@@ -306,14 +505,38 @@ def run_training(n_trials: int = 300, ecfg: RSTDPConfig = RSTDPConfig(),
     ``None`` means ``cuda`` and raises without a card.
     """
     device = resolve_device(device)
-    init, _, meta = make_experiment(
+    init, trial, meta = make_experiment(
         cfg=cfg, ecfg=ecfg, inst=inst,
         generator=torch.Generator().manual_seed(seed), backend=backend,
         sparse_mode=sparse_mode, rule_impl=rule_impl, device=device)
     stims = stimuli(n_trials)
     if draws is None:
         draws = meta["draw"](torch.Generator().manual_seed(seed + 1), stims)
-    state, hist = meta["train"](init(), stims, draws)
+    if scan is None:
+        scan = fused
+    state = init()
+    if fused and scan:
+        state, hist = make_scanned_training(meta)(state, stims, draws)
+    elif fused:
+        state, hist = meta["train"](state, stims, draws)
+    else:
+        hist = []
+        for i, stim in enumerate(stims):
+            state, m = host_loop_trial(trial, state, stim, draws.events[i],
+                                       draws.xi[i])
+            hist.append(m)
+        hist = {k: torch.stack([h[k] for h in hist]) for k in hist[0]}
+        hist["stim"] = torch.as_tensor(stims, dtype=torch.int32)
     out = {k: v.cpu().numpy() for k, v in hist.items()}
     out["w_signed_final"] = state.w_signed.cpu().numpy()
     return out, state, meta
+
+
+def host_loop_trial(trial, state: ExperimentState, stim, events, xi):
+    """Host-in-the-loop baseline (``repro/core/hybrid.py:613-620``): every
+    state tensor crosses to the host and back before the trial, and the
+    metrics come back to the host after it."""
+    dev = state.w_signed.device
+    state = _rebuild(state, [x.cpu().to(dev) for x in _leaves(state)])
+    new, m = trial(state, stim, events, xi)
+    return new, {k: v.cpu() for k, v in m.items()}

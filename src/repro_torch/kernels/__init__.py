@@ -29,6 +29,9 @@ through the kernels.
   ppuvm_exec     the PPU-VM: a whole instruction-word program per synapse
                  lane, 8 Q8.8 registers, saturating integer arithmetic
                  (replaces ``repro/kernels/ppuvm_exec``)
+  stp_scan       the STP efficacy trajectory of a window, one thread per
+                 driver row (no TPU kernel: the reference's ``lax.scan``
+                 of ``stp.efficacy`` and ``stp.update``)
 
 Instance prefix: a fleet of independent chips is folded into one leading
 N axis with the helpers below, as in the reference.
@@ -39,7 +42,7 @@ import math
 
 # launch counts per kernel name; each wrapper adds one where it launches
 LAUNCHES = {"synray": 0, "synray_sparse": 0, "census": 0, "neuron_scan": 0,
-            "corr": 0, "ppu_update": 0, "ppuvm_exec": 0}
+            "corr": 0, "ppu_update": 0, "ppuvm_exec": 0, "stp_scan": 0}
 
 
 def reset_launches() -> None:

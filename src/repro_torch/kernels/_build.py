@@ -42,6 +42,7 @@ PER_SOURCE = {
     "corr.cu": ["-fmad=false"],
     "ppu_update.cu": ["-fmad=false"],
     "ppuvm_exec.cu": [],
+    "stp_scan.cu": ["-fmad=false"],
 }
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -79,6 +80,9 @@ ARGTYPES = {
     # regs, N, R, C, stream
     "ppuvm_exec_launch": [_VP, _I, _VP, _I] + [_VP] * 4 + [_I]
                          + [_VP] * 3 + [_I] * 3 + [_VP],
+    # r0, spikes, scale, eff, r_out, T, N, R, spike strides (t, n, r),
+    # scale strides (n, r), u, recovery, eff_max, r_max, stream
+    "stp_scan_launch": [_VP] * 5 + [_I] * 3 + [_LL] * 5 + [_F] * 4 + [_VP],
 }
 
 _lock = threading.Lock()

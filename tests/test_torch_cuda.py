@@ -9,7 +9,9 @@ Tolerances: ``neuron_scan``, ``corr`` and ``ppu_update`` bit-equal (the
 kernels repeat the plain versions' operations in order, built without
 multiply-add contraction; ``corr`` also on the edges of its spike-driven
 skip: accumulators above sat, -0.0 entries, all-zero and dense windows,
-non-binary spikes); ``ppuvm_exec`` bit-equal (integer only: weights
+non-binary spikes); ``stp_scan`` bit-equal, the sign of zero included
+(resources at 0 and 1, negative scales, strided and broadcast operands);
+``ppuvm_exec`` bit-equal (integer only: weights
 and registers), on the PPU-VM fuzz corpus, a prefixed multi-block shape
 and the main path's [16, 256, 512], and the vm rule's trial on the card
 equal to the CPU's; ``synray`` (both forms) and ``synray_sparse``
@@ -21,7 +23,11 @@ chain); ``synray_sparse``'s window form bit-equal to its record form fed
 ``regroup_window``'s records, overflowing windows included; ``census``
 equal to its plain version (integers); the main path on the card
 against the CPU: spike counts equal and the signed weights within 1e-4,
-and a full-width no-stimulus trial with no read back to the host.
+and a full-width no-stimulus trial with no read back to the host. The
+trial captured as a CUDA graph (``TrialGraph``) and replayed gives the
+eager trials' histories, final state and device route counts bit for
+bit, for both rule implementations; a trial that reads the host fails to
+capture and raises.
 """
 import dataclasses
 import math
@@ -47,6 +53,8 @@ from repro_torch.kernels.ppu_update import ops as ppu_ops
 from repro_torch.kernels.ppu_update.ref import rstdp_update_ref
 from repro_torch.kernels.ppuvm_exec import ops as vm_ops
 from repro_torch.kernels.ppuvm_exec.ref import run_program_ref
+from repro_torch.kernels.stp_scan import ops as stp_ops
+from repro_torch.kernels.stp_scan.ref import stp_scan_ref
 from repro_torch.ppuvm import isa
 from repro_torch.verif import playback as pb
 from repro_torch.kernels.synray_sparse import ops as sparse_ops
@@ -264,7 +272,8 @@ def test_main_path_on_card_matches_cpu(cuda):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"synray": 6, "synray_sparse": 0,
                                 "census": 0, "neuron_scan": 3, "corr": 3,
-                                "ppu_update": 0, "ppuvm_exec": 0}
+                                "ppu_update": 0, "ppuvm_exec": 0,
+                                "stp_scan": 3}
     inst_c = {k: (v.cpu() if torch.is_tensor(v) else
                   {kk: vv.cpu() for kk, vv in v.items()})
               for k, v in meta["inst"].items()}
@@ -649,3 +658,152 @@ def test_playback_golden_on_card(cuda, rule):
         if kg in ("PPU_W", "WEIGHTS"):
             np.testing.assert_array_equal(v.astype(np.int32),
                                           vg.astype(np.int32))
+
+
+STP_CASES = ("random", "r0_zero", "r0_one", "negative_scale", "dale_half",
+             "shared_scale", "non_binary")
+
+
+@pytest.mark.parametrize("case", STP_CASES)
+@pytest.mark.parametrize("T,prefix,R", [(128, (16,), 256), (256, (), 32),
+                                        (37, (3,), 70), (1, (2, 5), 33),
+                                        (0, (2,), 9)])
+def test_stp_scan_bit_equal(cuda, T, prefix, R, case):
+    """stp_scan against its plain version on the card, bit for bit (the
+    sign of zero included): the main path's [T=128, 16, 256], the closed
+    loop's [T=256, 32], ragged shapes, resources at 0 and 1, negative
+    scales (-0.0 efficacies), a Dale half read in place, a scale shared
+    by the prefix and non-binary spikes."""
+    rng = np.random.default_rng(T + R)
+    full = 2 * R if case == "dale_half" else R
+    sp = (rng.random((T, *prefix, full)) < 0.3).astype(np.float32)
+    if case == "non_binary":
+        sp *= rng.uniform(-0.5, 2.0, sp.shape).astype(np.float32)
+    sp = t(sp).to(cuda)
+    if case == "dale_half":
+        sp = sp[..., 1::2]
+    r0 = rng.random((*prefix, R)).astype(np.float32)
+    if case == "r0_zero":
+        r0[:] = 0
+    if case == "r0_one":
+        r0[:] = 1
+    scale = rng.normal(1.0, 0.5, (*prefix, R)).astype(np.float32)
+    if case == "negative_scale":
+        scale = -np.abs(scale)
+        r0[..., ::2] = 0
+    r0, scale = t(r0).to(cuda), t(scale).to(cuda)
+    if case == "shared_scale":
+        scale = scale.reshape(-1)[:R]
+    kw = dict(u=0.2, recovery=float(1.0 - math.exp(-0.2 / 20.0)))
+    n0 = kernels.LAUNCHES["stp_scan"]
+    got = stp_ops.stp_scan(r0, sp, scale, **kw)
+    want = stp_scan_ref(r0, sp, scale, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["stp_scan"] == n0 + 1
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert torch.equal(a.contiguous().view(torch.int32),
+                           b.contiguous().view(torch.int32))
+
+
+def _full_width(cuda, rule_impl):
+    ecfg = th.RSTDPConfig(n_inputs=128, n_neurons=512, pattern_size=24,
+                          trial_steps=128)
+    return th.make_experiment(
+        cfg=BSS2, ecfg=ecfg, prefix=(16,), backend="blocked",
+        generator=torch.Generator().manual_seed(11), rule_impl=rule_impl,
+        device=cuda)
+
+
+@pytest.mark.parametrize("rule_impl", ["python", "vm"])
+def test_graph_replay_equals_eager(cuda, rule_impl):
+    """Six full-width trials (A, B, none, A, B, none) as graph replays
+    from the same state and draws as six eager trials: histories, final
+    state and the device route counts equal bit for bit; one replay
+    launches what one eager trial launches."""
+    init, trial, meta = _full_width(cuda, rule_impl)
+    stims = [1, 2, 0, 1, 2, 0]
+    draws = meta["draw"](torch.Generator().manual_seed(12), stims)
+    state0 = init()
+    routes = synapse.route_counts(cuda)
+    synapse.reset_route_counts()
+    kernels.reset_launches()
+    st, hist = state0, []
+    for i, s in enumerate(stims):
+        st, m = trial(st, s, draws.events[i], draws.xi[i])
+        hist.append(m)
+    torch.cuda.synchronize()
+    eager_routes = routes.tolist()
+    per_trial = {k: v // len(stims) for k, v in kernels.LAUNCHES.items()}
+    assert eager_routes == [8, 4] and per_trial["stp_scan"] == 1
+    graph = th.TrialGraph(th.TrialLoop(trial, state0, stims, draws))
+    assert graph.launches == per_trial
+    synapse.reset_route_counts()
+    for _ in stims:
+        graph.replay()
+    torch.cuda.synchronize()
+    assert routes.tolist() == eager_routes
+    g_hist = graph.loop.history()
+    for k in hist[0]:
+        assert torch.equal(g_hist[k], torch.stack([m[k] for m in hist])), k
+    assert g_hist["stim"].tolist() == stims
+    for a, b in zip(th._leaves(graph.loop.state), th._leaves(st)):
+        assert torch.equal(a, b)
+
+
+def test_run_training_default_replays_a_graph(cuda):
+    """``run_training`` on the card captures one trial and replays it: its
+    three modes agree bit for bit, and the graph run's wrappers count only
+    the warm-up and the capture."""
+    outs = []
+    for mode in (dict(), dict(scan=False), dict(fused=False)):
+        kernels.reset_launches()
+        out, _, _ = th.run_training(12, seed=1, device=cuda, **mode)
+        outs.append((out, dict(kernels.LAUNCHES)))
+    (o0, n0), rest = outs[0], outs[1:]
+    assert n0["stp_scan"] == 2 and n0["neuron_scan"] == 2
+    for o, n in rest:
+        assert n["stp_scan"] == 12
+        for k in o0:
+            np.testing.assert_array_equal(o[k], o0[k], err_msg=k)
+
+
+def test_capture_runs_under_sync_debug_error(cuda, monkeypatch):
+    """The capture runs under ``set_sync_debug_mode("error")`` and puts
+    the previous mode back."""
+    init, trial, meta = th.make_experiment(
+        generator=torch.Generator().manual_seed(2), device=cuda)
+    draws = meta["draw"](torch.Generator().manual_seed(3), [1, 2])
+    modes = []
+    real = meta["core"].run
+
+    def run(*args, **kw):
+        modes.append(torch.cuda.get_sync_debug_mode())
+        return real(*args, **kw)
+    monkeypatch.setattr(meta["core"], "run", run)
+    before = torch.cuda.get_sync_debug_mode()
+    th.TrialGraph(th.TrialLoop(trial, init(), [1, 2], draws))
+    assert modes == [before, 2]               # warm-up, then the capture
+    assert torch.cuda.get_sync_debug_mode() == before
+
+
+def test_capture_of_a_host_read_raises(cuda, monkeypatch):
+    """A trial that reads the host fails to capture: ``make_scanned_
+    training`` raises and runs no trial eagerly in its place (the trial is
+    entered twice, warm-up and capture, not once a trial)."""
+    init, trial, meta = th.make_experiment(
+        generator=torch.Generator().manual_seed(2), device=cuda)
+    stims = th.stimuli(5)
+    draws = meta["draw"](torch.Generator().manual_seed(3), stims)
+    calls = []
+    real = meta["core"].run
+
+    def run(state, events, addr, **kw):
+        calls.append(len(calls))
+        float(events.sum())                     # a device-to-host read
+        return real(state, events, addr, **kw)
+    monkeypatch.setattr(meta["core"], "run", run)
+    with pytest.raises(RuntimeError):
+        th.make_scanned_training(meta)(init(), stims, draws)
+    torch.cuda.synchronize()
+    assert len(calls) == 2

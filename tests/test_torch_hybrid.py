@@ -11,6 +11,15 @@
   The same trial with ``rule_impl="vm"`` (the rule's vector part as the
   PPU-VM program ``signed_dw_program``): weight codes and the VM's dw
   readout exact, the signed weights within 1e-4.
+- The whole experiment as one dispatch: the port's
+  ``make_scanned_training`` with the reference's instance and draws
+  against the reference's ``make_scanned_training`` over 7 trials (rates,
+  rewards, stimuli, CADC codes and 6-bit weights exact, floats within
+  1e-4); ``run_training``'s three modes (``scan=True``, ``scan=False``,
+  ``fused=False``) bit-equal to each other, histories, final state and
+  route counts, as tests/test_fused.py::TestScannedTraining holds the
+  reference's; ``_reward`` on a tensor stimulus equal to the branch form
+  and to the reference's ``_reward``.
 - The closed loop: 450 trials of the port at 32 x 16 with the reference's
   draws meet the criteria of tests/test_rstdp.py::
   test_fig11_reward_converges_to_one. With the vm rule, 60 trials at
@@ -18,15 +27,19 @@
   the first trial agrees with the python rule's signed weights within
   0.15 (test_hybrid_vm_dw_matches_python_rule_first_trial).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import jax
 import torch
 
-from _torch_parity import assert_spikes_match, close, spike_threshold
+from _torch_parity import assert_spikes_match, close, spike_threshold, t
 from repro.core import hybrid as jh
 from repro_torch import convert
+from repro_torch.configs.bss2 import BSS2
 from repro_torch.core import hybrid as th
+from repro_torch.core import synapse
 from repro_torch.ppuvm import programs
 
 K_TRIALS = 7
@@ -205,3 +218,179 @@ def test_vm_rule_matches_python_rule_first_trial():
 def test_unknown_rule_impl_raises():
     with pytest.raises(ValueError, match="rule_impl"):
         th.make_experiment(rule_impl="specialized", device="cpu")
+
+
+@pytest.mark.parametrize("rule_impl", ["python", "vm"])
+def test_scanned_training_matches_reference(rule_impl):
+    """The port's ``make_scanned_training`` (on the CPU: the trial body
+    trial by trial) against the reference's, 7 trials from the initial
+    state with the reference's instance and draws: rates, rewards,
+    stimuli, CADC codes and 6-bit weights exact; mean rewards, eligibility
+    and signed weights within 1e-4."""
+    ecfg = jh.RSTDPConfig()
+    init, _, meta = jh.make_experiment(ecfg=ecfg,
+                                       instance_key=jax.random.PRNGKey(0),
+                                       rule_impl=rule_impl)
+    inst = jax.tree.map(np.array, meta["inst"])
+    stims = th.stimuli(K_TRIALS)
+    st0 = init(jax.random.PRNGKey(1))
+    draws = convert.replay_reference_draws(
+        jax.random, jax.numpy.array(st0.key), stims, th.RSTDPConfig(),
+        device="cpu")
+    j_state, j_hist = jh.make_scanned_training(meta["scanned_training"])(
+        st0, jax.numpy.asarray(stims))
+    init_t, _, meta_t = th.make_experiment(
+        ecfg=th.RSTDPConfig(), inst=convert.instance(inst, "cpu"),
+        backend="blocked", rule_impl=rule_impl, device="cpu")
+    t_state, t_hist = th.make_scanned_training(meta_t)(init_t(), stims,
+                                                       draws)
+    for k in ("rates", "reward", "stim"):
+        np.testing.assert_array_equal(t_hist[k].numpy(),
+                                      np.asarray(j_hist[k]), err_msg=k)
+    np.testing.assert_array_equal(np.rint(t_hist["elig"].numpy() * 255),
+                                  np.rint(np.asarray(j_hist["elig"]) * 255))
+    for k in ("mean_reward", "elig", "w"):
+        close(t_hist[k], j_hist[k], err_msg=k)
+    np.testing.assert_array_equal(t_state.core.syn.weights.numpy(),
+                                  np.asarray(j_state.core.syn.weights))
+    close(t_state.w_signed, j_state.w_signed)
+
+
+def _geometry(name):
+    """The reduced §5 geometry (below the census floor: dense only), or a
+    128 x 256 chip above it, where the census gate routes every window."""
+    if name == "reduced":
+        return dict(ecfg=th.RSTDPConfig(trial_steps=96))
+    return dict(ecfg=th.RSTDPConfig(n_inputs=64, n_neurons=256,
+                                    pattern_size=16, trial_steps=128),
+                cfg=dataclasses.replace(BSS2, n_rows=128, n_cols=256))
+
+
+@pytest.mark.parametrize("rule_impl", ["python", "vm"])
+@pytest.mark.parametrize("geometry", ["reduced", "gated"])
+def test_run_modes_bit_equal(geometry, rule_impl):
+    """``scan=True`` (the trial body with the stimulus and draws read on
+    the device), ``scan=False`` (eager trials) and ``fused=False`` (the
+    host loop) give the same histories, final state and route counts,
+    bit for bit (tests/test_fused.py:258-271 for the reference)."""
+    runs = []
+    for mode in (dict(scan=True), dict(scan=False), dict(fused=False)):
+        synapse.reset_route_counts()
+        out, state, _ = th.run_training(9, seed=3, device="cpu",
+                                        rule_impl=rule_impl, **mode,
+                                        **_geometry(geometry))
+        runs.append((out, state, synapse.route_counts("cpu").tolist()))
+    out0, state0, routes0 = runs[0]
+    assert sum(routes0) == (18 if geometry == "gated" else 0)
+    if geometry == "gated":
+        assert routes0 == [12, 6]            # the no-stimulus trials sparse
+    assert out0["reward"].shape == (9, 16 if geometry == "reduced" else 256)
+    for out, state, routes in runs[1:]:
+        assert routes == routes0
+        assert sorted(out) == sorted(out0)
+        for k in out0:
+            assert out[k].dtype == out0[k].dtype, k
+            np.testing.assert_array_equal(out[k], out0[k], err_msg=k)
+        for a, b in zip(th._leaves(state), th._leaves(state0)):
+            assert torch.equal(a, b)
+
+
+def _find_closure(fn, name, seen=None):
+    """The function called ``name`` among the closures reachable from
+    ``fn`` (the reference's ``_reward`` is local to ``make_experiment``)."""
+    seen = set() if seen is None else seen
+    for cell in fn.__closure__ or ():
+        v = cell.cell_contents
+        if callable(v) and hasattr(v, "__code__") and id(v) not in seen:
+            seen.add(id(v))
+            if v.__name__ == name:
+                return v
+            found = _find_closure(v, name, seen)
+            if found is not None:
+                return found
+    return None
+
+
+@pytest.mark.parametrize("stim", [0, 1, 2])
+def test_reward_where_form(stim):
+    """``_reward`` on a 0-d int32 stimulus (the reference's ``where``
+    form) equals the branch form the port had on an int, and the
+    reference's ``_reward``, on rates around the firing threshold."""
+    _, _, meta = th.make_experiment(device="cpu")
+    reward = _find_closure(meta["scanned_training"], "_reward")
+    rng = np.random.default_rng(stim)
+    rates = rng.choice([0.0, 0.5, 1.0, 1.5, 3.0], (5, 16)).astype(np.float32)
+    got = reward(t(rates), torch.tensor(stim, dtype=torch.int32))
+    fired = (t(rates) >= 1.0).to(torch.float32)
+    even = meta["even"]
+    if stim == 0:
+        branch = 1.0 - fired
+    else:
+        own = even if stim == 1 else 1.0 - even
+        branch = torch.where(own > 0, fired, 1.0 - fired)
+    assert torch.equal(got, branch)
+    _, j_trial, _ = jh.make_experiment(ecfg=jh.RSTDPConfig(),
+                                       instance_key=jax.random.PRNGKey(0))
+    j_reward = _find_closure(j_trial, "_reward")
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(j_reward(rates, np.int32(stim))))
+
+
+def test_trial_takes_int_or_tensor_stim():
+    """A trial given the stimulus as an int or as a 0-d int32 tensor gives
+    the same state and metrics; a stimulus outside {0, 1, 2} raises."""
+    init, trial, meta = th.make_experiment(
+        ecfg=th.RSTDPConfig(trial_steps=64), device="cpu")
+    draws = meta["draw"](torch.Generator().manual_seed(2), [2])
+    a = trial(init(), 2, draws.events[0], draws.xi[0])
+    b = trial(init(), torch.tensor(2, dtype=torch.int32), draws.events[0],
+              draws.xi[0])
+    for x, y in zip(th._leaves(a[0]), th._leaves(b[0])):
+        assert torch.equal(x, y)
+    for k in a[1]:
+        assert torch.equal(a[1][k], b[1][k])
+    with pytest.raises(ValueError, match="stim"):
+        trial(init(), 3, draws.events[0], draws.xi[0])
+
+
+def test_trial_loop_on_the_cpu():
+    """``TrialLoop``: histories stacked in trial order, ``reset`` goes back
+    to the given state; no trials, or a graph on the CPU, raise."""
+    init, trial, meta = th.make_experiment(
+        ecfg=th.RSTDPConfig(trial_steps=32), device="cpu")
+    stims = th.stimuli(3)
+    draws = meta["draw"](torch.Generator().manual_seed(5), stims)
+    st = init()
+    loop = th.TrialLoop(trial, st, stims, draws)
+    for _ in range(3):
+        loop.body()
+    hist = loop.history()
+    assert hist["stim"].tolist() == [1, 2, 0]
+    assert int(loop.step) == 3 and hist["w"].shape == (3, 16, 16)
+    s, m = st, None
+    for i in range(3):
+        s, m = trial(s, int(stims[i]), draws.events[i], draws.xi[i])
+        assert torch.equal(hist["w"][i], m["w"])
+    loop.reset()
+    assert int(loop.step) == 0
+    for a, b in zip(th._leaves(loop.state), th._leaves(st)):
+        assert torch.equal(a, b) and a is not b
+    with pytest.raises(ValueError, match="no trials"):
+        th.TrialLoop(trial, st, [], draws)
+    with pytest.raises(ValueError, match="CUDA device"):
+        th.TrialGraph(loop)
+
+
+def test_host_loop_trial_returns_host_metrics():
+    """``host_loop_trial`` gives what the trial gives, with the metrics on
+    the host."""
+    init, trial, meta = th.make_experiment(
+        ecfg=th.RSTDPConfig(trial_steps=32), device="cpu")
+    draws = meta["draw"](torch.Generator().manual_seed(6), [1])
+    s_h, m_h = th.host_loop_trial(trial, init(), 1, draws.events[0],
+                                  draws.xi[0])
+    s_e, m_e = trial(init(), 1, draws.events[0], draws.xi[0])
+    assert all(v.device.type == "cpu" for v in m_h.values())
+    for k in m_e:
+        assert torch.equal(m_h[k], m_e[k])
+    assert torch.equal(s_h.w_signed, s_e.w_signed)
