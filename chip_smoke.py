@@ -101,6 +101,25 @@ Phases, each reported on its own line:
    on ``cuda``: ``compare_traces(atol=0.05)`` empty, ``PPU_W`` and
    ``WEIGHTS`` records bit-equal to the golden ones, 2 ``ppuvm_exec``
    launches each.
+11. Path D, the verification layer on path A's full-width chip (16 x 256
+   x 512, T = 128): ``calibrate_stp`` of the 16 x 256 STP driver offsets
+   on the card (codes equal to the CPU's, std after < 0.4 x before, the
+   Fig. 4 bar; timed), then on the calibrated chip with a sampled
+   ``FaultPlan`` (dead rows, dead and hot neurons, stuck cells, CADC
+   columns) and telemetry on: 6 trials (A, B, none, A, B, none) eager and
+   as graph replays, bit-equal; telemetry off bit-equal to on;
+   ``faults_injected`` equal to the plan's sites and the route counters
+   to ``route_counts``; the counters printed, and replays of the clean,
+   the faulted and the faulted-with-telemetry trial timed in turns.
+   ``screen`` on the card equal to the CPU's, finding the planted dead
+   rows, hot and dead neurons and every CADC column stuck more than its
+   margin from the zero baseline. The loop under the screened blacklist
+   as graph replays (its gauges checked), and the plan's covered sites
+   under the blacklist equal to the clean reduced network bit for bit.
+   Last, the off path (no faults, no telemetry): path A's launches,
+   eager and a replay, as in phase 3.
+   Phase 2 also holds ``ppu_update``'s faulted form (a CADC fault map,
+   path D's ``apply_rstdp``) to its plain version bit for bit, timed.
 
 Exits non-zero without a card, outside a checkout, or when any phase
 fails; the last line is the JSON device record.
@@ -618,14 +637,38 @@ def _check_ppu_update(rng, dev, N, R, C):
                                  f"version")
     n_syn = N * R * C
     b_ms, b_by = bound_ms(18 * n_syn + 3 * 4 * N * C, 15 * n_syn)
-    return dict(
+    row = dict(
         max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         ms=time_ms(lambda: ppu_ops.rstdp_update(*args, eta=4.0), 25),
         plain_ms=time_ms(lambda: rstdp_update_ref(*args, eta=4.0), 5))
+    # the faulted form (path D's): a chain of CADC code offsets and stuck
+    # columns folded into one clamp-shift a column, from its own seed
+    from repro_torch.faults import FaultPlan, inject
+    frng = np.random.default_rng(18)
+    plans = [FaultPlan(cadc_code_offset=frng.integers(-40, 40, (N, C)),
+                       cadc_stuck_mask=frng.random((N, C)) < 0.05,
+                       cadc_stuck_code=frng.integers(0, 256, (N, C)).astype(
+                           np.int32)) for _ in range(2)]
+    cmap = inject.cadc_map(plans, args[0].device, 255)
+    got = ppu_ops.rstdp_update(*args, eta=4.0, cadc_map=cmap)
+    want = rstdp_update_ref(*args, eta=4.0, cadc_map=cmap)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("weights", "eligibility"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"ppu_update with CADC faults: {name} "
+                                 f"differ from the plain version")
+    f_ms = time_ms(lambda: ppu_ops.rstdp_update(*args, eta=4.0,
+                                                cadc_map=cmap), 25)
+    log(f"[2] ppu_update with a CADC fault map (two plans of offsets and "
+        f"stuck columns, folded): {f_ms:.4f} ms against {row['ms']:.4f} "
+        f"without; bit-equal to the plain version")
+    return row
 
 
 def _to(tree, device):
     import torch
+    if tree is None:
+        return None
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     if isinstance(tree, dict):
@@ -760,15 +803,16 @@ def phase_main_path():
         check_against_cpu(meta, kw, before, stims[i], draws.events[i],
                           draws.xi[i], states[i], metrics[i], routes[i],
                           f"trial {i}")
-    graph_vs_eager(trial, state0, stims, draws, states[-1], metrics,
-                   snaps[-1].tolist(), counts, "[3]")
+    graph_a = graph_vs_eager(trial, state0, stims, draws, states[-1],
+                             metrics, snaps[-1].tolist(), counts, "[3]")
     phase_profile(trial, meta, state0, stims, draws)
     i0 = stims.index(0)
     gate_cost(draws.events[i0])
     route_ab(states[i0 - 1], stims[i0], draws.events[i0], draws.xi[i0])
     kernels_on_trial(trial, state0, stims[0], draws.events[0], draws.xi[0],
                      "trial 0 (stim 1)")
-    return counts, states[-1], draws, meta, sorted(times)[len(times) // 2]
+    return (counts, states[-1], draws, meta, sorted(times)[len(times) // 2],
+            graph_a)
 
 
 def _capture(calls):
@@ -1003,7 +1047,8 @@ def graph_vs_eager(trial, state0, stims, draws, state_e, metrics_e,
     the device's route counts equal the eager run's bit for bit. Then a
     second graph of the same trials, its replays timed with CUDA events in
     turns with eager trials on the same inputs (eager, graph, graph,
-    eager, ...). Returns the median eager and graph trial times."""
+    eager, ...). Returns the median eager and graph trial times, and the
+    first graph's launches and pool bytes."""
     import numpy as np
     import torch
     from repro_torch.core import hybrid as th
@@ -1063,7 +1108,7 @@ def graph_vs_eager(trial, state0, stims, draws, state_e, metrics_e,
         f"{med['eager']:.3f} [{', '.join(f'{t:.3f}' for t in times['eager'])}]"
         f"; graph replay median {med['graph']:.3f} ["
         f"{', '.join(f'{t:.3f}' for t in times['graph'])}]")
-    return med
+    return dict(med, launches=graph.launches, pool_bytes=graph.pool_bytes)
 
 
 def _trace_summary(path, n_trials):
@@ -1307,6 +1352,8 @@ def phase_path_b(state, draws, meta):
 
 def _flatten(tree):
     import torch
+    if tree is None:
+        return
     if isinstance(tree, torch.Tensor):
         yield tree
     elif isinstance(tree, dict):
@@ -1662,6 +1709,255 @@ def phase_playback():
             f"bit-equal, {n} ppuvm_exec launches")
 
 
+def _eager_trials(trial, state0, stims, draws):
+    """The trials eagerly from ``state0``: per trial the state and metrics,
+    the launches the wrappers counted and the device's route counts after
+    the run (read once, at the end)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import synapse
+    routes = synapse.route_counts("cuda")
+    synapse.reset_route_counts()
+    kernels.reset_launches()
+    states, metrics, st = [], [], state0
+    for i, stim in enumerate(stims):
+        st, m = trial(st, stim, draws.events[i], draws.xi[i])
+        states.append(st)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    return states, metrics, dict(kernels.LAUNCHES), routes.tolist()
+
+
+def _replayed(trial, state0, stims, draws):
+    """The trials as replays of one captured ``TrialGraph``."""
+    import torch
+    from repro_torch.core import hybrid as th
+    graph = th.TrialGraph(th.TrialLoop(trial, state0, stims, draws))
+    for _ in stims:
+        graph.replay()
+    torch.cuda.synchronize()
+    return graph
+
+
+def _same_run(a, b, what):
+    """Two graphs' (or a graph's and eager trials') histories and final
+    states bit for bit."""
+    import torch
+    from repro_torch.core import hybrid as th
+    (ha, sa), (hb, sb) = a, b
+    for k in hb:
+        if not torch.equal(ha[k], hb[k]):
+            raise AssertionError(f"[11] {what}: {k} differs")
+    la, lb = th._leaves(sa), th._leaves(sb)
+    if len(la) != len(lb) or not all(torch.equal(x, y)
+                                     for x, y in zip(la, lb)):
+        raise AssertionError(f"[11] {what}: the final states differ")
+
+
+def _covered(fp, bl):
+    """The sites of ``fp`` that the blacklist ``bl`` covers (on a
+    blacklisted row or column): what its reduction masks exactly."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.faults import FaultPlan
+    cov = bl.rows[..., :, None] | bl.neurons[..., None, :]
+
+    def keep(m, where):
+        return None if m is None else m & where
+    sw = keep(fp.stuck_w_mask, cov)
+    cm = keep(fp.cadc_stuck_mask, bl.neurons)
+    return dataclasses.replace(
+        fp, dead_rows=keep(fp.dead_rows, bl.rows),
+        hot_neurons=keep(fp.hot_neurons, bl.neurons),
+        dead_neurons=keep(fp.dead_neurons, bl.neurons),
+        stuck_w_mask=sw, stuck_w_val=fp.stuck_w_val if sw is not None
+        else None, cadc_stuck_mask=cm,
+        cadc_stuck_code=fp.cadc_stuck_code if cm is not None else None,
+        store_flip=None if fp.store_flip is None
+        else np.where(cov, fp.store_flip, 0))
+
+
+def phase_path_d(counts_a, graph_a):
+    """Path D, the verification layer on path A's full-width chip:
+    Monte-Carlo STP calibration, the §5 loop on a faulted chip with
+    telemetry (eager and as graph replays), screening, and the loop under
+    the screened blacklist; then the off path against phase 3."""
+    import numpy as np
+    import torch
+    from repro_torch.core import hybrid as th
+    from repro_torch.faults import (cadc_zero_code, chain,
+                                    sample_fault_plan, screen)
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.verif.calibration import calibrate_stp
+    cpu = torch.device("cpu")
+    _, _, meta0, kw = _full_width()
+    cfg = meta0["cfg"]
+    inst = meta0["inst"]
+
+    # 1. calibration of the 16 x 256 driver offsets
+    off = inst["stp_offset"]
+    calibrate_stp(cfg, off)                        # warm-up
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    codes, m = calibrate_stp(cfg, off)
+    b.record()
+    b.synchronize()
+    cal_ms = a.elapsed_time(b)
+    codes_c, _ = calibrate_stp(cfg, off.cpu())
+    if not torch.equal(codes.cpu(), codes_c):
+        raise AssertionError("[11] calibration codes differ card vs CPU")
+    sb, sa = float(m["std_before"]), float(m["std_after"])
+    if not sa < 0.4 * sb:
+        raise AssertionError(f"[11] calibration: std {sb} -> {sa}")
+    log(f"[11] calibration of {off.shape[0]} x {off.shape[1]} STP drivers: "
+        f"offset std {sb:.4f} -> {sa:.4f} ({sa / sb:.3f} of it, < 0.4), "
+        f"max |after| {float(m['max_abs_after']):.4f}; {cal_ms:.3f} ms "
+        f"(4 rounds of the 5-spike testbench); codes equal to the CPU's")
+    inst_cal = dict(inst, stp_calib=codes)
+
+    def experiment(**extra):
+        return th.make_experiment(inst=inst_cal, device="cuda", **kw,
+                                  **extra)
+
+    # 2. the faulted loop with telemetry, eager and as graph replays
+    fp = sample_fault_plan(256, 512, np.random.default_rng(3), prefix=(16,),
+                           p_dead_row=0.02, p_dead_neuron=0.01,
+                           p_hot_neuron=0.01, p_stuck_w=0.001, p_cadc=0.02,
+                           seed=1)
+    stims = [1, 2, 0, 1, 2, 0]
+    init, trial, meta = experiment(telemetry=True, faults=fp)
+    draws = meta["draw"](torch.Generator().manual_seed(12), stims)
+    state0 = init()
+    states, metrics, n_e, routes_e = _eager_trials(trial, state0, stims,
+                                                   draws)
+    tele = obs_trace.summary(states[-1].tele)
+    g_on = _replayed(trial, state0, stims, draws)
+    hist_e = {k: torch.stack([mm[k] for mm in metrics]) for k in metrics[0]}
+    _same_run((g_on.loop.history(), g_on.loop.state), (hist_e, states[-1]),
+              "faulted loop, graph vs eager")
+    if obs_trace.summary(g_on.loop.state.tele) != tele:
+        raise AssertionError("[11] graph and eager counters differ")
+    init_off, trial_off, _ = experiment(faults=fp)
+    g_off = _replayed(trial_off, init_off(), stims, draws)
+    _same_run((g_on.loop.history(), g_on.loop.state._replace(tele=None)),
+              (g_off.loop.history(), g_off.loop.state),
+              "faulted loop, telemetry on vs off")
+    if tele["faults_injected"] != fp.total_sites:
+        raise AssertionError(f"[11] faults_injected {tele['faults_injected']}"
+                             f", plan {fp.total_sites}")
+    if [tele["dense_windows"], tele["sparse_windows"]] != routes_e:
+        raise AssertionError(f"[11] route counters {tele} vs route_counts "
+                             f"{routes_e}")
+    if tele["trials"] != 6 or tele["gated_windows"] != 12:
+        raise AssertionError(f"[11] counters {tele}")
+    init_clean, trial_clean, _ = experiment()
+    g_clean = _replayed(trial_clean, init_clean(), stims, draws)
+    times = {"clean": [], "faults": [], "faults+telemetry": []}
+    graphs = {"clean": g_clean, "faults": g_off, "faults+telemetry": g_on}
+    for i in range(12):
+        order = list(graphs) if i % 2 == 0 else list(graphs)[::-1]
+        for k in order:
+            graphs[k].loop.reset()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            graphs[k].replay()
+            e1.record()
+            e1.synchronize()
+            times[k].append(e0.elapsed_time(e1))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"[11] faulted loop ({fp.total_sites} sites: "
+        f"{ {k: v for k, v in fp.summary().items() if k != 'is_blacklist'} }"
+        f"), 6 trials eager and as graph replays: bit-equal; telemetry on "
+        f"vs off bit-equal; launches eager {n_e}, a replay "
+        f"{g_on.launches}; routes {routes_e}")
+    log(f"[11] counters: {json.dumps(tele)}")
+    log(f"[11] replay ms (trial 0, 12 in turns, median): clean "
+        f"{med['clean']:.4f}, faults {med['faults']:.4f}, faults + "
+        f"telemetry {med['faults+telemetry']:.4f}; telemetry costs "
+        f"{med['faults+telemetry'] - med['faults']:.4f} ms a replay, the "
+        f"fault hooks {med['faults'] - med['clean']:.4f}; graph pools "
+        f"{g_clean.pool_bytes / 2**20:.1f} / {g_off.pool_bytes / 2**20:.1f} "
+        f"/ {g_on.pool_bytes / 2**20:.1f} MiB")
+
+    # 3. screening, on the card and on the CPU
+    a.record()
+    bl = screen(meta["core"], meta["ppu"])
+    b.record()
+    b.synchronize()
+    screen_ms = a.elapsed_time(b)
+    _, _, meta_c = th.make_experiment(inst=_to(inst_cal, cpu), device="cpu",
+                                      faults=fp, **kw)
+    bl_c = screen(meta_c["core"], meta_c["ppu"])
+    if not (np.array_equal(bl.rows, bl_c.rows)
+            and np.array_equal(bl.neurons, bl_c.neurons)):
+        raise AssertionError("[11] screening differs card vs CPU")
+    base = cadc_zero_code(inst)
+    visible = fp.cadc_stuck_mask & (np.abs(fp.cadc_stuck_code - base) > 2)
+    planted = fp.hot_neurons | fp.dead_neurons | visible
+    if not np.array_equal(bl.rows, fp.dead_rows) or (
+            planted & ~bl.neurons).any():
+        raise AssertionError("[11] screening missed planted sites")
+    extra = int((bl.neurons & ~(planted | fp.cadc_stuck_mask)).sum())
+    log(f"[11] screen on the card ({screen_ms:.1f} ms, two 64-step probes "
+        f"+ CADC reads): {bl.n_rows} rows ({fp.n_dead_rows} planted dead), "
+        f"{bl.n_neurons} neurons (hot {int(fp.hot_neurons.sum())}, dead "
+        f"{int(fp.dead_neurons.sum())}, CADC columns "
+        f"{int(fp.cadc_stuck_mask.sum())} of which "
+        f"{int((fp.cadc_stuck_mask & ~visible).sum())} stuck within 2 codes "
+        f"of their zero baseline, which no probe tells from a healthy one; "
+        f"{extra} flagged beyond the plan); equal to the CPU's screen")
+
+    # 4. the loop under the blacklist, as graph replays
+    init_b, trial_b, _ = experiment(telemetry=True, faults=fp,
+                                         blacklist=bl)
+    g_b = _replayed(trial_b, init_b(), stims, draws)
+    tb = obs_trace.summary(g_b.loop.state.tele)
+    red = bl.as_faults(inst, cfg.cadc_bits)
+    if (tb["faults_detected"], tb["blacklisted_rows"]) != (
+            red.total_sites, bl.n_rows) or \
+            tb["faults_injected"] != fp.total_sites:
+        raise AssertionError(f"[11] blacklist gauges {tb}")
+    cov = _covered(fp, bl)
+    init_r, trial_r, _ = experiment(faults=chain(cov, red))
+    init_x, trial_x, _ = experiment(faults=red)
+    g_r = _replayed(trial_r, init_r(), stims, draws)
+    g_x = _replayed(trial_x, init_x(), stims, draws)
+    # the membranes of blacklisted columns integrate their (stuck-cell)
+    # currents unmasked, as on the chip; everything else is exact
+    s_r, s_x = g_r.loop.state, g_x.loop.state
+    _same_run((g_r.loop.history(), s_r._replace(core=s_r.core._replace(
+        neuron=None))), (g_x.loop.history(), s_x._replace(
+            core=s_x.core._replace(neuron=None))),
+        "covered faults under the blacklist vs the clean reduced network")
+    healthy = ~torch.as_tensor(bl.neurons, device="cuda")
+    if not all(torch.equal(x[healthy], y[healthy]) for x, y in zip(
+            s_r.core.neuron, s_x.core.neuron)):
+        raise AssertionError("[11] blacklisted loop: a healthy column's "
+                             "membrane differs from the reduced network's")
+    log(f"[11] blacklisted loop, 6 graph replays: faults_detected="
+        f"{tb['faults_detected']} blacklisted_rows={tb['blacklisted_rows']} "
+        f"(the reduction's sites and rows); the plan's {cov.total_sites} "
+        f"covered sites under the blacklist == the clean reduced network "
+        f"bit for bit (histories, synapses, sensors, STP, healthy columns' "
+        f"membranes; {fp.total_sites - cov.total_sites} sites outside it:"
+        f" stuck cells and unseen CADC columns, which no probe looks for)")
+
+    # 5. the off path: path A's trial unchanged
+    init_0, trial_0, _, _ = _full_width()
+    _, _, n_0, _ = _eager_trials(trial_0, init_0(), stims, draws)
+    g_0 = _replayed(trial_0, init_0(), stims, draws)
+    if n_0 != counts_a or g_0.launches != graph_a["launches"]:
+        raise AssertionError(f"[11] off path: launches {n_0} / "
+                             f"{g_0.launches}, phase 3 {counts_a} / "
+                             f"{graph_a['launches']}")
+    log(f"[11] off path (faults=None, telemetry=False): launches of 6 eager "
+        f"trials and of a replay equal to phase 3's; graph pool "
+        f"{g_0.pool_bytes / 2**20:.1f} MiB (phase 3: "
+        f"{graph_a['pool_bytes'] / 2**20:.1f} MiB)")
+
+
 def main() -> int:
     if not (REPO / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
@@ -1677,7 +1973,7 @@ def main() -> int:
 
     smi = phase_build()
     rows = phase_kernels()
-    counts, state, draws, meta, trial_ms_a = phase_main_path()
+    counts, state, draws, meta, trial_ms_a, graph_a = phase_main_path()
     counts_b = phase_path_b(state, draws, meta)
     phase_closed_loop()
     rows["ppuvm_exec"] = phase_ppuvm_kernel(rows["ppu_update"]["ms"])
@@ -1685,6 +1981,7 @@ def main() -> int:
     phase_rstdp_program(state, draws, meta)
     phase_vm_loop()
     phase_playback()
+    phase_path_d(counts, graph_a)
 
     kernels = []
     for name, (source, replaces) in SRC.items():

@@ -25,8 +25,14 @@ Backends (``repro/core/anncore.py`` has the same three):
     CPU). Spikes are bit-identical to the oracle: the per-step op trees
     are shared (``adex.integrate_currents`` / ``membrane_step``).
 
-Not ported yet: ``run_routed`` (wafer), fault overlays and telemetry;
-they are not accepted as arguments.
+Fault overlays (``faults=``, ``repro_torch.faults``) and telemetry
+(``telemetry=``, ``repro_torch.obs.trace``) come in at the reference's
+sites: the ``rows`` hook and the fault gauges at the entry of ``run``,
+the ``weights`` hook at the analog read, the ``spikes`` / ``rates`` hooks
+after the neuron window and before the correlation window, the route
+counters in the synaptic window and ``count_run`` at the end. Off (the
+defaults), ``run`` launches what it launched before they existed. Not
+ported yet: ``run_routed`` (wafer).
 """
 from __future__ import annotations
 
@@ -36,6 +42,8 @@ import torch
 
 from repro_torch.configs.bss2 import BSS2Config
 from repro_torch.core import adex, correlation, stp, synapse
+from repro_torch.faults import inject as finject
+from repro_torch.obs import trace as obs_trace
 
 
 class AnnCoreState(NamedTuple):
@@ -58,13 +66,24 @@ class AnnCore:
     ``sparse_mode``: the synaptic route of each Dale half ("auto" |
     "never" | "always", see ``synapse.synaptic_current_window``), with
     the default capacities.
+    ``telemetry``: when True, ``run`` starts a fresh
+    ``obs.trace.Telemetry`` per call unless the caller passes one, and
+    returns it under ``outputs["telemetry"]``; on/off outputs are
+    bit-identical.
+    ``faults``: a ``repro_torch.faults`` overlay (``None`` | ``FaultPlan``
+    | sequence, injection first, blacklist reduction last), put on the
+    core's device here, once (``faults.inject.on_device``); every backend
+    gives the same outputs under it.
     """
 
     def __init__(self, cfg: BSS2Config, inst: Dict, backend: str = "auto",
-                 const_addr: bool = False, sparse_mode: str = "auto"):
+                 const_addr: bool = False, sparse_mode: str = "auto",
+                 telemetry: bool = False, faults=None):
         self.cfg = cfg
         self.inst = inst
         self.device = inst["weight_gain"].device
+        self.telemetry = telemetry
+        self.faults = finject.on_device(faults, self.device)
         if backend == "auto":
             backend = "blocked" if self.device.type == "cuda" else "fused"
         if backend not in ("oracle", "fused", "blocked"):
@@ -104,12 +123,14 @@ class AnnCore:
         """
         cfg = self.cfg
         dt = cfg.dt
+        row_spikes = finject.rows(self.faults, row_spikes)
         eff = stp.efficacy(state.stp, row_spikes, u=cfg.stp_u,
                            scale=self.stp_scale)
         new_stp = stp.update(state.stp, row_spikes, u=cfg.stp_u,
                              recovery=self.stp_recovery)
-        # signed rows: even rows excitatory, odd rows inhibitory (Dale)
-        w = state.syn.weights
+        # signed rows: even rows excitatory, odd rows inhibitory (Dale);
+        # stuck SRAM cells override the stored weight at the analog read
+        w = finject.weights(self.faults, state.syn.weights)
         a = state.syn.addresses
         gain = self.inst["weight_gain"]
         i_exc = synapse.synaptic_current(w[..., 0::2, :], a[..., 0::2, :],
@@ -122,6 +143,9 @@ class AnnCore:
             state.neuron, i_exc * 60.0, i_inh * 60.0,
             self.inst["neuron_params"], dt, adex=cfg.neuron.adex,
             decays=self.decays)
+        # output-driver faults: hot forces 1, dead forces 0, before the
+        # sensors and counters; the membrane keeps integrating unmasked
+        out_spikes = finject.spikes(self.faults, out_spikes)
         new_corr = correlation.update(
             state.corr, row_spikes, out_spikes,
             tau_pre=cfg.neuron.tau_syn_exc,
@@ -132,16 +156,30 @@ class AnnCore:
         return new_state, out_spikes
 
     def run(self, state: AnnCoreState, row_spikes_t, row_addr_t,
-            record_v: bool = False):
+            record_v: bool = False, telemetry=None):
         """Integrate a [T, ..., R] event stream. Returns (state, outputs)
         with outputs = dict(spikes=[T, ..., C], v=[T, ..., C] if
-        record_v)."""
+        record_v, telemetry=Telemetry if counting).
+
+        ``telemetry``: a ``Telemetry`` to add this window's counts to (the
+        experiment threads its own through the trials), or ``None``: a
+        fresh one if the core was built with ``telemetry=True``, else off.
+        """
+        if telemetry is None and self.telemetry:
+            telemetry = obs_trace.init_telemetry(self.device)
+        # dead drivers zero their events before every phase (STP, census,
+        # synaptic product, correlation pre-traces, telemetry); applying
+        # the hook again inside the oracle's ``step`` changes nothing
+        row_spikes_t = finject.rows(self.faults, row_spikes_t)
+        telemetry = obs_trace.count_faults(telemetry, self.faults)
         if self.backend == "oracle":
             return self._run_oracle(state, row_spikes_t, row_addr_t,
-                                    record_v)
-        return self._run_windowed(state, row_spikes_t, row_addr_t, record_v)
+                                    record_v, telemetry)
+        return self._run_windowed(state, row_spikes_t, row_addr_t, record_v,
+                                  telemetry)
 
-    def _run_oracle(self, state, row_spikes_t, row_addr_t, record_v):
+    def _run_oracle(self, state, row_spikes_t, row_addr_t, record_v,
+                    telemetry=None):
         spikes, vs = [], []
         for t in range(row_spikes_t.shape[0]):
             state, out = self.step(state, row_spikes_t[t], row_addr_t[t])
@@ -151,14 +189,20 @@ class AnnCore:
         out = dict(spikes=torch.stack(spikes))
         if record_v:
             out["v"] = torch.stack(vs)
+        if telemetry is not None:
+            # the oracle runs every step through the dense product
+            out["telemetry"] = obs_trace.count_run(telemetry, row_spikes_t,
+                                                   out["spikes"])
         return state, out
 
     def _window_currents(self, state: AnnCoreState, row_spikes_t,
-                         row_addr_t):
+                         row_addr_t, telemetry=None):
         """Phases 1+2 of the fused and blocked backends: the STP efficacy
         trajectory (``stp_scan``: one launch on the card, the step loop on
         the CPU) and the window's synaptic currents, one product per Dale
-        half on strided row views of the store."""
+        half on strided row views of the weights as the crossbar reads
+        them (the store, or the ``weights`` hook's copy of it). Returns
+        ``(stp_state, i_exc_t, i_inh_t, telemetry)``."""
         from repro_torch.kernels.stp_scan import ops as stp_ops
         cfg = self.cfg
         eff_t, r_t = stp_ops.stp_scan(
@@ -168,14 +212,21 @@ class AnnCore:
 
         syn = state.syn
         gain = self.inst["weight_gain"]
+        w = finject.weights(self.faults, syn.weights)
         kw = dict(const_addr=self.const_addr, sparse=self.sparse_mode)
         i_exc_t = synapse.synaptic_current_window(
-            syn.weights[..., 0::2, :], syn.addresses[..., 0::2, :],
-            eff_t[..., 0::2], row_addr_t[..., 0::2], gain, **kw)
+            w[..., 0::2, :], syn.addresses[..., 0::2, :],
+            eff_t[..., 0::2], row_addr_t[..., 0::2], gain,
+            telemetry=telemetry, **kw)
+        if telemetry is not None:
+            i_exc_t, telemetry = i_exc_t
         i_inh_t = synapse.synaptic_current_window(
-            syn.weights[..., 1::2, :], syn.addresses[..., 1::2, :],
-            eff_t[..., 1::2], row_addr_t[..., 1::2], gain, **kw)
-        return s, i_exc_t * 60.0, i_inh_t * 60.0
+            w[..., 1::2, :], syn.addresses[..., 1::2, :],
+            eff_t[..., 1::2], row_addr_t[..., 1::2], gain,
+            telemetry=telemetry, **kw)
+        if telemetry is not None:
+            i_inh_t, telemetry = i_inh_t
+        return s, i_exc_t * 60.0, i_inh_t * 60.0, telemetry
 
     def _neuron_window(self, neuron, rate_counters, i_exc_t, i_inh_t,
                        record_v: bool):
@@ -207,16 +258,21 @@ class AnnCore:
         return neuron, rate_counters, recs
 
     def _run_windowed(self, state: AnnCoreState, row_spikes_t, row_addr_t,
-                      record_v: bool = False):
+                      record_v: bool = False, telemetry=None):
         """Window currents (phases 1+2) -> neuron window (phase 3) ->
-        correlation window (phase 4: the sensors never feed back into the
-        dynamics within a window)."""
+        output-driver fault hooks -> correlation window (phase 4: the
+        sensors never feed back into the dynamics within a window)."""
         cfg = self.cfg
-        new_stp, i_exc_t, i_inh_t = self._window_currents(
-            state, row_spikes_t, row_addr_t)
+        new_stp, i_exc_t, i_inh_t, telemetry = self._window_currents(
+            state, row_spikes_t, row_addr_t, telemetry)
         new_neuron, rate_counters, recs = self._neuron_window(
             state.neuron, state.rate_counters, i_exc_t, i_inh_t, record_v)
         out_spikes_t = recs[0]
+        if self.faults is not None:
+            out_spikes_t = finject.spikes(self.faults, out_spikes_t)
+            rate_counters = finject.rates(self.faults, rate_counters,
+                                          state.rate_counters,
+                                          row_spikes_t.shape[0])
         new_corr = correlation.window(
             state.corr, row_spikes_t, out_spikes_t,
             tau_pre=cfg.neuron.tau_syn_exc, tau_post=cfg.neuron.tau_syn_exc,
@@ -227,4 +283,7 @@ class AnnCore:
         out = dict(spikes=out_spikes_t)
         if record_v:
             out["v"] = recs[1]
+        if telemetry is not None:
+            out["telemetry"] = obs_trace.count_run(telemetry, row_spikes_t,
+                                                   out_spikes_t)
         return new_state, out

@@ -24,14 +24,22 @@ reference's three modes (``repro/core/hybrid.py:521-620``):
 
 All three give the same histories and final state bit for bit. The rule
 runs as Python tensor code (``rule_impl="python"``) or as a PPU-VM program
-(``rule_impl="vm"``, the ``ppuvm_exec`` kernel on the card). Not ported
-yet: wafer mode, faults and telemetry.
+(``rule_impl="vm"``, the ``ppuvm_exec`` kernel on the card).
+
+The verification layer threads through it as in the reference
+(``repro/core/hybrid.py:272-309, 403-441, 608-609``): ``telemetry=True``
+carries an ``obs.trace.Telemetry`` in the state (``ExperimentState
+.tele``) that every trial adds to, replay or not, and ``run_training``
+returns its summary; ``faults=`` injects a ``FaultPlan`` overlay and
+``blacklist=`` a screened ``Blacklist`` on top of it (``chain(faults,
+blacklist.as_faults(...))``, injection first). Not ported yet: wafer mode
+(and with it link blacklists).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +49,8 @@ from repro_torch.configs.bss2 import BSS2, BSS2Config
 from repro_torch.core import synapse
 from repro_torch.core.anncore import AnnCore, AnnCoreState
 from repro_torch.core.ppu import VectorUnit
+from repro_torch.faults.model import chain
+from repro_torch.obs import trace as obs_trace
 from repro_torch.ppuvm import isa, programs
 from repro_torch.verif.mismatch import sample_instance
 
@@ -66,10 +76,11 @@ class RSTDPConfig:
 
 class ExperimentState(NamedTuple):
     """The reference's ``ExperimentState`` without the PRNG key (draws
-    come from a generator or are injected), telemetry or wafer slots."""
+    come from a generator or are injected) or the wafer slot."""
     core: AnnCoreState
     w_signed: torch.Tensor        # PPU-resident signed weights [.., I, C]
     mean_reward: torch.Tensor     # [.., C]
+    tele: Any = None              # obs.trace.Telemetry (None = off)
 
 
 class Draws(NamedTuple):
@@ -79,7 +90,10 @@ class Draws(NamedTuple):
 
 
 def _leaves(tree):
-    """The tensors of a tree of NamedTuples, in order."""
+    """The tensors of a tree of NamedTuples, in order (an empty slot,
+    ``None``, has none)."""
+    if tree is None:
+        return []
     if isinstance(tree, torch.Tensor):
         return [tree]
     return [x for v in tree for x in _leaves(v)]
@@ -90,6 +104,8 @@ def _rebuild(tree, leaves):
     it = iter(leaves)
 
     def build(t):
+        if t is None:
+            return None
         if isinstance(t, torch.Tensor):
             return next(it)
         return type(t)(*(build(v) for v in t))
@@ -139,7 +155,8 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
                     inst: Dict = None, generator: torch.Generator = None,
                     prefix=(), backend: str = "auto",
                     sparse_mode: str = None, rule_impl: str = "python",
-                    device=None):
+                    device=None, telemetry: bool = False, faults=None,
+                    blacklist=None):
     """Build the experiment. Returns ``(init, trial, meta)``.
 
     The machine uses 2 rows per input (exc/inh pair, Dale's law: the PPU
@@ -166,6 +183,18 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
         two differ only by the Q8.8 rounding of dw.
       device: where the experiment runs; ``None`` means ``cuda`` and
         raises without a card.
+      telemetry: carry an ``obs.trace.Telemetry`` in the state
+        (``ExperimentState.tele``): spike and event totals, the route
+        gate's decisions and overflow fallbacks, VM saturation-rail hits,
+        the weight-update histogram and the fault gauges. Off (default)
+        the slot is ``None`` and the trial launches what it did before;
+        on/off histories are bit-identical.
+      faults: a ``repro_torch.faults.FaultPlan`` (or sequence) injected
+        into the emulated silicon (``None`` is the identity).
+      blacklist: a ``repro_torch.faults.Blacklist`` (from
+        ``faults.screen``) applied on top of the faults as the
+        graceful-degradation reduction. Link blacklists need the wafer
+        slice and raise.
 
     ``trial(state, stim, events, xi)`` runs one trial with its draws
     (``stim`` an int or a 0-d int32 tensor on the device);
@@ -196,11 +225,20 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
         if generator is None:
             generator = torch.Generator().manual_seed(7)
         inst = sample_instance(cfg, generator, prefix, device=device)
+    # fault overlay: injection plans first, the blacklist reduction last
+    # (its masks dominate the faults they cover: the exactness contract)
+    overlay = faults
+    if blacklist is not None and blacklist.total:
+        if blacklist.links:
+            raise ValueError("link blacklists need wafer mode, which is not "
+                             "ported yet (ROADMAP.md queue 1, item 4)")
+        overlay = chain(faults, blacklist.as_faults(inst, cfg.cadc_bits))
     # const_addr: every driver row carries exactly one source here (input
     # i -> rows 2i/2i+1, address 0 throughout)
     core_kw = {} if sparse_mode is None else dict(sparse_mode=sparse_mode)
-    core = AnnCore(cfg, inst, backend=backend, const_addr=True, **core_kw)
-    ppu = VectorUnit(cfg, inst)
+    core = AnnCore(cfg, inst, backend=backend, const_addr=True,
+                   faults=overlay, **core_kw)
+    ppu = VectorUnit(cfg, inst, faults=overlay)
     addr = torch.zeros((T, *prefix, 2 * I), dtype=torch.int8, device=device)
     if rule_impl == "vm":
         dw_words = torch.as_tensor(programs.signed_dw_program(
@@ -221,7 +259,8 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
         st = st._replace(syn=_write_signed(st.syn, w0))
         return ExperimentState(
             core=st, w_signed=w0,
-            mean_reward=torch.zeros((*prefix, C), device=device))
+            mean_reward=torch.zeros((*prefix, C), device=device),
+            tele=obs_trace.init_telemetry(device) if telemetry else None)
 
     def _reward(rates, stim):
         """The reference's ``where`` form (``repro/core/hybrid.py:368-
@@ -255,7 +294,7 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
         return new_syn.weights.to(torch.float32), dict(
             mean_reward=mean_r, w_signed=w_signed)
 
-    def _vm_signed_update(cs, state, reward, xi):
+    def _vm_signed_update(cs, state, reward, xi, tele):
         """The §5 rule with its vector part as a PPU-VM program: register
         0 holds the per-row dw; the scalar core applies it to the signed
         float weights, adds the xi walk and rewrites both Dale rows, as
@@ -263,13 +302,14 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
         qc, qa = ppu.read_correlation(cs.corr)
         mod = torch.stack([reward - state.mean_reward, reward])
         cs2, regs = ppu.run_program(cs, dw_words, mod=mod)
+        tele = obs_trace.count_vm(tele, regs)
         dw = regs[0][..., 0::2, :].to(torch.float32) / isa.ONE
         w_signed = torch.clamp(state.w_signed + dw + xi, -45.0, 45.0)
         mean_r = state.mean_reward + ecfg.gamma * (
             reward - state.mean_reward)                         # Eq. 2
         cs2 = cs2._replace(syn=_write_signed(cs2.syn, w_signed))
         return (cs2, dict(mean_reward=mean_r, w_signed=w_signed),
-                dict(causal=qc, acausal=qa))
+                dict(causal=qc, acausal=qa), tele)
 
     def trial(state: ExperimentState, stim, events, xi):
         """One training trial: emulate the window, reward, PPU update.
@@ -279,19 +319,26 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
             if int(stim) not in stim_of:
                 raise ValueError(f"stim must be 0, 1 or 2, got {stim}")
             stim = stim_of[int(stim)]
-        cs, _ = core.run(state.core, events, addr)
+        cs, core_out = core.run(state.core, events, addr,
+                                telemetry=state.tele)
+        tele = core_out.get("telemetry")
         rates = cs.rate_counters
         r = _reward(rates, stim)
+        tele = obs_trace.count_trial(tele, rates)
         if rule_impl == "vm":
-            cs2, rule_state, obs = _vm_signed_update(cs, state, r, xi)
+            cs2, rule_state, obs, tele = _vm_signed_update(cs, state, r, xi,
+                                                           tele)
         else:
             cs2, rule_state, obs = ppu.apply_rule(
                 _signed_rule, cs,
                 dict(mean_reward=state.mean_reward,
                      w_signed=state.w_signed, xi=xi),
                 reward=r)
+        tele = obs_trace.count_dw(tele, state.w_signed,
+                                  rule_state["w_signed"])
         new = ExperimentState(core=cs2, w_signed=rule_state["w_signed"],
-                              mean_reward=rule_state["mean_reward"])
+                              mean_reward=rule_state["mean_reward"],
+                              tele=tele)
         elig = (obs["causal"][..., 0::2, :]
                 - obs["acausal"][..., 0::2, :]).to(torch.float32) / 255.0
         metrics = dict(reward=r, mean_reward=rule_state["mean_reward"],
@@ -325,12 +372,25 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
         """Run ``len(stims)`` trials as ``TrialLoop``'s body: on a CUDA
         device one captured ``TrialGraph`` replayed once a trial, on the
         CPU the body trial by trial. Returns ``(state, hist)`` as ``train``
-        does, bit for bit."""
-        loop = TrialLoop(trial, state, stims, draws)
-        run = TrialGraph(loop).replay if device.type == "cuda" else loop.body
+        does, bit for bit. A later call with as many trials and draws of
+        the same shapes loads its state and draws into the same loop and
+        replays the same graph (``scanned_training.loops``), as the
+        reference's jitted function runs without a retrace."""
+        key = (len(stims), tuple(draws.events.shape), tuple(draws.xi.shape))
+        if key in loops:
+            loop, run = loops[key]
+            loop.load(state, stims, draws)
+        else:
+            loop = TrialLoop(trial, state, stims, draws)
+            run = (TrialGraph(loop).replay if device.type == "cuda"
+                   else loop.body)
+            loops[key] = loop, run
         for _ in range(loop.n):
             run()
-        return loop.state, loop.history()
+        return (_rebuild(loop.state, [x.clone() for x in _leaves(loop.state)]),
+                {k: v.clone() for k, v in loop.history().items()})
+
+    loops = scanned_training.loops = {}
 
     meta = dict(cfg=cfg, ecfg=ecfg, inst=inst, core=core, ppu=ppu,
                 mask_a=mask_a, mask_b=mask_b, even=even, train=train,
@@ -363,7 +423,9 @@ class TrialLoop:
         if draws.events.shape[0] < self.n or draws.xi.shape[0] < self.n:
             raise ValueError(f"TrialLoop: draws for {draws.events.shape[0]} "
                              f"trials, {self.n} stimuli")
-        self.events, self.xi = draws.events.to(dev), draws.xi.to(dev)
+        # the loop's own copies: ``load`` writes a later run's draws here
+        self.events = draws.events.to(dev, copy=True)
+        self.xi = draws.xi.to(dev, copy=True)
         self.step = torch.zeros(1, dtype=torch.int64, device=dev)
         self.hist = None
 
@@ -405,6 +467,18 @@ class TrialLoop:
             d.copy_(s)
         self.step.zero_()
 
+    def load(self, state: ExperimentState, stims, draws: Draws):
+        """Another run of as many trials through the same tensors: ``state``
+        becomes the given state, ``stims`` and ``draws`` (the same shapes)
+        are copied into the loop's, and the loop is reset."""
+        if len(_leaves(state)) != len(_leaves(self.state)):
+            raise ValueError("TrialLoop.load: the state has other fields")
+        self.initial = state
+        self.stims.copy_(torch.as_tensor(stims, dtype=torch.int32))
+        self.events.copy_(draws.events)
+        self.xi.copy_(draws.xi)
+        self.reset()
+
     def history(self):
         """The metrics stacked [n_trials, ...] and the stimuli."""
         return dict(self.hist, stim=self.stims)
@@ -429,6 +503,8 @@ class TrialGraph:
     counts do not move under replay). ``pool_bytes`` is what the capture
     added to the allocator's reserved memory: the graph's private pool,
     which holds the trial's intermediate tensors."""
+
+    captures = 0        # graphs captured in this process
 
     def __init__(self, loop: TrialLoop):
         dev = loop.step.device
@@ -460,6 +536,7 @@ class TrialGraph:
                 torch.cuda.set_sync_debug_mode(mode)
         self.launches = {k: v - counted[k] for k, v in kernels.LAUNCHES.items()}
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        TrialGraph.captures += 1
 
     def replay(self):
         self.graph.replay()
@@ -473,7 +550,8 @@ def make_scanned_training(meta):
     (``TrialGraph``) and replays it once a trial; a capture that fails
     raises. On the CPU, which has no graphs, it runs the same trial body
     trial by trial. (The reference jits here; eager PyTorch has nothing
-    to compile, so the capture happens at each call.)"""
+    to compile: the capture happens at the first call of a shape, and
+    later calls replay it.)"""
     return meta["scanned_training"]
 
 
@@ -486,10 +564,14 @@ def run_training(n_trials: int = 300, ecfg: RSTDPConfig = RSTDPConfig(),
                  seed: int = 0, cfg: BSS2Config = None, fused: bool = True,
                  scan: bool = None, backend: str = "auto",
                  sparse_mode: str = None, rule_impl: str = "python",
-                 device=None, inst: Dict = None, draws: Draws = None):
+                 device=None, inst: Dict = None, draws: Draws = None,
+                 telemetry: bool = False, faults=None, blacklist=None):
     """Full §5 experiment. Returns ``(out, state, meta)``: ``out`` the
     metrics history as numpy arrays stacked [n_trials, ...] plus
-    ``w_signed_final``; ``state`` the final ``ExperimentState``.
+    ``w_signed_final`` (and, with ``telemetry=True``, the counters'
+    ``obs.trace.summary`` under ``"telemetry"``); ``state`` the final
+    ``ExperimentState``. ``telemetry`` / ``faults`` / ``blacklist`` go to
+    ``make_experiment``.
 
     Modes, as the reference's (``scan=None`` means ``scan=fused``):
       fused=True, scan=True   one device dispatch: ``make_scanned_training``
@@ -508,7 +590,8 @@ def run_training(n_trials: int = 300, ecfg: RSTDPConfig = RSTDPConfig(),
     init, trial, meta = make_experiment(
         cfg=cfg, ecfg=ecfg, inst=inst,
         generator=torch.Generator().manual_seed(seed), backend=backend,
-        sparse_mode=sparse_mode, rule_impl=rule_impl, device=device)
+        sparse_mode=sparse_mode, rule_impl=rule_impl, device=device,
+        telemetry=telemetry, faults=faults, blacklist=blacklist)
     stims = stimuli(n_trials)
     if draws is None:
         draws = meta["draw"](torch.Generator().manual_seed(seed + 1), stims)
@@ -529,6 +612,8 @@ def run_training(n_trials: int = 300, ecfg: RSTDPConfig = RSTDPConfig(),
         hist["stim"] = torch.as_tensor(stims, dtype=torch.int32)
     out = {k: v.cpu().numpy() for k, v in hist.items()}
     out["w_signed_final"] = state.w_signed.cpu().numpy()
+    if telemetry:
+        out["telemetry"] = obs_trace.summary(state.tele)
     return out, state, meta
 
 

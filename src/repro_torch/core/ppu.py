@@ -8,7 +8,10 @@ the fixed-function standard rule ``apply_rstdp`` (the ``ppu_update``
 kernel), and the PPU-VM: ``run_program`` / ``run_program_fixed`` run an
 uploaded instruction-word program (``repro_torch.ppuvm``, the
 ``ppuvm_exec`` kernel on the card) and ``apply_rstdp_program`` runs the
-R-STDP rule as one. Not ported yet: the fault hooks.
+R-STDP rule as one. A fault overlay (``faults=``) adds the ``cadc`` hook
+to every CADC read (``read_correlation``, and inside the ``ppu_update``
+kernel of ``apply_rstdp``) and the ``store`` hook to every PPU-VM weight
+store (``run_program_fixed``), as ``repro/core/ppu.py`` places them.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 
 from repro_torch.configs.bss2 import BSS2Config
 from repro_torch.core import cadc, rules, synapse
+from repro_torch.faults import inject as finject
 from repro_torch.ppuvm import isa
 
 
@@ -29,9 +33,20 @@ def _to_fixed(x):
 
 
 class VectorUnit:
-    def __init__(self, cfg: BSS2Config, inst: Dict):
+    """The vector unit bound to a config and an instance. ``faults``: a
+    ``repro_torch.faults`` overlay, put on the instance's device here,
+    once; ``None`` is the identity on every hook."""
+
+    def __init__(self, cfg: BSS2Config, inst: Dict, faults=None):
         self.cfg = cfg
         self.inst = inst
+        device = inst["cadc_offset"].device
+        self.faults = finject.on_device(faults, device)
+        # the overlay's CADC hooks as one clamp-shift per column, the form
+        # the ppu_update kernel applies after its rounding (None: no CADC
+        # fault, the kernel as without faults)
+        self._cadc_map = finject.cadc_map(self.faults, device,
+                                          2 ** cfg.cadc_bits - 1)
 
     # -- observable reads ------------------------------------------------
     def read_correlation(self, corr_state):
@@ -42,7 +57,7 @@ class VectorUnit:
                            bits=self.cfg.cadc_bits, in_scale=8.0)
         qa = cadc.digitize(corr_state.a_acausal, offset=oc, gain=gc,
                            bits=self.cfg.cadc_bits, in_scale=8.0)
-        return qc, qa
+        return finject.cadc(self.faults, qc, qa, 2 ** self.cfg.cadc_bits - 1)
 
     def read_rates(self, state):
         return state.rate_counters
@@ -81,6 +96,12 @@ class VectorUnit:
         drawn from ``generator``. Returns ``(new_state,
         dict(mean_reward=...), elig)``; observables are reset like
         ``apply_rule``.
+
+        Under a fault overlay with CADC faults the kernel applies them to
+        both codes after its rounding and before the eligibility, which is
+        what the reference's ``ref`` branch computes through
+        ``read_correlation`` (its Pallas branch skips the hook: ROADMAP.md
+        queue 3).
         """
         from repro_torch.kernels.ppu_update import ops as ppu_ops
         mean_r = rule_state["mean_reward"]
@@ -95,7 +116,8 @@ class VectorUnit:
         w_q, elig = ppu_ops.rstdp_update(
             w, state.corr.a_causal, state.corr.a_acausal,
             self.inst["cadc_offset"], self.inst["cadc_gain"], mod, xi,
-            eta=eta, cadc_max=2 ** self.cfg.cadc_bits - 1)
+            eta=eta, cadc_max=2 ** self.cfg.cadc_bits - 1,
+            cadc_map=self._cadc_map)
         new_state = self._reset_observables(
             state._replace(syn=state.syn._replace(weights=w_q)))
         return new_state, dict(mean_reward=mean_r_new), elig
@@ -127,6 +149,7 @@ class VectorUnit:
         w_new, regs = interp.run_program(
             words, state.syn.weights, qc, qa, state.rate_counters, mod_fp,
             noise_fp)
+        w_new = finject.store(self.faults, w_new)
         syn = state.syn._replace(weights=w_new.to(torch.int8))
         return self._reset_observables(state._replace(syn=syn)), regs
 

@@ -96,12 +96,15 @@ def _sparse_window(weights, addresses, row_events_t, event_addr_t, gain,
 
 
 def _gated_window(weights, addresses, row_events_t, event_addr_t, gain,
-                  const_addr, max_events, k_cap):
+                  const_addr, max_events, k_cap, telemetry=None):
     """Both routes under the device's census, the reference's ``lax.cond``
     (``repro/core/synapse.py:250-257``) with no read back to the host:
     the census kernel writes the flag and counts the route
     (``route_counts``), then the sparse kernel runs where the window fits
-    and the dense kernel where it does not, into one buffer."""
+    and the dense kernel where it does not, into one buffer. With
+    ``telemetry`` the decision is counted from the census kernel's own
+    output (``(fits, n_events, k_max)``, read on the device) and the
+    return value is ``(currents, telemetry)``."""
     from repro_torch.kernels.census import ops as census_ops
     from repro_torch.kernels.synray import ops as synray_ops
     from repro_torch.kernels.synray_sparse import ops as sparse_ops
@@ -115,7 +118,11 @@ def _gated_window(weights, addresses, row_events_t, event_addr_t, gain,
         k_cap=k_cap, flag=flag, out=out)
     synray_ops.synaptic_current(ev, event_addr_t, weights, addresses,
                                 const_addr=const_addr, flag=flag, out=out)
-    return out * gain
+    if telemetry is None:
+        return out * gain
+    from repro_torch.obs import trace as obs_trace
+    return out * gain, obs_trace.count_gate(telemetry, flag[0], flag[1],
+                                            flag[2])
 
 
 # The gate's decisions per device, int64 [dense, sparse] on the device:
@@ -185,7 +192,7 @@ def window_route(row_events_t, C: int, *, const_addr: bool = False,
 def synaptic_current_window(weights, addresses, row_events_t, event_addr_t,
                             gain, const_addr: bool = False,
                             sparse: str = "auto", max_events: int = None,
-                            k_cap: int = None):
+                            k_cap: int = None, telemetry=None):
     """Whole-window synaptic currents: [T, ..., R] events -> [T, ..., C].
 
     Weights and addresses are constant between PPU writes, so the per-step
@@ -204,18 +211,40 @@ def synaptic_current_window(weights, addresses, row_events_t, event_addr_t,
     ``SPARSE_THRESHOLD_CONST_ADDR`` with ``const_addr``, sizes the default
     capacities (``max_events`` about threshold * T * R records, ``k_cap``
     per step); both are overridable.
+
+    ``telemetry`` (``repro_torch.obs.trace.Telemetry``, or ``None`` = off)
+    counts the routing decision (``repro/core/synapse.py:155-262``): a
+    static route with ``count_route``, a census-gated one with
+    ``count_gate`` on the census the gate took (on the card the census
+    kernel's own output tensor, read on the device). With telemetry the
+    return value is ``(currents, telemetry)``; the currents are the same
+    bits either way.
     """
     route, max_events, k_cap = window_route(
         row_events_t, weights.shape[-1], const_addr=const_addr,
         sparse=sparse, max_events=max_events, k_cap=k_cap)
     if route == "gate":
         return _gated_window(weights, addresses, row_events_t, event_addr_t,
-                             gain, const_addr, max_events, k_cap)
+                             gain, const_addr, max_events, k_cap, telemetry)
     if route == "sparse":
-        return _sparse_window(weights, addresses, row_events_t, event_addr_t,
-                              gain, max_events, k_cap)
-    return _dense_window(weights, addresses, row_events_t, event_addr_t,
-                         gain, const_addr)
+        i = _sparse_window(weights, addresses, row_events_t, event_addr_t,
+                           gain, max_events, k_cap)
+    else:
+        i = _dense_window(weights, addresses, row_events_t, event_addr_t,
+                          gain, const_addr)
+    if telemetry is None:
+        return i
+    from repro_torch.obs import trace as obs_trace
+    T, R, C = row_events_t.shape[0], row_events_t.shape[-1], weights.shape[-1]
+    if sparse != "auto" or T * R * C < SPARSE_MIN_DENSE_WORK:
+        return i, obs_trace.count_route(telemetry, route == "sparse")
+    # the CPU's gate decided on the host from the plain census: the same
+    # census again for the counters (no route counted twice)
+    from repro_torch.kernels.census import ops as census_ops
+    census = census_ops.census(row_events_t.to(torch.float32), max_events,
+                               k_cap)
+    return i, obs_trace.count_gate(telemetry, census[0], census[1],
+                                   census[2])
 
 
 def quantize_weight(w_float):

@@ -1,6 +1,7 @@
 // ppu_update: the PPU vector unit's fixed-function R-STDP update on Hopper.
 //
 //   qc = clip(rint(a_causal * (gain * 8) + off), 0, 255), qa likewise
+//   [CADC faults] qc = min(max(qc + fa, flo), fhi), qa likewise
 //   elig = (qc - qa) * (1 / 255)
 //   w' = clip(rint(w + (eta * mod) * elig + xi), 0, 63) as int8
 //
@@ -17,6 +18,13 @@
 // Design: one thread per synapse, neighbouring threads on neighbouring
 // columns, so every plane is read and written in coalesced runs; the
 // per-column operands are [N, C] rows read through the cache.
+//
+// CADC faults (repro_torch/faults/inject.py::cadc_map): a fault overlay's
+// chain of code offsets and stuck codes, folded per column into one
+// clamp-shift (fa, flo, fhi) [N, C], is applied to both codes after their
+// rounding and before the eligibility, as the reference's read_correlation
+// hook does. Whole numbers in float32, so it is exact. Without faults the
+// kernel is instantiated without it and runs as before.
 //
 // Exactness: built with -fmad=false, so no multiply and add contract into
 // one FMA and every operation rounds where PyTorch's eager kernels round;
@@ -35,11 +43,14 @@ namespace {
 
 constexpr int THREADS = 256;
 
+template <bool FAULTS>
 __global__ void __launch_bounds__(THREADS)
 ppu_update_kernel(const int8_t* __restrict__ w, const float* __restrict__ ac,
                   const float* __restrict__ aa, const float* __restrict__ off,
                   const float* __restrict__ gain,
                   const float* __restrict__ mod, const float* __restrict__ xi,
+                  const float* __restrict__ fa, const float* __restrict__ flo,
+                  const float* __restrict__ fhi,
                   int8_t* __restrict__ w_out, float* __restrict__ elig_out,
                   long long total, int RC, int C, float eta, float cadc_scale,
                   float inv_max, float cadc_max, float wmax) {
@@ -50,8 +61,13 @@ ppu_update_kernel(const int8_t* __restrict__ w, const float* __restrict__ ac,
     const long long nc = n * C + c;
     const float g = gain[nc] * cadc_scale;
     const float o = off[nc];
-    const float qc = fminf(fmaxf(rintf(ac[i] * g + o), 0.0f), cadc_max);
-    const float qa = fminf(fmaxf(rintf(aa[i] * g + o), 0.0f), cadc_max);
+    float qc = fminf(fmaxf(rintf(ac[i] * g + o), 0.0f), cadc_max);
+    float qa = fminf(fmaxf(rintf(aa[i] * g + o), 0.0f), cadc_max);
+    if (FAULTS) {
+      const float a = fa[nc], lo = flo[nc], hi = fhi[nc];
+      qc = fminf(fmaxf(qc + a, lo), hi);
+      qa = fminf(fmaxf(qa + a, lo), hi);
+    }
     const float e = (qc - qa) * inv_max;
     const float step = (eta * mod[nc]) * e;
     float wn = (float)w[i] + step;
@@ -65,7 +81,9 @@ ppu_update_kernel(const int8_t* __restrict__ w, const float* __restrict__ ac,
 
 extern "C" int ppu_update_launch(const void* w, const void* ac, const void* aa,
                                  const void* off, const void* gain,
-                                 const void* mod, const void* xi, void* w_out,
+                                 const void* mod, const void* xi,
+                                 const void* fa, const void* flo,
+                                 const void* fhi, void* w_out,
                                  void* elig, int N, int R, int C, float eta,
                                  float cadc_scale, float inv_max,
                                  float cadc_max, float wmax, void* stream) {
@@ -73,9 +91,13 @@ extern "C" int ppu_update_launch(const void* w, const void* ac, const void* aa,
   if (total == 0) return 0;
   long long blocks = (total + THREADS - 1) / THREADS;
   if (blocks > 65535LL * 32) blocks = 65535LL * 32;
-  ppu_update_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  const bool faults = fa != nullptr;
+  if (faults != (flo != nullptr) || faults != (fhi != nullptr)) return -1;
+  auto kernel = faults ? ppu_update_kernel<true> : ppu_update_kernel<false>;
+  kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
       (const int8_t*)w, (const float*)ac, (const float*)aa, (const float*)off,
-      (const float*)gain, (const float*)mod, (const float*)xi, (int8_t*)w_out,
+      (const float*)gain, (const float*)mod, (const float*)xi,
+      (const float*)fa, (const float*)flo, (const float*)fhi, (int8_t*)w_out,
       (float*)elig, total, R * C, C, eta, cadc_scale, inv_max, cadc_max, wmax);
   return (int)cudaGetLastError();
 }

@@ -73,9 +73,10 @@ ARGTYPES = {
     # ev, T, N, R, ev strides (t, n, r), max_events, k_cap, part, ticket,
     # out, routes, stream
     "census_launch": [_VP] + [_I] * 3 + [_LL] * 3 + [_I] * 2 + [_VP] * 5,
-    # w, a_causal, a_acausal, offset, gain, mod, xi, w_out, elig, N, R, C,
-    # eta, cadc_scale, 1/cadc_max, cadc_max, wmax, stream
-    "ppu_update_launch": [_VP] * 9 + [_I] * 3 + [_F] * 5 + [_VP],
+    # w, a_causal, a_acausal, offset, gain, mod, xi, CADC fault a, lo, hi
+    # (or three nulls), w_out, elig, N, R, C, eta, cadc_scale, 1/cadc_max,
+    # cadc_max, wmax, stream
+    "ppu_update_launch": [_VP] * 12 + [_I] * 3 + [_F] * 5 + [_VP],
     # words, n_words, w, w_bytes, qc, qa, rates, mod, n_mod, noise, w_out,
     # regs, N, R, C, stream
     "ppuvm_exec_launch": [_VP, _I, _VP, _I] + [_VP] * 4 + [_I]

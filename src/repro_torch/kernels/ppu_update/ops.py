@@ -3,10 +3,10 @@ vector unit's fixed-function R-STDP inner loop (CADC read, eligibility,
 weight step, saturating 6-bit store) over [..., R, C] synapses.
 
 An instance prefix folds into one leading N axis; the per-column CADC
-offset and gain and the modulator broadcast to [N, C]. CPU tensors run
-the plain version (``ref.py``); CUDA tensors launch the kernel, built
-without multiply-add contraction, which repeats the plain version's
-operations in order and matches it bit for bit.
+offset and gain, the modulator and a fault overlay's CADC map broadcast
+to [N, C]. CPU tensors run the plain version (``ref.py``); CUDA tensors
+launch the kernel, built without multiply-add contraction, which repeats
+the plain version's operations in order and matches it bit for bit.
 """
 from __future__ import annotations
 
@@ -20,15 +20,17 @@ from repro_torch.kernels.ppu_update.ref import reciprocal, rstdp_update_ref
 
 def rstdp_update(weights, a_causal, a_acausal, cadc_offset, cadc_gain, mod,
                  xi, *, eta: float, cadc_scale: float = 8.0, wmax: int = 63,
-                 cadc_max: int = 255):
+                 cadc_max: int = 255, cadc_map=None):
     """weights [..., R, C] int8; a_causal/a_acausal/xi [..., R, C]
     float32; cadc_offset/cadc_gain/mod [..., C] float32 (broadcast to the
-    prefix). Returns (new weights int8, eligibility float32)."""
+    prefix); ``cadc_map``: ``None`` or the CADC faults' float32 ``(a, lo,
+    hi)`` [..., C] (see ``ref.py``). Returns (new weights int8,
+    eligibility float32)."""
     if weights.device.type == "cpu":
         return rstdp_update_ref(weights, a_causal, a_acausal, cadc_offset,
                                 cadc_gain, mod, xi, eta=eta,
                                 cadc_scale=cadc_scale, wmax=wmax,
-                                cadc_max=cadc_max)
+                                cadc_max=cadc_max, cadc_map=cadc_map)
     from repro_torch.kernels import _build
     dev = weights.device
     if dev.type != "cuda":
@@ -38,6 +40,8 @@ def rstdp_update(weights, a_causal, a_acausal, cadc_offset, cadc_gain, mod,
     N = math.prod(prefix)
     planes = dict(a_causal=a_causal, a_acausal=a_acausal, xi=xi)
     cols = dict(cadc_offset=cadc_offset, cadc_gain=cadc_gain, mod=mod)
+    if cadc_map is not None:
+        cols.update(zip(("fault_a", "fault_lo", "fault_hi"), cadc_map))
     if weights.dtype != torch.int8 or not weights.is_contiguous():
         raise ValueError("ppu_update: weights must be contiguous int8")
     for name, x in planes.items():
@@ -55,7 +59,10 @@ def rstdp_update(weights, a_causal, a_acausal, cadc_offset, cadc_gain, mod,
     err = _build.lib().ppu_update_launch(
         weights.data_ptr(), a_causal.data_ptr(), a_acausal.data_ptr(),
         cols["cadc_offset"].data_ptr(), cols["cadc_gain"].data_ptr(),
-        cols["mod"].data_ptr(), xi.data_ptr(), w_out.data_ptr(),
+        cols["mod"].data_ptr(), xi.data_ptr(),
+        *((cols[k].data_ptr() if cadc_map is not None else None)
+          for k in ("fault_a", "fault_lo", "fault_hi")),
+        w_out.data_ptr(),
         elig.data_ptr(), N, R, C, float(eta), float(cadc_scale),
         reciprocal(cadc_max), float(cadc_max), float(wmax), stream)
     _build.check(err, "ppu_update")

@@ -20,15 +20,21 @@ def reciprocal(cadc_max: int) -> float:
 
 def rstdp_update_ref(weights, a_causal, a_acausal, cadc_offset, cadc_gain,
                      mod, xi, *, eta: float, cadc_scale: float = 8.0,
-                     wmax: int = 63, cadc_max: int = 255):
+                     wmax: int = 63, cadc_max: int = 255, cadc_map=None):
     """weights [..., R, C] int8; a_causal/a_acausal/xi [..., R, C] float32;
-    cadc_offset/cadc_gain/mod [..., C] float32. Returns (new weights int8,
-    eligibility float32)."""
+    cadc_offset/cadc_gain/mod [..., C] float32; ``cadc_map``: ``None`` or
+    the CADC faults as float32 ``(a, lo, hi)`` [..., C]
+    (``faults.inject.cadc_map``), each code then ``min(max(q + a, lo),
+    hi)``. Returns (new weights int8, eligibility float32)."""
     off = cadc_offset.unsqueeze(-2)
     g = cadc_gain.unsqueeze(-2) * cadc_scale
 
     def digitize(a):
-        return torch.clamp(torch.round(a * g + off), 0.0, float(cadc_max))
+        q = torch.clamp(torch.round(a * g + off), 0.0, float(cadc_max))
+        if cadc_map is not None:
+            fa, lo, hi = (x.unsqueeze(-2) for x in cadc_map)
+            q = torch.minimum(torch.maximum(q + fa, lo), hi)
+        return q
 
     elig = (digitize(a_causal) - digitize(a_acausal)) * reciprocal(cadc_max)
     w_new = weights.to(torch.float32) + (eta * mod).unsqueeze(-2) * elig + xi

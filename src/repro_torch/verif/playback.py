@@ -16,8 +16,11 @@ interchangeable. Here the two interchangeable backends are:
 trace* (timestamped read-back records, like the FPGA's trace memory);
 ``compare_traces`` diffs two traces — that is the co-simulation check.
 The instruction constructors are numpy, as in the reference
-(``repro/verif/playback.py``); its ``ppu_executor``, ``telemetry`` and
-``faults`` options are not ported.
+(``repro/verif/playback.py``). ``telemetry=True`` accumulates the
+counters of ``repro_torch.obs.trace`` over a fast-backend program;
+``faults=`` injects the same ``repro_torch.faults`` overlay into either
+backend, so the co-simulation check extends to faulted silicon. The
+reference's ``ppu_executor`` option is not ported (the port has one VM).
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.bss2 import BSS2Config
 from repro_torch.core.anncore import AnnCore
 from repro_torch.core.ppu import VectorUnit
+from repro_torch.faults.model import as_plans
+from repro_torch.obs import trace as obs_trace
 from repro_torch.ppuvm import isa
 from repro_torch.verif.mismatch import (PHASE_OF_KIND, first_divergence,
                                         ideal_instance)
@@ -120,16 +125,29 @@ class FastBackend:
     raises without a card). A program uploaded with ``WRITE_PPU_PROGRAM``
     is put on the device once; each ``PPU_RUN`` runs it through
     ``VectorUnit.run_program_fixed`` (the ``ppuvm_exec`` kernel on the
-    card)."""
+    card).
 
-    def __init__(self, cfg: BSS2Config, inst=None, device=None):
+    ``telemetry=True`` accumulates the counters over the whole program
+    (emulation windows, route decisions, VM runs and saturation-rail
+    hits), read with ``telemetry_summary()``; the trace is bit-identical
+    either way. ``faults``: a ``repro_torch.faults`` overlay injected into
+    the core and the vector unit."""
+
+    def __init__(self, cfg: BSS2Config, inst=None, device=None,
+                 telemetry: bool = False, faults=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.inst = inst or ideal_instance(cfg, device=self.device)
-        self.core = AnnCore(cfg, self.inst)
+        self.core = AnnCore(cfg, self.inst, faults=faults)
         self.state = self.core.init_state()
-        self._ppu = VectorUnit(cfg, self.inst)
+        self._ppu = VectorUnit(cfg, self.inst, faults=faults)
         self._ppu_prog = None
+        self.tele = (obs_trace.init_telemetry(self.device) if telemetry
+                     else None)
+
+    def telemetry_summary(self):
+        """Host summary of the accumulated counters (``None`` when off)."""
+        return obs_trace.summary(self.tele)
 
     def _t(self, x):
         return torch.as_tensor(np.asarray(x), device=self.device)
@@ -152,7 +170,9 @@ class FastBackend:
                     ev = torch.zeros(shape, device=self.device)
                     ad = torch.zeros(shape, dtype=torch.int8,
                                      device=self.device)
-                self.state, out = self.core.run(self.state, ev, ad)
+                self.state, out = self.core.run(self.state, ev, ad,
+                                                telemetry=self.tele)
+                self.tele = out.get("telemetry")
                 t += ev.shape[0]
                 trace.append((t, "SPIKES", _np(out["spikes"])))
             elif ins.op == "READ_RATES":
@@ -170,9 +190,12 @@ class FastBackend:
                     raise ValueError("PPU_RUN before WRITE_PPU_PROGRAM")
                 mod_fp, noise_fp = (None if x is None else self._t(x)
                                     for x in ins.payload)
-                self.state, _ = self._ppu.run_program_fixed(
+                self.tele = obs_trace.count_trial(self.tele,
+                                                  self.state.rate_counters)
+                self.state, regs = self._ppu.run_program_fixed(
                     self.state, self._ppu_prog, mod_fp=mod_fp,
                     noise_fp=noise_fp)
+                self.tele = obs_trace.count_vm(self.tele, regs)
                 trace.append((t, "PPU_W", _np(self.state.syn.weights)))
             else:
                 raise ValueError(ins.op)
@@ -182,9 +205,13 @@ class FastBackend:
 class RefBackend:
     """Independent straight-loop NumPy implementation of the same machine
     (LIF + exp term, STP, address-matched synapses, correlation sensors),
-    the reference's ``RefBackend`` without its fault hooks."""
+    a copy of the reference's ``RefBackend``.
 
-    def __init__(self, cfg: BSS2Config, inst=None):
+    ``faults`` applies the same overlay of host ``FaultPlan``s as the fast
+    backend, re-implemented as straight NumPy at the same hook sites."""
+
+    def __init__(self, cfg: BSS2Config, inst=None, faults=None):
+        self.faults = as_plans(faults)
         self.cfg = cfg
         inst = inst or ideal_instance(cfg, device="cpu")
         self.p = {k: _np(v) for k, v in inst["neuron_params"].items()}
@@ -218,6 +245,9 @@ class RefBackend:
     def _step(self, ev, ad):
         cfg, p, dt = self.cfg, self.p, self.cfg.dt
         from repro_torch.core.stp import CALIB_STEP, CALIB_BITS
+        for fp in self.faults:                 # dead synapse drivers
+            if fp.dead_rows is not None:
+                ev = ev * (~fp.dead_rows).astype(np.float32)
         trim = ((self.stp_calib.astype(np.float32) - 2 ** (CALIB_BITS - 1))
                 * np.float32(CALIB_STEP))
         eff = np.clip(cfg.stp_u * self.stp_r * (1.0 + self.stp_offset - trim),
@@ -226,11 +256,17 @@ class RefBackend:
             self.stp_r + (1 - self.stp_r) * (1 - np.exp(-dt / cfg.stp_tau_rec))
             - cfg.stp_u * self.stp_r * ev, 0.0, 1.0)
 
+        w_read = self.w
+        for fp in self.faults:                 # stuck cells at the read
+            if fp.stuck_w_mask is not None:
+                w_read = np.where(fp.stuck_w_mask,
+                                  fp.stuck_w_val.astype(w_read.dtype),
+                                  w_read)
         i_cols = np.zeros((2, cfg.n_cols))
         for half in (0, 1):
             rows = slice(half, None, 2)
             match = (self.addr[rows] == ad[rows][:, None])
-            weff = self.w[rows].astype(np.float32) * match
+            weff = w_read[rows].astype(np.float32) * match
             i_cols[half] = (weff * eff[rows][:, None]).sum(0) * self.gain
 
         de = np.exp(-dt / p["tau_syn_exc"])
@@ -261,6 +297,11 @@ class RefBackend:
                                np.maximum(self.refrac - dt, 0.0))
         self.v, self.wad = v, wad
         sp = spikes.astype(np.float32)
+        for fp in self.faults:                 # output-driver faults: the
+            if fp.hot_neurons is not None:     # membrane above integrated
+                sp = np.where(fp.hot_neurons, np.float32(1.0), sp)
+            if fp.dead_neurons is not None:    # unmasked, like AnnCore
+                sp = sp * (~fp.dead_neurons).astype(np.float32)
 
         # correlation sensors (nominal scalar tau, as in AnnCore.step)
         tau = cfg.neuron.tau_syn_exc
@@ -277,7 +318,14 @@ class RefBackend:
         """NumPy twin of cadc.digitize as used by VectorUnit (in_scale=8)."""
         lsb = 2 ** self.cfg.cadc_bits - 1
         code = a * (self.cadc_gain[None, :] * 8.0) + self.cadc_offset[None, :]
-        return np.clip(np.round(code), 0, lsb).astype(np.int32)
+        q = np.clip(np.round(code), 0, lsb).astype(np.int32)
+        for fp in self.faults:                 # corrupted CADC columns
+            if fp.cadc_code_offset is not None:
+                q = np.clip(q + fp.cadc_code_offset[None, :], 0, lsb)
+            if fp.cadc_stuck_mask is not None:
+                q = np.where(fp.cadc_stuck_mask[None, :],
+                             fp.cadc_stuck_code[None, :], q)
+        return q
 
     def _ppu_run(self, mod_fp, noise_fp):
         from repro_torch.ppuvm.interp import run_program_np
@@ -288,6 +336,11 @@ class RefBackend:
         qa = self._cadc_digitize(self.a_acausal)
         w_new, _ = run_program_np(self.ppu_prog, self.w.astype(np.int32),
                                   qc, qa, self.rates, mod_fp, noise_fp)
+        for fp in self.faults:                 # store-path faults
+            if fp.store_flip is not None:
+                w_new = w_new ^ fp.store_flip.astype(w_new.dtype)
+            if fp.store_zero is not None:
+                w_new = np.where(fp.store_zero, 0, w_new)
         self.w = w_new.astype(np.int8)
         # post-read observable reset, like VectorUnit._reset_observables
         self.rates = np.zeros_like(self.rates)
@@ -331,14 +384,17 @@ class RefBackend:
 
 
 def execute(program: List[Instr], backend: str, cfg: BSS2Config, inst=None,
-            device=None):
+            device=None, telemetry: bool = False, faults=None):
     """Run a playback program. ``backend`` is "fast" (the port's machine
     model on ``device``; ``None`` means ``cuda``) or "ref" (independent
-    NumPy loop, always on the host)."""
+    NumPy loop, always on the host). ``telemetry`` counts on the fast
+    backend (the reference stays uninstrumented by design); ``faults``
+    injects the same overlay into either backend."""
     if backend == "fast":
-        return FastBackend(cfg, inst, device=device).execute(program)
+        return FastBackend(cfg, inst, device=device, telemetry=telemetry,
+                           faults=faults).execute(program)
     if backend == "ref":
-        return RefBackend(cfg, inst).execute(program)
+        return RefBackend(cfg, inst, faults=faults).execute(program)
     raise ValueError(f"unknown backend {backend!r}")
 
 

@@ -27,7 +27,13 @@ and a full-width no-stimulus trial with no read back to the host. The
 trial captured as a CUDA graph (``TrialGraph``) and replayed gives the
 eager trials' histories, final state and device route counts bit for
 bit, for both rule implementations; a trial that reads the host fails to
-capture and raises.
+capture and raises. The verification layer: telemetry on and off
+bit-equal on full-width graph replays (faulted too), their counters equal
+to eager trials'; a faulted window per synaptic route equal to the CPU's
+(spikes up to flips at threshold); the store hook after ``ppuvm_exec``
+and ``ppu_update`` with a CADC fault map bit-equal to the CPU; ``screen``
+and ``calibrate_stp`` equal to the CPU's; a host fault plan inside a
+capture raises; a second scanned run replays its graph.
 """
 import dataclasses
 import math
@@ -37,12 +43,17 @@ import pytest
 import torch
 
 import _torch_ppuvm as vm_corpus
-from _torch_parity import CORR_EDGE_CASES, close, corr_edge_operands, t
+from _torch_parity import (CORR_EDGE_CASES, assert_spikes_match, close,
+                           corr_edge_operands, t)
 from repro_torch import kernels
 from repro_torch.configs.bss2 import BSS2
 from repro_torch.core import adex, events
 from repro_torch.core import hybrid as th
 from repro_torch.core import synapse
+from repro_torch.core.anncore import AnnCore
+from repro_torch.core.ppu import VectorUnit
+from repro_torch.faults import (Blacklist, FaultPlan, cadc_zero_code, chain,
+                                inject, sample_fault_plan, screen)
 from repro_torch.kernels.census import ops as census_ops
 from repro_torch.kernels.census.ref import census_ref
 from repro_torch.kernels.corr import ops as corr_ops
@@ -55,12 +66,15 @@ from repro_torch.kernels.ppuvm_exec import ops as vm_ops
 from repro_torch.kernels.ppuvm_exec.ref import run_program_ref
 from repro_torch.kernels.stp_scan import ops as stp_ops
 from repro_torch.kernels.stp_scan.ref import stp_scan_ref
-from repro_torch.ppuvm import isa
+from repro_torch.obs import report as obs_report
+from repro_torch.obs import trace as obs_trace
+from repro_torch.ppuvm import isa, programs
 from repro_torch.verif import playback as pb
 from repro_torch.kernels.synray_sparse import ops as sparse_ops
 from repro_torch.kernels.synray_sparse.ref import sparse_window_ref
 from repro_torch.kernels.synray import ops as synray_ops
 from repro_torch.kernels.synray.ref import synaptic_current_ref
+from repro_torch.verif.calibration import calibrate_stp
 from repro_torch.verif.mismatch import sample_instance
 
 pytestmark = pytest.mark.cuda
@@ -807,3 +821,278 @@ def test_capture_of_a_host_read_raises(cuda, monkeypatch):
         th.make_scanned_training(meta)(init(), stims, draws)
     torch.cuda.synchronize()
     assert len(calls) == 2
+
+
+# ---------------------------------------------------------------------------
+# The verification layer on the card: telemetry, fault hooks, screening,
+# calibration
+# ---------------------------------------------------------------------------
+
+def _inst_on(inst, dev):
+    """An instance dict (neuron parameters nested) moved to ``dev``."""
+    return {k: (v.to(dev) if torch.is_tensor(v) else
+                {n: x.to(dev) for n, x in v.items()})
+            for k, v in inst.items()}
+
+
+def _full_width_plan(prefix=(16,), rows=256, cols=512):
+    return sample_fault_plan(rows, cols, np.random.default_rng(3),
+                             prefix=prefix, p_dead_row=0.02,
+                             p_dead_neuron=0.01, p_hot_neuron=0.01,
+                             p_stuck_w=0.001, p_cadc=0.02, seed=1)
+
+
+def _graph_run(cuda, stims, seed, **kw):
+    ecfg = th.RSTDPConfig(n_inputs=128, n_neurons=512, pattern_size=24,
+                          trial_steps=128)
+    init, trial, meta = th.make_experiment(
+        cfg=BSS2, ecfg=ecfg, prefix=(16,), backend="blocked",
+        generator=torch.Generator().manual_seed(11), device=cuda, **kw)
+    draws = meta["draw"](torch.Generator().manual_seed(seed), stims)
+    graph = th.TrialGraph(th.TrialLoop(trial, init(), stims, draws))
+    for _ in stims:
+        graph.replay()
+    torch.cuda.synchronize()
+    return graph, trial, init, draws
+
+
+@pytest.mark.parametrize("faulted", [False, True])
+def test_telemetry_on_off_full_width_graph(cuda, faulted):
+    """Six full-width trials as graph replays with telemetry on and off
+    (and under a fault plan): histories and final state bit-equal, the
+    same kernels a replay, and the counters equal to six eager trials'."""
+    stims = [1, 2, 0, 1, 2, 0]
+    faults = _full_width_plan() if faulted else None
+    g_on, trial, init, draws = _graph_run(cuda, stims, 12, telemetry=True,
+                                          faults=faults)
+    g_off, *_ = _graph_run(cuda, stims, 12, faults=faults)
+    assert g_on.launches == g_off.launches
+    h_on, h_off = g_on.loop.history(), g_off.loop.history()
+    for k in h_off:
+        assert torch.equal(h_on[k], h_off[k]), k
+    s_on, s_off = g_on.loop.state, g_off.loop.state
+    assert s_off.tele is None
+    for a, b in zip(th._leaves(s_on.core), th._leaves(s_off.core)):
+        assert torch.equal(a, b)
+    st = init()
+    for i, s in enumerate(stims):
+        st, _ = trial(st, s, draws.events[i], draws.xi[i])
+    got = obs_trace.summary(s_on.tele)
+    assert got == obs_trace.summary(st.tele)
+    assert got["trials"] == 6 and got["gated_windows"] == 12
+    if faulted:
+        assert got["faults_injected"] == faults.total_sites
+
+
+@pytest.mark.parametrize("route", ["never", "always", "auto"])
+def test_faulted_window_on_card_matches_cpu(cuda, route):
+    """A faulted window per synaptic route (the auto window above the
+    census floor, decided on the device) on the card against the CPU:
+    spikes equal up to flips at threshold, rate counters equal in the
+    columns without a flip, membranes within 1e-4."""
+    rows, cols, T, prefix = 128, 256, 128, (2,)
+    cfg = dataclasses.replace(BSS2, n_rows=rows, n_cols=cols)
+    inst = sample_instance(cfg, torch.Generator().manual_seed(3), prefix,
+                           device="cpu")
+    fp = _full_width_plan(prefix, rows, cols)
+    rng = np.random.default_rng(4)
+    p = 0.004 if route != "never" else 0.05
+    ev = t((rng.random((T, *prefix, rows)) < p).astype(np.float32))
+    ad = torch.zeros(ev.shape, dtype=torch.int8)
+    w = t(rng.integers(20, 64, (*prefix, rows, cols)).astype(np.int8))
+    outs = {}
+    for dev in ("cpu", cuda):
+        core = AnnCore(cfg, _inst_on(inst, dev), backend="blocked",
+                       const_addr=True, sparse_mode=route, faults=fp)
+        st = core.init_state(prefix)
+        st = st._replace(syn=st.syn._replace(weights=w.to(dev)))
+        synapse.reset_route_counts()
+        s, o = core.run(st, ev.to(dev), ad.to(dev), record_v=True)
+        outs[str(dev)] = (s, o, synapse.route_counts(dev).tolist())
+    (s_c, o_c, r_c), (s_g, o_g, r_g) = outs["cpu"], outs[str(cuda)]
+    assert r_g == r_c
+    if route == "auto":
+        assert r_g == [0, 2]
+    sp_g = o_g["spikes"].cpu()
+    assert float(o_c["spikes"].sum()) > 0
+    assert_spikes_match(sp_g, o_c["spikes"], o_g["v"].cpu(), o_c["v"],
+                        (inst["neuron_params"]["v_thres"]
+                         + 2.0 * inst["neuron_params"]["delta_t"]).numpy())
+    keep = ~(sp_g != o_c["spikes"]).any(0)
+    assert torch.equal(s_g.rate_counters.cpu()[keep],
+                       s_c.rate_counters[keep])
+    torch.testing.assert_close(o_g["v"].cpu(), o_c["v"], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_store_hook_on_ppuvm_exec(cuda):
+    """``run_program_fixed`` under store faults on the card (``ppuvm_exec``
+    then the hook): weights equal to the CPU's bit for bit, the flips and
+    zeros where the plan puts them."""
+    N, R, C = 2, 64, 96
+    cfg = dataclasses.replace(BSS2, n_rows=R, n_cols=C)
+    inst = sample_instance(cfg, torch.Generator().manual_seed(2), (N,),
+                           device="cpu")
+    rng = np.random.default_rng(5)
+    flip = np.where(rng.random((N, R, C)) < 0.1,
+                    1 << rng.integers(0, 6, (N, R, C)), 0).astype(np.int32)
+    fp = FaultPlan(store_flip=flip, store_zero=rng.random((N, R, C)) < 0.05)
+    w = t(rng.integers(0, 64, (N, R, C)).astype(np.int8))
+    ac = t(rng.uniform(0, 30, (N, R, C)).astype(np.float32))
+    outs = []
+    for dev in ("cpu", cuda):
+        inst_d = _inst_on(inst, dev)
+        st = AnnCore(cfg, inst_d).init_state((N,))
+        st = st._replace(syn=st.syn._replace(weights=w.to(dev)),
+                         corr=st.corr._replace(a_causal=ac.to(dev)))
+        words = torch.as_tensor(programs.rstdp_program(eta=0.0), device=dev)
+        n0 = kernels.LAUNCHES["ppuvm_exec"]
+        st2, _ = VectorUnit(cfg, inst_d, faults=fp).run_program_fixed(
+            st, words)
+        outs.append((st2.syn.weights.cpu(), kernels.LAUNCHES["ppuvm_exec"]
+                     - n0))
+    (w_c, _), (w_g, n_g) = outs
+    torch.cuda.synchronize()
+    assert n_g == 1 and torch.equal(w_g, w_c)
+    want = np.where(fp.store_zero, 0, w.numpy() ^ flip)
+    np.testing.assert_array_equal(w_g.numpy(), want)
+
+
+def test_faulted_apply_rstdp_bit_equal(cuda):
+    """``apply_rstdp`` under CADC offsets and stuck columns (an injection
+    plan and a blacklist's stuck columns) launches ``ppu_update`` with the
+    folded CADC map and equals the CPU's (the hooked read followed by the
+    rule) bit for bit: weights and eligibility."""
+    N, R, C = 3, 200, 300
+    cfg = dataclasses.replace(BSS2, n_rows=R, n_cols=C)
+    inst = sample_instance(cfg, torch.Generator().manual_seed(9), (N,),
+                           device="cpu")
+    rng = np.random.default_rng(6)
+    fp = FaultPlan(cadc_code_offset=rng.integers(-40, 40, (N, C)),
+                   cadc_stuck_mask=rng.random((N, C)) < 0.1,
+                   cadc_stuck_code=rng.integers(0, 256, (N, C)).astype(
+                       np.int32))
+    bl = Blacklist(rows=np.zeros((N, R), bool),
+                   neurons=rng.random((N, C)) < 0.05)
+    overlay = chain(fp, bl.as_faults(inst))
+    w = t(rng.integers(0, 64, (N, R, C)).astype(np.int8))
+    ac, aa = (t(rng.uniform(0, 40, (N, R, C)).astype(np.float32))
+              for _ in range(2))
+    xi = t((0.3 * rng.standard_normal((N, R, C))).astype(np.float32))
+    reward = t(rng.integers(0, 2, (N, C)).astype(np.float32))
+    outs = []
+    for dev in ("cpu", cuda):
+        inst_d = _inst_on(inst, dev)
+        st = AnnCore(cfg, inst_d).init_state((N,))
+        st = st._replace(syn=st.syn._replace(weights=w.to(dev)),
+                         corr=st.corr._replace(a_causal=ac.to(dev),
+                                               a_acausal=aa.to(dev)))
+        rs = dict(mean_reward=torch.full((N, C), 0.25, device=dev))
+        n0 = kernels.LAUNCHES["ppu_update"]
+        s, _, elig = VectorUnit(cfg, inst_d, faults=overlay).apply_rstdp(
+            st, rs, reward=reward.to(dev), eta=4.0, xi=xi.to(dev))
+        outs.append((s.syn.weights.cpu(), elig.cpu(),
+                     kernels.LAUNCHES["ppu_update"] - n0))
+    torch.cuda.synchronize()
+    (w_c, e_c, _), (w_g, e_g, n_g) = outs
+    assert n_g == 1
+    assert torch.equal(w_g, w_c) and torch.equal(e_g, e_c)
+
+
+def test_screen_on_card_matches_cpu(cuda):
+    """``screen`` of a faulted chip (2 instances of 256 x 512) on the card
+    equals the CPU's screen of the same instance and plan, and finds the
+    planted dead rows, hot and dead neurons and CADC columns."""
+    prefix = (2,)
+    inst = sample_instance(BSS2, torch.Generator().manual_seed(4), prefix,
+                           device="cpu")
+    fp = _full_width_plan(prefix)
+    bls = []
+    for dev in ("cpu", cuda):
+        inst_d = _inst_on(inst, dev)
+        bls.append(screen(AnnCore(BSS2, inst_d, const_addr=True, faults=fp),
+                          VectorUnit(BSS2, inst_d, faults=fp)))
+    bl_c, bl_g = bls
+    np.testing.assert_array_equal(bl_g.rows, bl_c.rows)
+    np.testing.assert_array_equal(bl_g.neurons, bl_c.neurons)
+    np.testing.assert_array_equal(bl_g.rows, fp.dead_rows)
+    # a column stuck within the margin (2 codes) of its zero baseline
+    # reads like a healthy one: no probe can tell it apart
+    visible = fp.cadc_stuck_mask & (np.abs(
+        fp.cadc_stuck_code - cadc_zero_code(inst)) > 2)
+    assert (bl_g.neurons >= (fp.hot_neurons | fp.dead_neurons
+                             | visible)).all()
+
+
+def test_capture_with_a_host_plan_in_the_body_raises(cuda, monkeypatch):
+    """The plan really is device-resident: the experiment's core holds
+    device plans, and a core made to hold the host ``FaultPlan`` instead
+    (each hook then copies it to the card inside the trial) fails to
+    capture under the sync-debug mode, after an eager warm-up that
+    runs."""
+    fp = _full_width_plan((), 32, 16)
+    init, trial, meta = th.make_experiment(
+        generator=torch.Generator().manual_seed(2), device=cuda, faults=fp)
+    assert all(isinstance(p, inject.DevicePlan) for p in meta["core"].faults)
+    stims = th.stimuli(3)
+    draws = meta["draw"](torch.Generator().manual_seed(3), stims)
+    th.make_scanned_training(meta)(init(), stims, draws)     # captures
+    init, trial, meta = th.make_experiment(
+        generator=torch.Generator().manual_seed(2), device=cuda, faults=fp)
+    monkeypatch.setattr(meta["core"], "faults", (fp,))
+    trial(init(), 1, draws.events[0], draws.xi[0])           # eager: runs
+    with pytest.raises(RuntimeError):
+        th.make_scanned_training(meta)(init(), stims, draws)
+    torch.cuda.synchronize()
+
+
+def test_second_scanned_run_replays_the_graph(cuda):
+    """After a summary read and a report, a second run of the same shapes
+    replays the captured graph (no capture) and equals a fresh
+    experiment's run."""
+    init, _, meta = th.make_experiment(
+        generator=torch.Generator().manual_seed(2), device=cuda,
+        telemetry=True)
+    scanned = th.make_scanned_training(meta)
+    stims = th.stimuli(4)
+    d1 = meta["draw"](torch.Generator().manual_seed(1), stims)
+    d2 = meta["draw"](torch.Generator().manual_seed(2), stims)
+    state, _ = scanned(init(), stims, d1)
+    n = th.TrialGraph.captures
+    obs_report.build_report("t", telemetry=obs_trace.summary(state.tele))
+    state2, hist2 = scanned(init(), stims, d2)
+    assert th.TrialGraph.captures == n
+    init_f, _, meta_f = th.make_experiment(
+        generator=torch.Generator().manual_seed(2), device=cuda,
+        telemetry=True)
+    state_f, hist_f = th.make_scanned_training(meta_f)(init_f(), stims, d2)
+    for k in hist_f:
+        assert torch.equal(hist2[k], hist_f[k]), k
+    assert obs_trace.summary(state2.tele) == obs_trace.summary(state_f.tele)
+
+
+def test_run_modes_bit_equal_under_faults_and_telemetry(cuda):
+    """``run_training``'s three modes on the card under a fault plan with
+    telemetry: histories and counters bit-equal."""
+    fp = _full_width_plan((), 32, 16)
+    outs = [th.run_training(12, seed=1, device=cuda, faults=fp,
+                            telemetry=True, **mode)[0]
+            for mode in (dict(), dict(scan=False), dict(fused=False))]
+    for o in outs[1:]:
+        assert o["telemetry"] == outs[0]["telemetry"]
+        for k in outs[0]:
+            if k != "telemetry":
+                np.testing.assert_array_equal(o[k], outs[0][k], err_msg=k)
+    assert outs[0]["telemetry"]["faults_injected"] == fp.total_sites
+
+
+@pytest.mark.parametrize("shape", [(128,), (16, 256)])
+def test_calibration_on_card_matches_cpu(cuda, shape):
+    off = t((0.25 * np.random.default_rng(1).standard_normal(shape))
+            .astype(np.float32))
+    c_c, m_c = calibrate_stp(BSS2, off)
+    c_g, m_g = calibrate_stp(BSS2, off.to(cuda))
+    assert torch.equal(c_g.cpu(), c_c)
+    for k in m_c:
+        torch.testing.assert_close(m_g[k].cpu(), m_c[k], rtol=1e-4,
+                                   atol=1e-4)
