@@ -120,6 +120,29 @@ Phases, each reported on its own line:
    eager and a replay, as in phase 3.
    Phase 2 also holds ``ppu_update``'s faulted form (a CADC fault map,
    path D's ``apply_rstdp``) to its plain version bit for bit, timed.
+12. Path E, the wafer at full width (``repro_torch.wafer``): first the
+   router alone, ``run_windows`` of 4 windows on four 256 x 512 chips
+   under a random ring and a random all2all plan (512 routes a link,
+   relay rows conducting): dense, compact and auto, auto bit-equal to
+   dense, compact at a small budget dropping records and counting
+   overflows; every window again on the CPU from the card's state (spikes
+   equal up to flips at threshold, the router's grids and link counters
+   bit for bit); ``route()`` timed per mode. Then the §5 network of 128
+   inputs x 2048 neurons on four full chips (``run_training(wafer=4)``'s
+   experiment: all2all, relay broadcast, 8,192 routes on 16 links,
+   ``link_mode="auto"``, ``backend="blocked"``): 6 trials eager with the
+   launch counts set to 0 before and read after (every kernel of the path
+   launched), trial 0 again on the CPU, the trials as graph replays
+   bit-equal to the eager ones and timed in turns with them, a
+   ``torch.profiler`` trace of the replays and of the router's own
+   kernels, the link counters; chip-count parity (K = 1, one 256 x 2048
+   chip, 2 and 4: the same global weights, rewards and per-chip routed
+   grids bit for bit); the link half of faults: one dead and one
+   flaky link found by ``screen`` with the router, equal to the CPU's;
+   the relay plan's ``reroute_plan`` raising (no row is free); a plan
+   announcing 32 columns a chip rerouted around the blacklisted links, 6
+   trials eager and as replays bit-equal with ``link_reroutes`` counted,
+   and the dead link's deliveries arriving one window late.
 
 Exits non-zero without a card, outside a checkout, or when any phase
 fails; the last line is the JSON device record.
@@ -913,16 +936,19 @@ def _interleaved(trials, state, stim, events_t, xi, pairs):
 
 
 def check_against_cpu(meta, kw, state_before, stim, events_t, xi, s_g, m_g,
-                      route_g, label, phase=3):
+                      route_g, label, phase=3, inst=None):
     """One trial rerun on the CPU (plain versions) from the card's state
     before it, with the same draws: the same routes, and agreement.
-    Returns the number of columns left out for spike flips and the number
-    of weight codes that differ."""
+    ``inst``: the instance to give the CPU's experiment (in wafer mode the
+    whole network's; default ``meta["inst"]``). Returns the number of
+    columns left out for spike flips and the number of weight codes that
+    differ."""
     import torch
     from repro_torch.core.hybrid import make_experiment
     cpu = torch.device("cpu")
     init_c, trial_c, meta_c = make_experiment(
-        inst=_to(meta["inst"], cpu), device="cpu", **kw)
+        inst=_to(meta["inst"] if inst is None else inst, cpu), device="cpu",
+        **kw)
     gate_c = []
     restore = _route_spy(gate_c)
     try:
@@ -1739,7 +1765,7 @@ def _replayed(trial, state0, stims, draws):
     return graph
 
 
-def _same_run(a, b, what):
+def _same_run(a, b, what, tag="[11]"):
     """Two graphs' (or a graph's and eager trials') histories and final
     states bit for bit."""
     import torch
@@ -1747,11 +1773,11 @@ def _same_run(a, b, what):
     (ha, sa), (hb, sb) = a, b
     for k in hb:
         if not torch.equal(ha[k], hb[k]):
-            raise AssertionError(f"[11] {what}: {k} differs")
+            raise AssertionError(f"{tag} {what}: {k} differs")
     la, lb = th._leaves(sa), th._leaves(sb)
     if len(la) != len(lb) or not all(torch.equal(x, y)
                                      for x, y in zip(la, lb)):
-        raise AssertionError(f"[11] {what}: the final states differ")
+        raise AssertionError(f"{tag} {what}: the final states differ")
 
 
 def _covered(fp, bl):
@@ -1958,6 +1984,429 @@ def phase_path_d(counts_a, graph_a):
         f"{graph_a['pool_bytes'] / 2**20:.1f} MiB)")
 
 
+# path E: the wafer (phase 12)
+WAFER_LINK_COUNTERS = ("routed_events", "link_overflows", "link_events_max",
+                       "link_reroutes")
+# kernels path E launches (the census gate's three, the STP scan, the
+# neuron and correlation windows)
+PATH_E_KERNELS = ("synray", "synray_sparse", "census", "neuron_scan", "corr",
+                  "stp_scan")
+
+
+def _wafer_experiment(K=4, inst=None, **extra):
+    """Path E's experiment: the §5 network of 128 inputs x 2048 neurons on
+    K chips of 256 rows x 2048 / K columns (K = 4: four full 256 x 512
+    chips), T = 128, all2all with the relay broadcast, the router's
+    default budget and ``link_mode="auto"``, ``backend="blocked"``, the
+    census gate at its default; the whole network's instance from seed 21
+    unless ``inst`` is given. Returns ``(init, trial, meta, kw, inst)``."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.bss2 import BSS2
+    from repro_torch.core.hybrid import RSTDPConfig, make_experiment
+    from repro_torch.verif.mismatch import sample_instance
+    ecfg = RSTDPConfig(n_inputs=128, n_neurons=2048, pattern_size=24,
+                       trial_steps=128)
+    cfg = dataclasses.replace(BSS2, n_cols=2048)
+    if inst is None:
+        inst = sample_instance(cfg, torch.Generator().manual_seed(21),
+                               device="cuda")
+    kw = dict(cfg=cfg, ecfg=ecfg, backend="blocked", wafer=K,
+              wafer_topology="all2all", wafer_relay=True, **extra)
+    init, trial, meta = make_experiment(inst=inst, device="cuda", **kw)
+    return init, trial, meta, kw, inst
+
+
+def _links(tele):
+    from repro_torch.obs import trace as obs_trace
+    s = obs_trace.summary(tele)
+    return {k: s[k] for k in WAFER_LINK_COUNTERS}
+
+
+def _traced(fn, name, n_trials):
+    """``torch.profiler`` trace (CPU and CUDA) of ``fn`` run twice, the
+    first in the warm-up step; the summary of the second
+    (``_trace_summary``), the trace kept in ``build/profile/``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    out_dir = REPO / "build" / "profile"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"trace_{name}.json"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(str(path))
+                 ) as prof:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return _trace_summary(path, n_trials)
+
+
+def _wafer_router_windows():
+    """Path E, part 1: the router alone at full width. ``run_windows`` of
+    W = 4 windows on four 256 x 512 chips (``backend="blocked"``, the
+    general address form: routed slots carry address 7) under a random
+    ring and a random all2all plan of 512 routes a link into relay rows
+    that conduct (address 7): dense, compact and auto, auto bit-equal to
+    dense, compact with a small budget dropping records and counting
+    overflows. Each window again on the CPU from the card's state and
+    routed input: spikes equal up to flips at threshold, and the CPU's
+    router fed the card's spikes gives the card's delivered grid and link
+    counters bit for bit. ``route()`` timed per mode."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.bss2 import BSS2
+    from repro_torch.core.anncore import AnnCore
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.verif.mismatch import sample_instance
+    from repro_torch.wafer import (InterChipRouter, WaferTopology, make_plan,
+                                   run_windows)
+    cpu = torch.device("cpu")
+    K, R, C, T, W, PER_LINK = 4, 256, 512, 128, 4, 512
+    rng = np.random.default_rng(5)
+    inst = sample_instance(BSS2, torch.Generator().manual_seed(22), (K,),
+                           device="cuda")
+    core_g = AnnCore(BSS2, inst, backend="blocked")
+    core_c = AnnCore(BSS2, _to(inst, cpu), backend="fused")
+    p = inst["neuron_params"]
+    thr = (p["v_thres"] + 2.0 * p["delta_t"]).cpu()
+    ev_c = torch.from_numpy((rng.random((W, T, K, R)) < 0.05).astype(
+        np.float32))
+    ad_c = torch.zeros((W, T, K, R), dtype=torch.int8)
+    ev_g, ad_g = ev_c.cuda(), ad_c.cuda()
+    timing = {}
+    for kind in ("ring", "all2all"):
+        # routes land on the upper half of the rows: the lower half keeps
+        # conducting the external events (address 0)
+        routes = [(s, int(rng.integers(C)), d, int(rng.integers(R // 2, R)),
+                   7) for s in range(K)
+                  for d in ([(s + 1) % K] if kind == "ring" else range(K))
+                  for _ in range(PER_LINK)]
+        plan = make_plan(WaferTopology(K, kind), R, C, routes)
+        w = torch.from_numpy(rng.integers(20, 60, (K, R, C)).astype(np.int8))
+        a = torch.zeros((K, R, C), dtype=torch.int8)
+        a[torch.from_numpy(plan.relay_rows())] = 7
+        st0 = core_g.init_state((K,))
+        st0 = st0._replace(syn=st0.syn._replace(weights=w.cuda(),
+                                                addresses=a.cuda()))
+        outs = {}
+        for label, kw in (("dense", dict(link_mode="dense")),
+                          ("compact", dict(link_mode="compact")),
+                          ("auto", dict(link_mode="auto")),
+                          ("compact, budget 64", dict(link_mode="compact",
+                                                      link_budget=64))):
+            r = InterChipRouter(plan, device="cuda", **kw)
+            _, out = run_windows(core_g, r, st0, ev_g, ad_g,
+                                 telemetry=obs_trace.init_telemetry("cuda"))
+            outs[label] = (out["spikes"], _links(out["telemetry"]), r)
+        spk_d, cnt_d, r_dense = outs["dense"]
+        if not torch.equal(outs["auto"][0], spk_d) or outs["auto"][1] != \
+                cnt_d:
+            raise AssertionError(f"[12] {kind}: auto differs from dense")
+        if not float(spk_d.sum()) > 0 or not cnt_d["routed_events"] > 0:
+            raise AssertionError(f"[12] {kind}: no spikes or no traffic")
+        spk_s, cnt_s, r_small = outs["compact, budget 64"]
+        sp = spk_d[-1]
+        dropped = float(r_dense.route(sp)[0].sum() - r_small.route(sp)[0]
+                        .sum())
+        if not (cnt_s["link_overflows"] > 0 and dropped > 0):
+            raise AssertionError(f"[12] {kind}: compact over budget dropped "
+                                 f"{dropped} events, counters {cnt_s}")
+        log(f"[12] router alone, {kind}, {plan.n_routes} routes ({PER_LINK} a "
+            f"link), W={W} windows of 4 x 256 x 512, T={T}: "
+            + "; ".join(f"{k} spikes {float(v[0].sum()):.0f} {v[1]}"
+                        for k, v in outs.items())
+            + f"; auto == dense bit for bit; compact at budget 64 drops "
+            f"{dropped:.0f} of the last window's deliveries")
+
+        # each window on the CPU from the card's state and routed input
+        r_g = InterChipRouter(plan, device="cuda")
+        r_c = InterChipRouter(plan, device="cpu")
+        st_g, routed_g = st0, r_g.init_buffer(T)
+        flips = spikes = 0
+        for i in range(W):
+            st_c, routed_c = _to(st_g, cpu), routed_g.cpu()
+            st_g, out_g = core_g.run_routed(
+                st_g, routed_g, ev_g[i], ad_g[i], r_g, record_v=True,
+                telemetry=obs_trace.init_telemetry("cuda"))
+            _, out_c = core_c.run_routed(st_c, routed_c, ev_c[i], ad_c[i],
+                                         r_c, record_v=True)
+            spk_g, spk_c = out_g["spikes"].cpu(), out_c["spikes"]
+            v_quiet = torch.where(spk_c == 0, out_c["v"], out_g["v"].cpu())
+            near = (v_quiet - thr).abs() <= 1e-4 + 1e-4 * thr.abs()
+            flip = spk_g != spk_c
+            if bool((flip & ~near).any()):
+                raise AssertionError(f"[12] {kind} window {i}: a spike "
+                                     "differs card vs CPU away from "
+                                     "threshold")
+            flips += int(flip.sum())
+            spikes += int(spk_c.sum())
+            g_c, t_c = r_c.route(spk_g, obs_trace.init_telemetry("cpu"),
+                                 routed_in=routed_c)
+            if not torch.equal(g_c, out_g["routed"].cpu()) or \
+                    _links(t_c) != _links(out_g["telemetry"]):
+                raise AssertionError(f"[12] {kind} window {i}: the router "
+                                     "differs card vs CPU")
+            routed_g = out_g["routed"]
+        log(f"[12] router alone, {kind}, card vs CPU window by window: "
+            f"{flips} of {spikes} spikes flipped at threshold, delivered "
+            f"grids and link counters bit for bit")
+
+        # route() alone per mode on the last window's spikes
+        row = {}
+        for mode in ("dense", "compact", "auto"):
+            r = InterChipRouter(plan, device="cuda", link_mode=mode)
+            ms = time_ms(lambda: r.route(sp), 25)
+            n = _links(r.route(sp, obs_trace.init_telemetry("cuda"))[1]
+                       )["routed_events"]
+            row[mode] = dict(ms=ms, routed_events=n,
+                             events_per_s=n / (ms * 1e-3))
+        timing[kind] = row
+        log(f"[12] route() alone, {kind}, [128, 4, 512] spikes: "
+            + "; ".join(f"{m} {v['ms']:.4f} ms ({v['routed_events']} events,"
+                        f" {v['events_per_s'] / 1e6:.1f} M events/s)"
+                        for m, v in row.items()))
+    return timing
+
+
+def _wafer_chip_count_parity():
+    """``run_training`` of path E's network on K = 1 (one 256 x 2048
+    chip), 2 and 4 chips, 6 trials each as graph replays: the global
+    signed weights and the rewards bit for bit, and every chip's last
+    routed grid equal to K = 1's (the relay broadcast reaches every chip
+    alike). The link census (``routed_events``) counts each link's
+    (step, row) slots before the receiver merges them: it is K times
+    K = 1's only while no two columns of a chip share a relay row (the
+    reference's 32 x 16 case); here 2048 / K columns share 256 rows, so
+    it is printed, not held to K times."""
+    import numpy as np
+    import torch
+    from repro_torch.core.hybrid import run_training
+    outs = {}
+    for K in (1, 2, 4):
+        _, _, _, kw, _ = _wafer_experiment(K)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, state, _ = run_training(n_trials=6, seed=21, device="cuda",
+                                     telemetry=True, **kw)
+        outs[K] = (out, state.routed.cpu(), time.perf_counter() - t0)
+
+    def glob(w):
+        return w.transpose(1, 0, 2).reshape(w.shape[1], -1)
+    (o1, routed1, _) = outs[1]
+    if not float(routed1.sum()) > 0:
+        raise AssertionError("[12] chip-count parity: no routed events")
+    for K in (2, 4):
+        o, routed, _ = outs[K]
+        if not np.array_equal(glob(o1["w_signed_final"]),
+                              glob(o["w_signed_final"])):
+            raise AssertionError(f"[12] chip-count parity: w_signed K=1 vs "
+                                 f"K={K}")
+        if not np.array_equal(o1["reward"].reshape(6, -1),
+                              o["reward"].reshape(6, -1)):
+            raise AssertionError(f"[12] chip-count parity: rewards K=1 vs "
+                                 f"K={K}")
+        if not all(torch.equal(routed[:, k], routed1[:, 0])
+                   for k in range(K)):
+            raise AssertionError(f"[12] chip-count parity: routed grids "
+                                 f"K=1 vs K={K}")
+    log("[12] chip-count parity, run_training of 6 trials as graph replays "
+        "(capture included): "
+        + ", ".join(f"K={K} {outs[K][2]:.2f} s, routed_events "
+                    f"{outs[K][0]['telemetry']['routed_events']}"
+                    for K in (1, 2, 4))
+        + "; global w_signed, rewards and every chip's routed grid bit for "
+        "bit equal to K=1's")
+
+
+def _wafer_link_faults(inst, stims, draws):
+    """Path E, part 3: one dead link (0, 2) and one flaky link (1, 3)
+    dropping 0.25 of its events. ``screen`` with the router on the card
+    finds exactly those two links, equal to the CPU's verdict. Path E's
+    relay plan has no failover (all 256 rows of every chip take relayed
+    events, so no row is free for a detour: ``reroute_plan`` raises, as
+    the reference's does); the blacklisted run takes a plan that
+    announces each chip's first 32 columns to every chip on rows of their
+    own, which reroutes over forwards: 6 trials eager and as graph
+    replays bit-equal, the forwarded events counted in ``link_reroutes``,
+    and a dead link's deliveries arriving over the forwards one window
+    late."""
+    import numpy as np
+    import torch
+    from repro_torch.core.hybrid import make_experiment
+    from repro_torch.faults import FaultPlan, screen
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.wafer import (InterChipRouter, WaferTopology, make_plan,
+                                   reroute_plan)
+    cpu = torch.device("cpu")
+    links = WaferTopology(4, "all2all").links()
+    fp = FaultPlan(dead_links=np.array([sd == (0, 2) for sd in links]),
+                   flaky_links=np.where([sd == (1, 3) for sd in links],
+                                        np.float32(0.25), np.float32(0.0)),
+                   seed=5)
+    _, _, meta, kw, _ = _wafer_experiment(inst=inst, faults=fp)
+    screen(meta["core"], meta["ppu"], meta["router"])          # warm-up
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    bl = screen(meta["core"], meta["ppu"], meta["router"])
+    b.record()
+    b.synchronize()
+    _, _, meta_c = make_experiment(inst=_to(inst, cpu), device="cpu", **kw)
+    bl_c = screen(meta_c["core"], meta_c["ppu"], meta_c["router"])
+    if bl.links != ((0, 2), (1, 3)) or bl_c.links != bl.links or not (
+            np.array_equal(bl.rows, bl_c.rows)
+            and np.array_equal(bl.neurons, bl_c.neurons)):
+        raise AssertionError(f"[12] screen: links {bl.links}, CPU "
+                             f"{bl_c.links}")
+    log(f"[12] screen with the router on the card ({a.elapsed_time(b):.1f} "
+        f"ms): links {bl.links}, {bl.n_rows} rows, {bl.n_neurons} neurons; "
+        f"equal to the CPU's")
+    try:
+        reroute_plan(meta["router"].plan, bl.links)
+    except ValueError as e:
+        log(f"[12] path E's relay plan: reroute_plan raises ({e}): every "
+            f"row of every chip already takes relayed events")
+    else:
+        raise AssertionError("[12] path E's relay plan rerouted")
+
+    ann = make_plan(WaferTopology(4, "all2all"), 256, 512,
+                    [(s, c, d, 32 * s + c, 63) for s in range(4)
+                     for d in range(4) for c in range(32)])
+    init, trial, meta_b, _, _ = _wafer_experiment(
+        inst=inst, faults=fp, blacklist=bl, telemetry=True, wafer_plan=ann)
+    router = meta_b["router"]
+    states, metrics, n_e, routes_e = _eager_trials(trial, init(), stims,
+                                                   draws)
+    g = _replayed(trial, init(), stims, draws)
+    hist_e = {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+    _same_run((g.loop.history(), g.loop.state), (hist_e, states[-1]),
+              "blacklisted wafer loop, graph vs eager", "[12]")
+    tele = obs_trace.summary(states[-1].tele)
+    if not tele["link_reroutes"] > 0 or tele != obs_trace.summary(
+            g.loop.state.tele):
+        raise AssertionError(f"[12] blacklisted loop counters {tele}")
+
+    # a dead link's deliveries re-arrive over the forwards one window late
+    clean = InterChipRouter(ann, device="cuda")
+    sp1 = (torch.rand((128, 4, 512), generator=torch.Generator(
+        ).manual_seed(6)) < 0.3).to(torch.float32).cuda()
+    t = obs_trace.init_telemetry("cuda")
+    g1c, _ = clean.route(sp1)
+    g1f, t = router.route(sp1, t, routed_in=router.init_buffer(128))
+    g2f, t = router.route(torch.zeros_like(sp1), t, routed_in=g1f)
+    missing = (g1c[:, 2] - g1f[:, 2]).clamp(min=0)
+    if not float(missing.sum()) > 0 or not torch.equal(g2f[:, 2], missing):
+        raise AssertionError("[12] the dead link's traffic did not re-arrive "
+                             "one window late")
+    log(f"[12] blacklisted loop on the announcement plan ({ann.n_routes} "
+        f"routes -> {router.plan.n_routes} routes + "
+        f"{router.plan.n_forwards} forwards): 6 trials eager and as graph "
+        f"replays bit-equal; launches eager {n_e}; link counters "
+        f"{ {k: tele[k] for k in WAFER_LINK_COUNTERS} }, faults_injected "
+        f"{tele['faults_injected']}; the dead link's "
+        f"{int(missing.sum())} deliveries re-arrive one window late, "
+        f"link_reroutes {obs_trace.summary(t)['link_reroutes']}")
+
+
+def phase_path_e():
+    """Path E, the wafer at full width: the router alone, the §5 loop of
+    128 inputs x 2048 neurons on four full 256 x 512 chips (eager and as
+    graph replays, traced, against the CPU, chip-count parity), and the
+    link half of faults. Returns the launches of path E's 6 eager trials
+    and the router's ``route()`` times."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import hybrid as th
+    from repro_torch.core import synapse
+    from repro_torch.obs import trace as obs_trace
+    timing = _wafer_router_windows()
+
+    init, trial, meta, kw, inst = _wafer_experiment()
+    router = meta["router"]
+    log(f"[12] path E: {router.K} chips of {router.R} x {router.C}, "
+        f"{router.plan.n_routes} relay routes on {router.L} links, link "
+        f"budget {router._budgets(128)}")
+    stims = [1, 2, 0, 1, 2, 0]
+    draws = meta["draw"](torch.Generator().manual_seed(23), stims)
+    state0 = init()
+    routes_dev = synapse.route_counts("cuda")
+    synapse.reset_route_counts()
+    snaps = [routes_dev.clone()]
+    kernels.reset_launches()
+    states, metrics, state = [], [], state0
+    for i, stim in enumerate(stims):
+        state, m = trial(state, stim, draws.events[i], draws.xi[i])
+        snaps.append(routes_dev.clone())
+        states.append(state)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    missing = [k for k in PATH_E_KERNELS if not counts[k]]
+    if missing:
+        raise AssertionError(f"[12] path E launched no {missing}: {counts}")
+    routes = _device_routes(snaps, len(stims))
+    for x in _flatten(state):
+        if x.is_floating_point() and not bool(torch.isfinite(x).all()):
+            raise AssertionError("[12] non-finite state after path E")
+    log(f"[12] path E, 6 eager trials: launches {counts}; routes by trial "
+        f"on the device {routes}; spikes "
+        f"{float(sum(m['rates'].sum() for m in metrics)):.0f}")
+    check_against_cpu(meta, kw, state0, stims[0], draws.events[0],
+                      draws.xi[0], states[0], metrics[0], routes[0],
+                      "path E trial 0", phase=12, inst=inst)
+    graph = graph_vs_eager(trial, state0, stims, draws, states[-1], metrics,
+                           snaps[-1].tolist(), counts, "[12]")
+
+    # where a replay's time goes, and the router's own kernels
+    traced = th.TrialGraph(th.TrialLoop(trial, state0, stims, draws))
+    summ = _traced(lambda: [traced.replay() for _ in range(3)],
+                   "path_e_graph", 3)
+    addr = torch.zeros_like(draws.events[0], dtype=torch.int8)
+    _, out = meta["core"].run_routed(state0.core, state0.routed,
+                                     draws.events[0], addr, router)
+    sp, routed = out["spikes"], out["routed"]
+
+    def route_calls():
+        for _ in range(3):
+            router.merge(routed, draws.events[0], addr)
+            router.route(sp, routed_in=routed)
+    r_summ = _traced(route_calls, "path_e_router", 3)
+    if summ is None or r_summ is None or not summ["by_name"]:
+        log("[12] profiler: NO DEVICE TIME in the trace")
+    else:
+        top = sorted(summ["by_name"].items(), key=lambda kv: -kv[1][0])[:8]
+        w, bz = summ["window_us"], summ["busy_us"]
+        r_busy = r_summ["busy_us"]
+        log(f"[12] profiler, 3 graph replays: window {w / 1e3:.3f} ms, device "
+            f"busy {bz / 1e3:.3f} ms = {bz / w:.4f} of it; "
+            f"{summ['kernels_per_trial']:.1f} kernels a trial; by name: "
+            + "; ".join(f"{k} {t / 1e3:.4f} ({c})" for k, (t, c) in top))
+        log(f"[12] profiler, the router alone (merge + route, 3 calls on "
+            f"trial 0's spikes): device busy {r_busy / 1e3:.4f} ms, "
+            f"{r_summ['kernels_per_trial']:.1f} kernels a call, "
+            f"{r_busy / bz:.4f} of the replays' busy time; by name: "
+            + "; ".join(f"{k} {t / 1e3:.4f} ({c})" for k, (t, c) in sorted(
+                r_summ["by_name"].items(), key=lambda kv: -kv[1][0])))
+
+    # the link counters of the same trials (telemetry on: same histories)
+    init_t, trial_t, _, _, _ = _wafer_experiment(inst=inst, telemetry=True)
+    g_t = _replayed(trial_t, init_t(), stims, draws)
+    for k, v in g_t.loop.history().items():
+        if k != "stim" and not torch.equal(
+                v, torch.stack([m[k] for m in metrics])):
+            raise AssertionError(f"[12] telemetry on: {k} differs")
+    tele = obs_trace.summary(g_t.loop.state.tele)
+    log(f"[12] path E counters (6 graph replays, telemetry on, histories "
+        f"equal to off): "
+        f"{ {k: tele[k] for k in WAFER_LINK_COUNTERS + ('dense_windows', 'sparse_windows', 'out_spikes')} }")
+    _wafer_chip_count_parity()
+    _wafer_link_faults(inst, stims, draws)
+    return counts, timing, dict(graph, trace=summ, router_trace=r_summ)
+
+
 def main() -> int:
     if not (REPO / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
@@ -1982,6 +2431,7 @@ def main() -> int:
     phase_vm_loop()
     phase_playback()
     phase_path_d(counts, graph_a)
+    counts_e, _, _ = phase_path_e()
 
     kernels = []
     for name, (source, replaces) in SRC.items():
@@ -1995,6 +2445,7 @@ def main() -> int:
             launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
+            launches_path_e=counts_e[name],
             **{k: r[k] for k in ("chain_floor_ms",) if k in r}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

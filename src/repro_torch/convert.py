@@ -9,6 +9,7 @@ and layouts, so a state moves over leaf by leaf as numpy arrays:
   ``ExperimentState`` (numpy leaves) -> the port's; ``to_numpy`` goes
   back to a nested tuple/dict of numpy arrays with the same structure;
 * ``draws``: injected per-trial event grids and xi walks -> ``Draws``;
+* ``plan``: a reference ``WaferPlan`` -> the port's (its numpy arrays);
 * ``replay_reference_draws``: the reference's ``jax.random`` key chain
   replayed, so both packages consume the same numbers (PyTorch cannot
   reproduce threefry streams); ``replay_rstdp_xi`` likewise for the xi
@@ -28,6 +29,11 @@ from repro_torch.core import adex, correlation, stp, synapse
 from repro_torch.core.anncore import AnnCoreState
 from repro_torch.core.hybrid import (Draws, ExperimentState, RSTDPConfig,
                                      events_from_background)
+from repro_torch.wafer.topology import WaferPlan, WaferTopology
+
+_PLAN_ARRAYS = ("src_chip", "src_col", "dst_chip", "dst_row", "addr",
+                "fwd_src_chip", "fwd_src_row", "fwd_dst_chip", "fwd_dst_row",
+                "fwd_addr")
 
 
 def _t(x, device):
@@ -86,6 +92,16 @@ def draws(events, xi, device=None) -> Draws:
     device = resolve_device(device)
     return Draws(events=_t(np.asarray(events, np.float32), device),
                  xi=_t(np.asarray(xi, np.float32), device))
+
+
+def plan(ref_plan) -> WaferPlan:
+    """Reference ``WaferPlan`` -> the port's: the same topology, geometry
+    and route / forward arrays (int32 copies), validated again."""
+    topo = ref_plan.topology
+    return WaferPlan(
+        topology=WaferTopology(topo.n_chips, topo.kind),
+        n_rows=ref_plan.n_rows, n_cols=ref_plan.n_cols,
+        **{k: np.array(getattr(ref_plan, k), np.int32) for k in _PLAN_ARRAYS})
 
 
 def replay_reference_draws(jax_random, key, stims,

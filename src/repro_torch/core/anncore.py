@@ -31,8 +31,11 @@ sites: the ``rows`` hook and the fault gauges at the entry of ``run``,
 the ``weights`` hook at the analog read, the ``spikes`` / ``rates`` hooks
 after the neuron window and before the correlation window, the route
 counters in the synaptic window and ``count_run`` at the end. Off (the
-defaults), ``run`` launches what it launched before they existed. Not
-ported yet: ``run_routed`` (wafer).
+defaults), ``run`` launches what it launched before they existed.
+
+``run_routed`` closes the wafer's inter-chip router
+(``repro_torch.wafer``) around ``run``: last window's routed events merge
+into the inputs, this window's spikes go on the bus.
 """
 from __future__ import annotations
 
@@ -177,6 +180,33 @@ class AnnCore:
                                     record_v, telemetry)
         return self._run_windowed(state, row_spikes_t, row_addr_t, record_v,
                                   telemetry)
+
+    def run_routed(self, state: AnnCoreState, routed_ev, row_spikes_t,
+                   row_addr_t, router, record_v: bool = False,
+                   telemetry=None):
+        """One window with the inter-chip router closed around it
+        (``repro/core/anncore.py:251-295``).
+
+        ``routed_ev`` is the [T, K, R] delivery grid the previous window's
+        spikes deposited (``router.init_buffer(T)`` for the first): it
+        merges into this window's external inputs ``row_spikes_t`` /
+        ``row_addr_t`` ([T, K, R]) before integration, and this window's
+        spikes are routed into ``outputs["routed"]`` for the next window,
+        with ``routed_ev`` feeding the plan's forward rules. The router's
+        link counters land in the same ``outputs["telemetry"]`` as the
+        emulation's. Returns ``(state, outputs)`` as ``run`` does."""
+        if telemetry is None and self.telemetry:
+            telemetry = obs_trace.init_telemetry(self.device)
+        ev, ad = router.merge(routed_ev, row_spikes_t, row_addr_t)
+        state, out = self.run(state, ev, ad, record_v=record_v,
+                              telemetry=telemetry)
+        routed, tele = router.route(out["spikes"],
+                                    out.get("telemetry", telemetry),
+                                    routed_in=routed_ev)
+        out["routed"] = routed
+        if tele is not None:
+            out["telemetry"] = tele
+        return state, out
 
     def _run_oracle(self, state, row_spikes_t, row_addr_t, record_v,
                     telemetry=None):

@@ -9,9 +9,12 @@ on.
 
 The grid equals the reference's ``pack_events`` followed by
 ``regroup_events`` (``repro/core/events.py``) value for value, drops
-included, but is built without the intermediate stream: the port has no
-other user of the stream, so it keeps only what the route runs. Records
-are int32 like the reference's. PyTorch has no ``mode="drop"`` scatter,
+included, but is built without the intermediate stream: which records a
+stream keeps is one predicate (``stream_keep``), shared with the wafer
+router's compact link transport, whose delivered grid is its input grid
+where that predicate holds (the reference's ``pack_events_batch`` ->
+``truncate_stream`` -> ``unpack_events_batch``). Records are int32 like
+the reference's. PyTorch has no ``mode="drop"`` scatter,
 so the scatter writes into the capacity plus one dump slot and slices the
 dump slot off.
 """
@@ -50,21 +53,34 @@ def window_stats(row_events_t) -> Tuple[torch.Tensor, torch.Tensor]:
     return per_step.sum(0, dtype=_I32).max(), per_step.max()
 
 
+def stream_keep(fired, max_events: int, k_cap: int):
+    """Which fired slots of [N, T, R] windows a capacity-``max_events``
+    t-major stream keeps when each step keeps at most ``k_cap`` of its
+    records: the slot fired, its t-major ordinal is below ``max_events``
+    and its rank within its step below ``k_cap``. Returns ``(keep,
+    rank)``, the [N, T, R] bool mask and the int64 rank of each slot
+    within its step. The records the first ``max_events`` keep are a
+    prefix of each step's records, so the rank among all records of the
+    step is the rank among the kept ones: the mask is the reference's
+    ``pack_events`` followed by ``regroup_events`` (``k_cap`` slots a
+    step) or by ``truncate_stream`` (``k_cap`` records a step) alike."""
+    N, T, R = fired.shape
+    rank = torch.cumsum(fired, dim=-1) - 1
+    ordinal = (torch.cumsum(fired.reshape(N, T * R), dim=-1) - 1
+               ).reshape(N, T, R)
+    return fired & (ordinal < max_events) & (rank < k_cap), rank
+
+
 def regroup_window(row_events_ntr, event_addr_ntr, max_events: int,
                    k_cap: int):
     """[N, T, R] windows -> the [N, T, K] record grids of the
     reference's ``regroup_events(pack_events(...))`` per instance, value
-    for value (drops included), built without the intermediate stream: a
-    record survives when its t-major ordinal is below ``max_events`` and
-    its rank within the step below ``k_cap``. Returns int32 rows and
-    addresses and float32 efficacies."""
+    for value (drops included), built without the intermediate stream:
+    the records ``stream_keep`` keeps, in their slots. Returns int32 rows
+    and addresses and float32 efficacies."""
     N, T, R = row_events_ntr.shape
     eff = row_events_ntr.to(torch.float32)
-    fired = eff != 0.0
-    rank = torch.cumsum(fired, dim=-1) - 1               # [N, T, R] int64
-    ordinal = (torch.cumsum(fired.reshape(N, T * R), dim=-1) - 1
-               ).reshape(N, T, R)
-    keep = fired & (ordinal < max_events) & (rank < k_cap)
+    keep, rank = stream_keep(eff != 0.0, max_events, k_cap)
     t_idx = torch.arange(T, device=eff.device).reshape(1, T, 1)
     dst = torch.where(keep, t_idx * k_cap + rank, T * k_cap
                       ).reshape(N, T * R)

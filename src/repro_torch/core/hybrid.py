@@ -32,8 +32,19 @@ carries an ``obs.trace.Telemetry`` in the state (``ExperimentState
 .tele``) that every trial adds to, replay or not, and ``run_training``
 returns its summary; ``faults=`` injects a ``FaultPlan`` overlay and
 ``blacklist=`` a screened ``Blacklist`` on top of it (``chain(faults,
-blacklist.as_faults(...))``, injection first). Not ported yet: wafer mode
-(and with it link blacklists).
+blacklist.as_faults(...))``, injection first).
+
+``wafer=K`` partitions the experiment over K virtual chips
+(``repro/core/hybrid.py:215-236, 246-262, 322-366, 403-411``): the
+neuron columns split into K contiguous blocks, one a chip (the instance
+prefix becomes ``(K,)``), every chip sees all 2I input rows, and an
+``InterChipRouter`` closes the trial loop: each trial's spikes cross the
+bus and arrive as relay-row events in the next trial (``ExperimentState
+.routed`` carries them). The instance and the draws are made for the
+whole network and then placed on the chips (``wafer_instance``,
+``wafer_draws``), so the run is the same bit for bit on every chip
+count. A blacklist with links reroutes the plan around them
+(``wafer.reroute_plan``; forwarded traffic counts in ``link_reroutes``).
 """
 from __future__ import annotations
 
@@ -49,10 +60,11 @@ from repro_torch.configs.bss2 import BSS2, BSS2Config
 from repro_torch.core import synapse
 from repro_torch.core.anncore import AnnCore, AnnCoreState
 from repro_torch.core.ppu import VectorUnit
-from repro_torch.faults.model import chain
+from repro_torch.faults.model import as_plans, chain, remap_link_faults
 from repro_torch.obs import trace as obs_trace
 from repro_torch.ppuvm import isa, programs
 from repro_torch.verif.mismatch import sample_instance
+from repro_torch.wafer import InterChipRouter, reroute_plan, s5_column_plan
 
 
 @dataclass(frozen=True)
@@ -76,11 +88,14 @@ class RSTDPConfig:
 
 class ExperimentState(NamedTuple):
     """The reference's ``ExperimentState`` without the PRNG key (draws
-    come from a generator or are injected) or the wafer slot."""
+    come from a generator or are injected)."""
     core: AnnCoreState
     w_signed: torch.Tensor        # PPU-resident signed weights [.., I, C]
     mean_reward: torch.Tensor     # [.., C]
     tele: Any = None              # obs.trace.Telemetry (None = off)
+    routed: Any = None            # wafer mode: [T, K, R] inter-chip events
+    #                               the last trial deposited for this one
+    #                               (None = single chip)
 
 
 class Draws(NamedTuple):
@@ -135,6 +150,39 @@ def _burst_schedule(ecfg: RSTDPConfig) -> np.ndarray:
                   ).astype(np.float32)
 
 
+def wafer_instance(inst: Dict, K: int) -> Dict:
+    """The instance of the whole network ([n_neurons] columns, [2I] rows,
+    no prefix) placed on K chips (``repro/core/hybrid.py:253-262``): the
+    column parameters split into K contiguous blocks ``(K, n_neurons /
+    K)``, the row parameters (the STP drivers) copied to every chip
+    ``(K, 2I)``."""
+    def cols(x):
+        return x.reshape(K, -1)
+
+    def rows(x):
+        return x.reshape(1, -1).repeat(K, 1)
+    return dict(
+        neuron_params={k: cols(v) for k, v in inst["neuron_params"].items()},
+        weight_gain=cols(inst["weight_gain"]),
+        stp_offset=rows(inst["stp_offset"]),
+        stp_calib=rows(inst["stp_calib"]),
+        cadc_offset=cols(inst["cadc_offset"]),
+        cadc_gain=cols(inst["cadc_gain"]))
+
+
+def wafer_draws(draws: Draws, K: int) -> Draws:
+    """Draws of the whole network (events [n, T, 2I], xi [n, I,
+    n_neurons]) placed on K chips (``repro/core/hybrid.py:350-366``): the
+    stimulus copied to every chip [n, T, K, 2I], xi's columns split into
+    K blocks [n, K, I, n_neurons / K]."""
+    n, I = draws.xi.shape[0], draws.xi.shape[1]
+    ev = draws.events
+    return Draws(events=ev.unsqueeze(2).expand(*ev.shape[:2], K,
+                                               ev.shape[-1]).contiguous(),
+                 xi=draws.xi.reshape(n, I, K, -1).transpose(1, 2)
+                 .contiguous())
+
+
 def events_from_background(bg, stims, ecfg: RSTDPConfig):
     """Event grids [n, T, *prefix, 2I] from background spikes
     [n, T, *prefix, I] and stimuli [n] in {0: none, 1: A, 2: B}: bursts
@@ -156,7 +204,10 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
                     prefix=(), backend: str = "auto",
                     sparse_mode: str = None, rule_impl: str = "python",
                     device=None, telemetry: bool = False, faults=None,
-                    blacklist=None):
+                    blacklist=None, wafer: int = None,
+                    wafer_topology: str = "all2all", wafer_relay: bool = True,
+                    wafer_plan=None, link_budget: int = None,
+                    link_mode: str = "auto"):
     """Build the experiment. Returns ``(init, trial, meta)``.
 
     The machine uses 2 rows per input (exc/inh pair, Dale's law: the PPU
@@ -168,8 +219,11 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
       ecfg: the §5 experiment parameters.
       inst: an injected virtual instance (e.g. the reference's, through
         ``repro_torch.convert.instance``); ``None`` samples one from
-        ``generator`` (default: a CPU generator seeded with 7).
-      prefix: instance prefix of a fleet of independent chips.
+        ``generator`` (default: a CPU generator seeded with 7). In wafer
+        mode it is the instance of the whole network, placed on the chips
+        here (``wafer_instance``; ``meta["inst"]`` holds the placed one).
+      prefix: instance prefix of a fleet of independent chips; ``()`` in
+        wafer mode, which owns the prefix.
       backend: AnnCore backend ("auto" | "oracle" | "fused" | "blocked").
       sparse_mode: the event-sparse synaptic route ("auto" | "never" |
         "always", see ``synapse.synaptic_current_window``); ``None``
@@ -193,15 +247,27 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
         into the emulated silicon (``None`` is the identity).
       blacklist: a ``repro_torch.faults.Blacklist`` (from
         ``faults.screen``) applied on top of the faults as the
-        graceful-degradation reduction. Link blacklists need the wafer
-        slice and raise.
+        graceful-degradation reduction; its links (wafer mode only)
+        reroute the plan over an intermediate chip
+        (``wafer.reroute_plan``), carrying the plan's link faults over to
+        the new link order when a ring is promoted to all2all.
+      wafer: chip count K (``None``: one chip).
+      wafer_topology: "all2all" | "ring", the link graph of the built-in
+        §5 split (``wafer.s5_column_plan``).
+      wafer_relay: announce every neuron's spikes to every chip over the
+        bus (relay rows carrying address 63; needs "all2all").
+      wafer_plan: an explicit ``WaferPlan`` in place of the built-in
+        split, with the per-chip geometry ``(2 n_inputs, n_neurons / K)``.
+      link_budget / link_mode: the router's bus budget and transport
+        (``wafer.InterChipRouter``).
 
     ``trial(state, stim, events, xi)`` runs one trial with its draws
     (``stim`` an int or a 0-d int32 tensor on the device);
     ``meta["train"](state, stims, draws)`` runs a batch of them from a
     Python loop, ``meta["scanned_training"](state, stims, draws)`` runs the
     same batch as one device dispatch (see ``make_scanned_training``), and
-    ``meta["draw"](generator, stims)`` draws them.
+    ``meta["draw"](generator, stims)`` draws them (in wafer mode for the
+    whole network, then placed on the chips).
     """
     device = resolve_device(device)
     if rule_impl not in ("python", "vm"):
@@ -214,8 +280,31 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
                          "n_cols == n_neurons")
     prefix = tuple(prefix)
     I, C, T = ecfg.n_inputs, ecfg.n_neurons, ecfg.trial_steps
+    K = wafer
+    chip_cfg, plan = cfg, None
+    if K:
+        if prefix != ():
+            raise ValueError("wafer mode owns the instance prefix")
+        if C % K or (C // K) % 2:
+            raise ValueError("wafer mode needs an even per-chip column "
+                             "count (reward parity)")
+        chip_cfg = dataclasses.replace(cfg, n_cols=C // K)
+        if wafer_plan is not None:
+            plan = wafer_plan
+            if plan.topology.n_chips != K or (plan.n_rows, plan.n_cols) != (
+                    2 * I, C // K):
+                raise ValueError(
+                    f"wafer_plan is for {plan.topology.n_chips} chips of "
+                    f"{(plan.n_rows, plan.n_cols)}, the experiment needs {K} "
+                    f"of {(2 * I, C // K)}")
+        else:
+            plan = s5_column_plan(K, I, C, relay=wafer_relay,
+                                  kind=wafer_topology)
+    c_loc = chip_cfg.n_cols
     mask_a, mask_b = _patterns(ecfg)
     even = (torch.arange(C, device=device) % 2 == 0).to(torch.float32)
+    if K:
+        even = even.reshape(K, c_loc)
     odd, nobody = 1.0 - even, torch.zeros_like(even)
     # the stimuli as 0-d device tensors, made once: a trial given an int
     # takes one of these, so it builds nothing from host data
@@ -224,21 +313,41 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
     if inst is None:
         if generator is None:
             generator = torch.Generator().manual_seed(7)
-        inst = sample_instance(cfg, generator, prefix, device=device)
+        inst = sample_instance(cfg, generator, () if K else prefix,
+                               device=device)
+    if K:
+        # one instance of the whole network, placed on the chips
+        inst = wafer_instance(inst, K)
+        prefix = (K,)
     # fault overlay: injection plans first, the blacklist reduction last
     # (its masks dominate the faults they cover: the exactness contract)
     overlay = faults
     if blacklist is not None and blacklist.total:
+        overlay = chain(faults, blacklist.as_faults(inst, cfg.cadc_bits)
+                        if blacklist.n_rows or blacklist.n_neurons else None)
         if blacklist.links:
-            raise ValueError("link blacklists need wafer mode, which is not "
-                             "ported yet (ROADMAP.md queue 1, item 4)")
-        overlay = chain(faults, blacklist.as_faults(inst, cfg.cadc_bits))
+            if not K:
+                raise ValueError("link blacklists need wafer mode")
+            old_links = plan.topology.links()
+            plan, _ = reroute_plan(plan, blacklist.links)
+            new_links = plan.topology.links()
+            if new_links != old_links:
+                # a ring promoted to all2all re-indexed the links: carry
+                # the injected link faults over by chip pair
+                overlay = tuple(remap_link_faults(p, old_links, new_links)
+                                for p in as_plans(overlay))
+    router = None if not K else InterChipRouter(
+        plan, device=device, link_budget=link_budget, link_mode=link_mode,
+        faults=overlay)
     # const_addr: every driver row carries exactly one source here (input
-    # i -> rows 2i/2i+1, address 0 throughout)
+    # i -> rows 2i/2i+1, address 0 throughout). In wafer mode the relay
+    # rows break that promise where a relayed event lands: the dense route
+    # then takes each row's address at step 0, as the reference's does
+    # (``repro/core/synapse.py:79-80``)
     core_kw = {} if sparse_mode is None else dict(sparse_mode=sparse_mode)
-    core = AnnCore(cfg, inst, backend=backend, const_addr=True,
+    core = AnnCore(chip_cfg, inst, backend=backend, const_addr=True,
                    faults=overlay, **core_kw)
-    ppu = VectorUnit(cfg, inst, faults=overlay)
+    ppu = VectorUnit(chip_cfg, inst, faults=overlay)
     addr = torch.zeros((T, *prefix, 2 * I), dtype=torch.int8, device=device)
     if rule_impl == "vm":
         dw_words = torch.as_tensor(programs.signed_dw_program(
@@ -250,17 +359,18 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
         w_exc = torch.clamp(w_signed, min=0)
         w_inh = torch.clamp(-w_signed, min=0)
         w_rows = torch.stack([w_exc, w_inh], dim=-2)   # [.., I, 2, C]
-        w_rows = w_rows.reshape(*w_signed.shape[:-2], 2 * I, C)
+        w_rows = w_rows.reshape(*w_signed.shape[:-2], 2 * I, c_loc)
         return syn._replace(weights=synapse.quantize_weight(w_rows))
 
     def init() -> ExperimentState:
         st = core.init_state(prefix)
-        w0 = ecfg.w_init * torch.ones((*prefix, I, C), device=device)
+        w0 = ecfg.w_init * torch.ones((*prefix, I, c_loc), device=device)
         st = st._replace(syn=_write_signed(st.syn, w0))
         return ExperimentState(
             core=st, w_signed=w0,
-            mean_reward=torch.zeros((*prefix, C), device=device),
-            tele=obs_trace.init_telemetry(device) if telemetry else None)
+            mean_reward=torch.zeros((*prefix, c_loc), device=device),
+            tele=obs_trace.init_telemetry(device) if telemetry else None,
+            routed=router.init_buffer(T) if router is not None else None)
 
     def _reward(rates, stim):
         """The reference's ``where`` form (``repro/core/hybrid.py:368-
@@ -319,8 +429,14 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
             if int(stim) not in stim_of:
                 raise ValueError(f"stim must be 0, 1 or 2, got {stim}")
             stim = stim_of[int(stim)]
-        cs, core_out = core.run(state.core, events, addr,
-                                telemetry=state.tele)
+        if router is not None:
+            # close the wafer loop: last trial's routed spikes merge into
+            # this trial's inputs, this trial's spikes go on the bus
+            cs, core_out = core.run_routed(state.core, state.routed, events,
+                                           addr, router, telemetry=state.tele)
+        else:
+            cs, core_out = core.run(state.core, events, addr,
+                                    telemetry=state.tele)
         tele = core_out.get("telemetry")
         rates = cs.rate_counters
         r = _reward(rates, stim)
@@ -338,7 +454,7 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
                                   rule_state["w_signed"])
         new = ExperimentState(core=cs2, w_signed=rule_state["w_signed"],
                               mean_reward=rule_state["mean_reward"],
-                              tele=tele)
+                              tele=tele, routed=core_out.get("routed"))
         elig = (obs["causal"][..., 0::2, :]
                 - obs["acausal"][..., 0::2, :]).to(torch.float32) / 255.0
         metrics = dict(reward=r, mean_reward=rule_state["mean_reward"],
@@ -347,15 +463,19 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
 
     def draw(gen: torch.Generator, stims) -> Draws:
         """Every trial's events and exploration noise in one batch, drawn
-        on the generator's device and moved to the experiment's."""
+        on the generator's device and moved to the experiment's; in wafer
+        mode drawn for the whole network and placed on the chips."""
         n = len(stims)
-        u = torch.rand((n, T, *prefix, I), generator=gen, device=gen.device)
+        gen_prefix = () if K else prefix
+        u = torch.rand((n, T, *gen_prefix, I), generator=gen,
+                       device=gen.device)
         bg = (u < ecfg.bg_prob).to(torch.float32)
-        xi = ecfg.noise * torch.randn((n, *prefix, I, C), generator=gen,
+        xi = ecfg.noise * torch.randn((n, *gen_prefix, I, C), generator=gen,
                                       device=gen.device)
-        return Draws(events=events_from_background(bg, stims, ecfg
-                                                   ).to(device),
-                     xi=xi.to(device))
+        d = Draws(events=events_from_background(bg, stims, ecfg), xi=xi)
+        if K:
+            d = wafer_draws(d, K)
+        return Draws(events=d.events.to(device), xi=d.xi.to(device))
 
     def train(state: ExperimentState, stims, draws: Draws):
         """Run ``len(stims)`` trials; metrics stacked [n_trials, ...] on
@@ -394,7 +514,7 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
 
     meta = dict(cfg=cfg, ecfg=ecfg, inst=inst, core=core, ppu=ppu,
                 mask_a=mask_a, mask_b=mask_b, even=even, train=train,
-                draw=draw, scanned_training=scanned_training)
+                draw=draw, scanned_training=scanned_training, router=router)
     return init, trial, meta
 
 
@@ -565,12 +685,17 @@ def run_training(n_trials: int = 300, ecfg: RSTDPConfig = RSTDPConfig(),
                  scan: bool = None, backend: str = "auto",
                  sparse_mode: str = None, rule_impl: str = "python",
                  device=None, inst: Dict = None, draws: Draws = None,
-                 telemetry: bool = False, faults=None, blacklist=None):
+                 telemetry: bool = False, faults=None, blacklist=None,
+                 wafer: int = None, wafer_topology: str = "all2all",
+                 wafer_relay: bool = True, wafer_plan=None,
+                 link_budget: int = None, link_mode: str = "auto"):
     """Full §5 experiment. Returns ``(out, state, meta)``: ``out`` the
     metrics history as numpy arrays stacked [n_trials, ...] plus
     ``w_signed_final`` (and, with ``telemetry=True``, the counters'
     ``obs.trace.summary`` under ``"telemetry"``); ``state`` the final
-    ``ExperimentState``. ``telemetry`` / ``faults`` / ``blacklist`` go to
+    ``ExperimentState``. ``telemetry`` / ``faults`` / ``blacklist`` and the
+    wafer keywords (``wafer``, ``wafer_topology``, ``wafer_relay``,
+    ``wafer_plan``, ``link_budget``, ``link_mode``) go to
     ``make_experiment``.
 
     Modes, as the reference's (``scan=None`` means ``scan=fused``):
@@ -583,7 +708,9 @@ def run_training(n_trials: int = 300, ecfg: RSTDPConfig = RSTDPConfig(),
     ``seed`` seeds the instance generator (``seed``) and the run's draws
     (``seed + 1``), both CPU ``torch.Generator``s, so a seed gives the same
     run on every device. ``inst`` / ``draws`` inject the reference's
-    instance and draws instead (``repro_torch.convert``). ``device``:
+    instance and draws instead (``repro_torch.convert``; in wafer mode the
+    whole network's instance and the placed draws, ``wafer_draws``).
+    ``device``:
     ``None`` means ``cuda`` and raises without a card.
     """
     device = resolve_device(device)
@@ -591,7 +718,9 @@ def run_training(n_trials: int = 300, ecfg: RSTDPConfig = RSTDPConfig(),
         cfg=cfg, ecfg=ecfg, inst=inst,
         generator=torch.Generator().manual_seed(seed), backend=backend,
         sparse_mode=sparse_mode, rule_impl=rule_impl, device=device,
-        telemetry=telemetry, faults=faults, blacklist=blacklist)
+        telemetry=telemetry, faults=faults, blacklist=blacklist, wafer=wafer,
+        wafer_topology=wafer_topology, wafer_relay=wafer_relay,
+        wafer_plan=wafer_plan, link_budget=link_budget, link_mode=link_mode)
     stims = stimuli(n_trials)
     if draws is None:
         draws = meta["draw"](torch.Generator().manual_seed(seed + 1), stims)

@@ -14,9 +14,9 @@ network (``chain(blacklist.as_faults(...))`` alone), as long as the
 blacklist covers the fault sites.
 
 The probes run ``core.run`` and ``ppu.read_correlation`` on the core's
-device; the host reads their results once, for the verdict. The link half
-(``screen_links``, ``screen(router=...)``) waits for the wafer slice
-(ROADMAP.md queue 1, item 4).
+device, the link probe the router's census on the router's device; the
+host reads their results once, for the verdict. A blacklist's links
+reroute a wafer plan around them (``core.hybrid.make_experiment``).
 """
 from __future__ import annotations
 
@@ -27,9 +27,6 @@ import numpy as np
 import torch
 
 from repro_torch.faults.model import FaultPlan
-
-_WAFER = ("link screening needs the wafer router, which is not ported yet "
-          "(ROADMAP.md queue 1, item 4)")
 
 
 def cadc_zero_code(inst, cadc_bits: int = 8) -> np.ndarray:
@@ -159,26 +156,49 @@ def screen_chip(core, ppu, probe_steps: int = 64, margin: int = 2,
     return Blacklist(rows=dead_rows, neurons=neurons)
 
 
-def screen_links(router, probe_steps: int = 32, min_ratio: float = 0.95):
-    """The inter-chip bus census probe of the reference; needs the wafer
-    router."""
-    raise NotImplementedError(_WAFER)
+def screen_links(router, probe_steps: int = 32,
+                 min_ratio: float = 0.95) -> Tuple[Tuple[int, int], ...]:
+    """Screen the inter-chip bus: every column spiking every dt, the
+    faulted router's per-link delivered census against a clean router's
+    on the same plan, both on the router's device (read back once). A
+    link delivering less than ``min_ratio`` of its expected census is
+    dead or flaky: returned as (src_chip, dst_chip) pairs for the
+    blacklist."""
+    from repro_torch.wafer.router import InterChipRouter
+    out = torch.ones((probe_steps, router.K_loc, router.C),
+                     dtype=torch.float32, device=router.device)
+    clean = InterChipRouter(router.plan, device=router.device,
+                            link_budget=router.link_budget,
+                            link_step_budget=router.link_step_budget,
+                            link_mode=router.link_mode, group=router.group)
+    n_f, n_c = torch.stack([router.link_census(out),
+                            clean.link_census(out)]).cpu().numpy()
+    bad = (n_c > 0) & (n_f < min_ratio * n_c)
+    links = router.plan.topology.links()
+    return tuple(links[l] for l in np.nonzero(bad)[0])
 
 
 def screen(core, ppu, router=None, probe_steps: int = 64,
-           margin: int = 2) -> Blacklist:
-    """Full screening pass: the two chip probes (``screen_chip``). A
-    ``router`` (the link census probe) raises until the wafer slice.
+           margin: int = 2, min_ratio: float = 0.95) -> Blacklist:
+    """Full screening pass: the two chip probes (``screen_chip``) and,
+    with a router, the link census probe (``screen_links``).
 
     Args:
       core / ppu: the (possibly faulted) ``AnnCore`` and ``VectorUnit``,
         e.g. ``meta["core"]`` / ``meta["ppu"]`` of a ``run_training``.
-      probe_steps: probe window length.
+      router: an ``InterChipRouter`` (``meta["router"]`` in wafer mode)
+        for the link census, or ``None``.
+      probe_steps: probe window length (the links take ``min(., 32)``).
       margin: CADC code tolerance before a column is flagged.
+      min_ratio: delivered / expected events below which a link is
+        flagged.
 
     Returns:
-      A ``Blacklist`` covering the detected rows and neurons.
+      A ``Blacklist`` covering the detected rows, neurons and links.
     """
+    bl = screen_chip(core, ppu, probe_steps=probe_steps, margin=margin)
     if router is not None:
-        raise NotImplementedError(_WAFER)
-    return screen_chip(core, ppu, probe_steps=probe_steps, margin=margin)
+        bl = Blacklist(rows=bl.rows, neurons=bl.neurons,
+                       links=screen_links(router, min(probe_steps, 32),
+                                          min_ratio))
+    return bl

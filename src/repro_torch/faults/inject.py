@@ -33,8 +33,8 @@ Hook sites:
             of them into one clamp-shift per column for ``ppu_update``).
   store     ``VectorUnit.run_program_fixed`` — XOR bit-flips then the
             blacklist zero-mask on every PPU-VM weight store.
-  links     per-link delivery grids of the wafer router (ported and
-            tested here; the router that calls it is not ported yet).
+  links     per-link delivery grids of the wafer router
+            (``wafer.InterChipRouter``), before the budget census.
 """
 from __future__ import annotations
 

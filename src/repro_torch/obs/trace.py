@@ -28,8 +28,8 @@ Counters (the reference's catalogue): ``steps`` / ``trials``,
 ``sparse_windows`` / ``gated_windows`` / ``overflow_fallbacks`` /
 ``census_events_max`` / ``census_k_max`` (the synaptic route's gate),
 ``routed_events`` / ``link_overflows`` / ``link_events_max`` /
-``link_reroutes`` (the wafer bus: ``count_links`` and ``count_reroutes``
-are ported, the router that calls them is not yet), ``vm_runs`` /
+``link_reroutes`` (the wafer bus, counted by ``wafer.InterChipRouter
+.route``), ``vm_runs`` /
 ``vm_sat_hits``, ``dw_updates`` / ``dw_abs_max`` / ``dw_hist``, and the
 gauges ``faults_injected`` / ``faults_detected`` / ``blacklisted_rows``.
 """

@@ -1,0 +1,148 @@
+"""One rank of the sharded-transport check (``tests/test_torch_wafer_
+sharded.py`` starts two of them): ``python _torch_wafer_sharded.py RANK
+WORLD STORE_FILE [gloo|nccl]``.
+
+Each rank joins a process group through a file store (gloo on the CPU,
+the default; nccl on card ``RANK``, one card a rank), holds chips
+``[rank K/WORLD, (rank+1) K/WORLD)`` of a K = 4 wafer, and runs the same
+routed windows as the local transport on every chip (which it runs too):
+its spikes, delivered grids and link counters must equal the local
+run's slice bit for bit. Not collected by pytest (no ``test_`` prefix).
+"""
+import dataclasses
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
+
+from repro_torch.configs.bss2 import BSS2  # noqa: E402
+from repro_torch.core.anncore import AnnCore  # noqa: E402
+from repro_torch.faults import FaultPlan, screen_links  # noqa: E402
+from repro_torch.obs import trace as obs  # noqa: E402
+from repro_torch.verif.mismatch import sample_instance  # noqa: E402
+from repro_torch.wafer import (InterChipRouter, WaferTopology,  # noqa: E402
+                               make_plan, reroute_plan, run_windows,
+                               s5_column_plan)
+
+K, R, C, T, W = 4, 16, 8, 32, 3
+COUNTERS = ("routed_events", "link_overflows", "link_events_max",
+            "link_reroutes", "faults_injected")
+
+
+def counters(tele):
+    s = obs.summary(tele)
+    return {k: s[k] for k in COUNTERS}
+
+
+def main(rank, world, store, backend="gloo"):
+    if backend == "nccl":
+        dev = torch.device("cuda", rank)
+        torch.cuda.set_device(dev)
+    else:
+        dev = torch.device("cpu")
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    group = dist.group.WORLD
+    chips = slice(rank * K // world, (rank + 1) * K // world)
+    cfg = dataclasses.replace(BSS2.reduced(), n_rows=R, n_cols=C)
+    inst = sample_instance(cfg, torch.Generator().manual_seed(3), (K,),
+                           device=dev)
+    inst_loc = {k: v[chips] for k, v in inst.items() if k != "neuron_params"}
+    inst_loc["neuron_params"] = {k: v[chips] for k, v in
+                                 inst["neuron_params"].items()}
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(rng.integers(20, 60, (K, R, C)).astype(
+        np.int8)).to(dev)
+    ev = torch.from_numpy((rng.random((W, T, K, R)) < 0.3).astype(
+        np.float32)).to(dev)
+    ad = torch.zeros((W, T, K, R), dtype=torch.int8, device=dev)
+    checked = 0
+
+    def run(core, router, prefix_chips):
+        st = core.init_state((w[prefix_chips].shape[0],))
+        a = torch.zeros((K, R, C), dtype=torch.int8, device=dev)
+        relay = torch.from_numpy(router.plan.relay_rows()).to(dev)
+        a[relay] = 7
+        st = st._replace(syn=st.syn._replace(weights=w[prefix_chips].clone(),
+                                             addresses=a[prefix_chips]))
+        _, out = run_windows(core, router, st, ev[:, :, prefix_chips],
+                             ad[:, :, prefix_chips],
+                             telemetry=obs.init_telemetry(dev))
+        return out
+
+    every = slice(0, K)
+    for kind in ("ring", "all2all"):
+        routes = []
+        for s in range(K):
+            for d in ([(s + 1) % K] if kind == "ring" else range(K)):
+                for _ in range(4):
+                    routes.append((s, int(rng.integers(C)), d,
+                                   int(rng.integers(R)), 7))
+        plan = make_plan(WaferTopology(K, kind), R, C, routes)
+        for kw in (dict(link_mode="dense"), dict(link_mode="compact"),
+                   dict(link_mode="auto"),
+                   dict(link_mode="compact", link_budget=6),
+                   dict(link_mode="auto", link_step_budget=1)):
+            loc = run(AnnCore(cfg, inst),
+                      InterChipRouter(plan, device=dev, **kw), every)
+            sh = run(AnnCore(cfg, inst_loc),
+                     InterChipRouter(plan, device=dev, group=group, **kw),
+                     chips)
+            assert torch.equal(sh["spikes"], loc["spikes"][:, :, chips]), \
+                (kind, kw)
+            assert torch.equal(sh["routed"], loc["routed"][:, chips]), \
+                (kind, kw)
+            assert counters(sh["telemetry"]) == counters(loc["telemetry"]), \
+                (kind, kw, counters(sh["telemetry"]),
+                 counters(loc["telemetry"]))
+            assert loc["spikes"].sum() > 0
+            assert counters(loc["telemetry"])["routed_events"] > 0
+            checked += 1
+
+    # link faults and failover forwards (tests/test_faults.py::test_sharded_
+    # link_faults_match_local_subprocess)
+    plan = s5_column_plan(K, 8, 16)
+    links = plan.topology.links()
+    p2, _ = reroute_plan(plan, [(0, 2)])
+    fp = FaultPlan(dead_links=np.array([sd == (0, 2) for sd in links]),
+                   flaky_links=np.where([sd == (1, 3) for sd in links],
+                                        np.float32(0.5), np.float32(0.0)),
+                   seed=4)
+    sp = torch.from_numpy((np.random.default_rng(1).random((16, K, 4))
+                           < 0.4).astype(np.float32)).to(dev)
+    for kw in (dict(link_mode="auto"), dict(link_mode="compact",
+                                            link_budget=20)):
+        r_loc = InterChipRouter(p2, device=dev, faults=fp, **kw)
+        r_sh = InterChipRouter(p2, device=dev, faults=fp, group=group,
+                               **kw)
+        t_loc, t_sh = obs.init_telemetry(dev), obs.init_telemetry(dev)
+        g_loc, g_sh = r_loc.init_buffer(16), r_sh.init_buffer(16)
+        for _ in range(3):
+            g_loc, t_loc = r_loc.route(sp, t_loc, routed_in=g_loc)
+            g_sh, t_sh = r_sh.route(sp[:, chips], t_sh, routed_in=g_sh)
+            assert torch.equal(g_sh, g_loc[:, chips]), kw
+        assert counters(t_sh) == counters(t_loc), kw
+        assert counters(t_loc)["link_reroutes"] > 0
+        checked += 1
+    # the link screen of the plan before the reroute finds both links
+    found = [screen_links(InterChipRouter(plan, device=dev, faults=fp,
+                                          group=g)) for g in (None, group)]
+    assert found[0] == found[1] == ((0, 2), (1, 3)), found
+
+    try:
+        InterChipRouter(make_plan(WaferTopology(3, "ring"), R, C, []),
+                        device=dev, group=group)
+    except ValueError as e:
+        assert "divides the chip count" in str(e)
+    else:
+        raise AssertionError("a group that does not divide K was taken")
+    dist.destroy_process_group()
+    print(f"WAFER_SHARDED_OK rank={rank} cases={checked}", flush=True)
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:5])

@@ -33,7 +33,11 @@ to eager trials'; a faulted window per synaptic route equal to the CPU's
 (spikes up to flips at threshold); the store hook after ``ppuvm_exec``
 and ``ppu_update`` with a CADC fault map bit-equal to the CPU; ``screen``
 and ``calibrate_stp`` equal to the CPU's; a host fault plan inside a
-capture raises; a second scanned run replays its graph.
+capture raises; a second scanned run replays its graph. The wafer: the
+router's delivered grids and link counters equal the CPU's bit for bit
+in every mode (link faults and failover forwards included),
+``run_training(wafer=2)``'s graph, eager and host-loop runs bit-equal,
+and chip-count parity (K = 1, 2, 4) bit for bit.
 """
 import dataclasses
 import math
@@ -1096,3 +1100,90 @@ def test_calibration_on_card_matches_cpu(cuda, shape):
     for k in m_c:
         torch.testing.assert_close(m_g[k].cpu(), m_c[k], rtol=1e-4,
                                    atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The wafer: the inter-chip router and run_training(wafer=K) on the card
+# ---------------------------------------------------------------------------
+
+def _wafer_plan(K, kind, R=16, C=8, per_link=4, seed=0):
+    from repro_torch.wafer import WaferTopology, make_plan
+    rng = np.random.default_rng(seed)
+    routes = [(s, int(rng.integers(C)), d, int(rng.integers(R)), 7)
+              for s in range(K)
+              for d in ([(s + 1) % K] if kind == "ring" else range(K))
+              for _ in range(per_link)]
+    return make_plan(WaferTopology(K, kind), R, C, routes)
+
+
+@pytest.mark.parametrize("kw", [dict(link_mode="dense"),
+                                dict(link_mode="compact"),
+                                dict(link_mode="auto"),
+                                dict(link_mode="compact", link_budget=4),
+                                dict(link_mode="auto", link_step_budget=1)])
+@pytest.mark.parametrize("kind", ["ring", "all2all"])
+def test_router_on_card_matches_cpu(cuda, kind, kw):
+    """``route()`` on the card: the delivered grids of three windows (the
+    forwards of a rerouted plan fed back through ``routed_in``, a dead
+    and a flaky link) and the link counters equal the CPU's bit for
+    bit."""
+    from repro_torch.wafer import InterChipRouter, reroute_plan
+    plan = _wafer_plan(4, kind)
+    if kind == "all2all":
+        plan, _ = reroute_plan(plan, [(0, 2)])
+    links = plan.topology.links()
+    fp = FaultPlan(dead_links=np.array([sd == (0, 2) for sd in links]),
+                   flaky_links=np.where([sd == (1, 2) for sd in links],
+                                        np.float32(0.5), np.float32(0.0)),
+                   seed=3)
+    sp = t((np.random.default_rng(1).random((32, 4, 8)) < 0.4)
+           .astype(np.float32))
+    outs = []
+    for dev in ("cpu", cuda):
+        r = InterChipRouter(plan, device=dev, faults=fp, **kw)
+        tele, g = obs_trace.init_telemetry(dev), r.init_buffer(32)
+        grids = []
+        for _ in range(3):
+            g, tele = r.route(sp.to(dev), tele, routed_in=g)
+            grids.append(g.cpu())
+        outs.append((grids, obs_trace.summary(tele)))
+    (g_c, s_c), (g_g, s_g) = outs
+    for a, b in zip(g_g, g_c):
+        assert torch.equal(a, b)
+    assert s_g == s_c and s_c["routed_events"] > 0
+
+
+def test_wafer_run_modes_bit_equal_on_card(cuda):
+    """``run_training(wafer=2)`` on the card: the captured trial graph
+    (the routed slot carried from replay to replay), eager trials and
+    the host loop give the same histories and counters."""
+    ecfg = th.RSTDPConfig(trial_steps=128)
+    outs = [th.run_training(9, ecfg=ecfg, seed=1, device=cuda, wafer=2,
+                            telemetry=True, **mode)[0]
+            for mode in (dict(), dict(scan=False), dict(fused=False))]
+    for o in outs[1:]:
+        assert o["telemetry"] == outs[0]["telemetry"]
+        for k in outs[0]:
+            if k != "telemetry":
+                np.testing.assert_array_equal(o[k], outs[0][k], err_msg=k)
+    assert outs[0]["telemetry"]["routed_events"] > 0
+
+
+def test_wafer_chip_count_parity_on_card(cuda):
+    """tests/test_wafer.py::TestClosedLoop::test_chip_count_parity_with_
+    relay on the card: K = 1, 2, 4 give the same global weights and
+    rewards bit for bit, and K times the routed events."""
+    ecfg = th.RSTDPConfig(trial_steps=128)
+    outs = {K: th.run_training(8, ecfg=ecfg, seed=0, device=cuda, wafer=K,
+                               telemetry=True)[0] for K in (1, 2, 4)}
+
+    def glob(w):
+        return np.asarray(w).transpose(1, 0, 2).reshape(w.shape[1], -1)
+    r1 = outs[1]["telemetry"]["routed_events"]
+    assert r1 > 0
+    for K in (2, 4):
+        np.testing.assert_array_equal(glob(outs[1]["w_signed_final"]),
+                                      glob(outs[K]["w_signed_final"]))
+        np.testing.assert_array_equal(outs[1]["reward"].reshape(8, -1),
+                                      outs[K]["reward"].reshape(8, -1))
+        assert outs[K]["telemetry"]["routed_events"] == K * r1

@@ -673,16 +673,29 @@ def test_screen_equal_to_reference(plan):
 
 
 def test_link_screening_waits_for_the_wafer_slice():
+    """The link half of screening, which the wafer slice brought: ``screen``
+    with a router and ``screen_links`` find a dead link; a link blacklist
+    reroutes a wafer experiment and, as in the reference, needs wafer
+    mode (tests/test_torch_wafer_faults.py holds both to the
+    reference)."""
+    from repro_torch.wafer import InterChipRouter, s5_column_plan
     _, inst_t = _inst()
     core, ppu = AnnCore(CFG, inst_t), VectorUnit(CFG, inst_t)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        screen(core, ppu, router=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        screen_links(object())
+    plan = s5_column_plan(4, R // 2, 16)
+    fp = FaultPlan(dead_links=np.array([sd == (0, 2)
+                                        for sd in plan.topology.links()]))
+    router = InterChipRouter(plan, device="cpu", faults=fp)
+    assert screen(core, ppu, router=router).links == ((0, 2),)
+    assert screen_links(router) == ((0, 2),)
+    assert screen(core, ppu).links == ()
     bl = Blacklist(rows=np.zeros(32, bool), neurons=np.zeros(16, bool),
                    links=((0, 2),))
     with pytest.raises(ValueError, match="link blacklists need wafer mode"):
         th.make_experiment(blacklist=bl, device="cpu")
+    bl4 = Blacklist(rows=np.zeros((4, 32), bool),
+                    neurons=np.zeros((4, 4), bool), links=((0, 2),))
+    _, _, meta = th.make_experiment(blacklist=bl4, wafer=4, device="cpu")
+    assert meta["router"].plan.n_forwards == 4
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 print(len(names), bad)
 assert not bad, bad
+assert "repro_torch.wafer.router" in names, names
 """
 
 
