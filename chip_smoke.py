@@ -143,6 +143,26 @@ Phases, each reported on its own line:
    announcing 32 columns a chip rerouted around the blacklisted links, 6
    trials eager and as replays bit-equal with ``link_reroutes`` counted,
    and the dead link's deliveries arriving one window late.
+13. Path F, the network mapper at full width (``repro_torch.mapper``): a
+   480 x 2048 ``NetworkSpec`` (``tests/_torch_mapper.py``: locality
+   feedforward plus sparse inhibitory recurrence, 4,864 edges) mapped
+   onto four native 256 x 512 chips (249 rows a chip, no relay, as the
+   reference's mapper places it; ``map_network`` timed on the host),
+   the instance drawn at spec shapes from one ``torch.Generator``, 6
+   windows of T = 128 (Poisson inputs, p = 0.05) through
+   ``build_runtime(...).run`` with the launch counts set to 0 before and
+   read after (every kernel of the path launched; ``launches_path_f``);
+   one window under ``set_sync_debug_mode("error")``; the same at K = 2
+   (490 x 1024) and K = 1 (968 x 2048), spec-order spikes bit for bit
+   (on a failure each K's routes by window and the first divergence are
+   printed); window 0 again on the CPU (flips counted, 0 expected); a
+   blacklist of rows, neurons and a dead link on four 264 x 528 chips
+   (the mapping avoids every bad site; run with them killed by faults,
+   equal to K = 1 bit for bit); at each of those geometries window 1's
+   operands of every wrapper captured and each kernel held to its plain
+   version; K = 4 against K = 1 eager ms a window (CUDA events, in
+   turns) and a ``torch.profiler`` trace of 3 windows and of the router
+   alone.
 
 Exits non-zero without a card, outside a checkout, or when any phase
 fails; the last line is the JSON device record.
@@ -838,31 +858,50 @@ def phase_main_path():
             graph_a)
 
 
-def _capture(calls):
-    """Wrap the synray and corr wrappers so that each call keeps a copy of
-    its operands (with their strides) before it runs; returns the undo."""
+def _keep(x):
+    """A copy of a wrapper's operand with its strides (tensors inside
+    tuples and dicts too)."""
     import torch
-    from repro_torch.kernels.corr import ops as corr_ops
-    from repro_torch.kernels.synray import ops as synray_ops
-
-    def keep(x):
-        if not isinstance(x, torch.Tensor):
-            return x
+    if isinstance(x, torch.Tensor):
         return torch.empty_strided(x.size(), x.stride(), dtype=x.dtype,
                                    device=x.device).copy_(x)
-    real = {}
-    for mod, name in ((synray_ops, "synaptic_current"),
-                      (corr_ops, "correlation_window")):
-        fn = real[(mod, name)] = getattr(mod, name)
+    if isinstance(x, dict):
+        return {k: _keep(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        vals = [_keep(v) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    return x
 
-        def spy(*args, _fn=fn, _name=name, **kw):
-            calls.append((_name, tuple(keep(a) for a in args), kw))
-            return _fn(*args, **kw)
-        setattr(mod, name, spy)
+
+def _capture_path(calls):
+    """Wrap the six wrappers a window of the emulation launches (``stp_scan``,
+    ``census``, ``synray``, ``synray_sparse``, ``neuron_scan``, ``corr``)
+    so that each call keeps a copy of its operands (with their strides)
+    before it runs; returns the undo."""
+    from repro_torch.kernels.census import ops as census_ops
+    from repro_torch.kernels.corr import ops as corr_ops
+    from repro_torch.kernels.neuron_scan import ops as neuron_ops
+    from repro_torch.kernels.stp_scan import ops as stp_ops
+    from repro_torch.kernels.synray import ops as synray_ops
+    from repro_torch.kernels.synray_sparse import ops as sparse_ops
+    real = {}
+    for name, mod, fn in (("stp_scan", stp_ops, "stp_scan"),
+                          ("census", census_ops, "census"),
+                          ("synray", synray_ops, "synaptic_current"),
+                          ("synray_sparse", sparse_ops,
+                           "sparse_current_window"),
+                          ("neuron_scan", neuron_ops, "neuron_window"),
+                          ("corr", corr_ops, "correlation_window")):
+        f = real[(mod, fn)] = getattr(mod, fn)
+
+        def spy(*args, _f=f, _name=name, **kw):
+            calls.append((_name, _keep(args), _keep(kw)))
+            return _f(*args, **kw)
+        setattr(mod, fn, spy)
 
     def undo():
-        for (mod, name), fn in real.items():
-            setattr(mod, name, fn)
+        for (mod, fn), f in real.items():
+            setattr(mod, fn, f)
     return undo
 
 
@@ -872,13 +911,13 @@ def kernels_on_trial(trial, state, stim, events_t, xi, label):
     captured, then each kernel is checked and timed on them as in phase
     2. The dense windows must come in the const_addr form."""
     calls = []
-    undo = _capture(calls)
+    undo = _capture_path(calls)
     try:
         trial(state, stim, events_t, xi)
     finally:
         undo()
-    syn = [c for c in calls if c[0] == "synaptic_current"]
-    cor = [c for c in calls if c[0] == "correlation_window"]
+    syn = [c for c in calls if c[0] == "synray"]
+    cor = [c for c in calls if c[0] == "corr"]
     if len(syn) != 2 or len(cor) != 1:
         raise AssertionError(f"{label}: {len(syn)} synray and {len(cor)} "
                              "corr calls, expected 2 and 1")
@@ -2407,6 +2446,408 @@ def phase_path_e():
     return counts, timing, dict(graph, trace=summ, router_trace=r_summ)
 
 
+# path F: the network mapper (phase 13)
+PATH_F_KERNELS = ("stp_scan", "census", "synray", "synray_sparse",
+                  "neuron_scan", "corr")
+PATH_F_W, PATH_F_T = 6, 128
+
+
+def _path_f_spec():
+    """Path F's network (``tests/_torch_mapper.py::path_f_spec``): the
+    shape of ``examples/map_network.py`` scaled to fill four native chips,
+    480 inputs x 2048 neurons, locality feedforward plus sparse inhibitory
+    recurrence, 4,864 edges."""
+    sys.path.insert(0, str(REPO / "tests"))
+    import _torch_mapper
+    spec = _torch_mapper.path_f_spec()
+    if spec.n_edges != 4864:
+        raise AssertionError(f"[13] path-F spec has {spec.n_edges} edges")
+    return spec
+
+
+def _path_f_mappings(spec):
+    """``tests/_torch_mapper.py::path_f_mappings``: K = 4 native 256 x 512
+    chips (all2all), K = 2 chips of 490 x 1024 and one 968 x 2048 chip;
+    the K = 4 mapping timed alone (best of 3 on the host clock). K = 4
+    must place 249 rows a chip with no relay and no transit row, as the
+    reference's mapper does."""
+    import _torch_mapper
+    from repro_torch import mapper
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        mapper.map_network(spec, 4, chip_rows=256, chip_cols=512)
+        times.append((time.perf_counter() - t0) * 1e3)
+    maps = _torch_mapper.path_f_mappings(spec)
+    m4 = maps[4]
+    if m4.rows_used().tolist() != [249] * 4 or m4.n_relayed_edges or \
+            m4.n_transit_rows:
+        raise AssertionError(f"[13] K=4 mapping: rows {m4.rows_used()}, "
+                             f"{m4.n_relayed_edges} relayed edges")
+    if (maps[2].chip_rows, maps[1].chip_rows) != (490, 968):
+        raise AssertionError(f"[13] rows {maps[2].chip_rows}, "
+                             f"{maps[1].chip_rows}")
+    return maps, min(times)
+
+
+def _kernel_parity(name, args, kw):
+    """One captured call: the kernel again (no flag, no routes) against
+    its plain version on the same operands. Returns ``max_abs_err``:
+    0 where the check is bit for bit; ``synray`` and ``synray_sparse``
+    within rtol = atol = 1e-4, ``synray``'s const-address form bit-equal
+    to its general form, and ``synray_sparse`` bit-equal to ``synray``
+    where the window fits its capacities."""
+    import torch
+    from repro_torch.core import events
+    from repro_torch.kernels.census import ops as census_ops
+    from repro_torch.kernels.census.ref import census_ref
+    from repro_torch.kernels.corr import ops as corr_ops
+    from repro_torch.kernels.corr.ref import correlation_window_ref
+    from repro_torch.kernels.neuron_scan import ops as neuron_ops
+    from repro_torch.kernels.neuron_scan.ref import neuron_window_ref
+    from repro_torch.kernels.stp_scan import ops as stp_ops
+    from repro_torch.kernels.stp_scan.ref import stp_scan_ref
+    from repro_torch.kernels.synray import ops as synray_ops
+    from repro_torch.kernels.synray.ref import synaptic_current_ref
+    from repro_torch.kernels.synray_sparse import ops as sparse_ops
+    from repro_torch.kernels.synray_sparse.ref import sparse_window_ref
+
+    def same(pairs, what):
+        for a, b in pairs:
+            if not torch.equal(a.view(torch.int32) if a.dtype ==
+                               torch.float32 else a,
+                               b.view(torch.int32) if b.dtype ==
+                               torch.float32 else b):
+                raise AssertionError(f"[13] {name}: {what} differs from "
+                                     "the plain version")
+        return 0.0
+    if name == "stp_scan":
+        return same(zip(stp_ops.stp_scan(*args, **kw),
+                        stp_scan_ref(*args, **kw)), "eff / r_T")
+    if name == "census":
+        ev, me, kc = args[:3]
+        return same([(census_ops.census(ev, me, kc),
+                      census_ref(ev, me, kc))], "the census")
+    if name == "neuron_scan":
+        g_s, g_rc, g_r = neuron_ops.neuron_window(*args, **kw)
+        p_s, p_rc, p_r = neuron_window_ref(
+            *args, **{k: v for k, v in kw.items() if k != "packed_params"})
+        return same([(g_r[0], p_r[0]), (g_rc, p_rc), *zip(g_s, p_s)],
+                    "spikes / state")
+    if name == "corr":
+        return same(zip(corr_ops.correlation_window(*args, **kw),
+                        correlation_window_ref(*args, **kw)), "a window")
+    ev, ea, w, a = args
+    if name == "synray":
+        got = synray_ops.synaptic_current(
+            ev, ea, w, a, const_addr=kw.get("const_addr", False))
+        if kw.get("const_addr") and not torch.equal(
+                got, synray_ops.synaptic_current(ev, ea, w, a)):
+            raise AssertionError("[13] synray: const form != general form")
+        want = synaptic_current_ref(ev, ea, w, a)
+    else:
+        me, kc = kw["max_events"], kw["k_cap"]
+        got = sparse_ops.sparse_current_window(ev, ea, w, a, max_events=me,
+                                               k_cap=kc)
+        recs = events.regroup_window(ev.permute(1, 0, 2),
+                                     ea.permute(1, 0, 2), me, kc)
+        want = sparse_window_ref(*recs, w, a).permute(1, 0, 2)
+        if int(census_ref(ev, me, kc)[0]) and not torch.equal(
+                got, synray_ops.synaptic_current(ev, ea, w, a,
+                                                 const_addr=True)):
+            raise AssertionError("[13] synray_sparse != synray on a window "
+                                 "that fits")
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    return float((got - want).abs().max())
+
+
+def _path_f_kernels(rt, ev_in, label):
+    """Window 1 of ``rt`` (routed events in its inhibitory half) with
+    every wrapper's operands captured; each kernel held against its plain
+    version on them (``_kernel_parity``). Returns ``{name: (calls,
+    max_abs_err, shapes)}``."""
+    import torch
+    ev, ad = rt.place(ev_in[:2])
+    st, out = rt.core.run_routed(rt.init_state(), rt.router.init_buffer(
+        ev.shape[1]), ev[0], ad[0], rt.router)
+    calls = []
+    undo = _capture_path(calls)
+    try:
+        rt.core.run_routed(st, out["routed"], ev[1], ad[1], rt.router)
+    finally:
+        undo()
+    res = {}
+    for name, args, kw in calls:
+        err = _kernel_parity(name, args, kw)
+        n, e, shapes = res.get(name, (0, 0.0, set()))
+        t0 = next((x for x in args if isinstance(x, torch.Tensor)), None)
+        res[name] = (n + 1, max(e, err), shapes | {tuple(t0.shape)})
+    missing = [k for k in PATH_F_KERNELS if k not in res]
+    if missing:
+        raise AssertionError(f"[13] {label}: no call of {missing}")
+    log(f"[13] kernels at {label} (window 1's operands): " + "; ".join(
+        f"{k} x{n} {sorted(sh)} max_abs_err {e:.3g}"
+        for k, (n, e, sh) in res.items()) + "; every one against its plain "
+        "version")
+    return res
+
+
+def _first_spike_divergence(a, b):
+    """(window, step, neuron) of the first spike that differs, or None."""
+    d = (a != b).nonzero()
+    return None if d.numel() == 0 else tuple(d[0].tolist())
+
+
+def _path_f_parity(rts, ev_g):
+    """K = 4, 2 and 1 on the same spec, instance and stimulus: spec-order
+    spikes bit for bit. On a failure, each K again window by window with
+    the device's route counter read after each window, and the first
+    divergence printed, before raising."""
+    import torch
+    from repro_torch.core import synapse
+    routes = synapse.route_counts("cuda")
+    outs = {}
+    for K, rt in rts.items():
+        before = routes.clone()
+        outs[K] = rt.run(ev_g)[1]["spikes"]
+        outs[K] = (outs[K], (routes - before).tolist())
+    spk1 = outs[1][0]
+    bad = [K for K in (4, 2) if not torch.equal(outs[K][0], spk1)]
+    if bad:
+        for K, rt in rts.items():
+            ev, ad = rt.place(ev_g)
+            st, routed = rt.init_state(), rt.router.init_buffer(ev.shape[1])
+            by_win = []
+            for w in range(ev.shape[0]):
+                before = routes.clone()
+                st, o = rt.core.run_routed(st, routed, ev[w], ad[w],
+                                           rt.router)
+                routed = o["routed"]
+                by_win.append((routes - before).tolist())
+            log(f"[13] K={K} routes [dense, sparse] by window: {by_win}")
+        for K in bad:
+            log(f"[13] K={K} vs K=1 first divergence (window, step, "
+                f"neuron): {_first_spike_divergence(outs[K][0], spk1)}")
+        raise AssertionError(f"[13] chip-count parity fails for K={bad}")
+    return outs
+
+
+def _path_f_blacklist(spec, net_inst, ev_g, spk1):
+    """A blacklist with rows, neurons and one dead link: path F's spec
+    fills the four native chips' columns exactly (2,048 neurons), so a
+    neuron blacklist needs spare columns: four chips of 264 rows x 528
+    columns, 5 even and 3 odd rows and 12 neurons a chip screened out, and
+    the link (0, 2) dead (the spec routes nothing on it, so no edge is
+    relayed). The mapping avoids every bad site; run with those sites
+    killed by faults, it equals the clean K = 1 run bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch import mapper
+    from repro_torch.configs.bss2 import BSS2
+    from repro_torch.faults import Blacklist, FaultPlan
+    from repro_torch.wafer import WaferTopology
+    K, R, C = 4, 264, 528
+    rng = np.random.default_rng(41)
+    rows = np.zeros((K, R), bool)
+    neurons = np.zeros((K, C), bool)
+    for k in range(K):
+        rows[k, 2 * rng.choice(R // 2, 5, replace=False)] = True
+        rows[k, 2 * rng.choice(R // 2, 3, replace=False) + 1] = True
+        neurons[k, rng.choice(C, 12, replace=False)] = True
+    bl = Blacklist(rows=rows, neurons=neurons, links=((0, 2),))
+    m = mapper.map_network(spec, K, chip_rows=R, chip_cols=C, blacklist=bl)
+    routed_pairs = set(zip(m.plan.src_chip.tolist(),
+                           m.plan.dst_chip.tolist()))
+    if ((m.row_source >= 0) & rows).any() or \
+            m.part.used_mask()[neurons].any() or (0, 2) in routed_pairs \
+            or m.n_relayed_edges:
+        raise AssertionError("[13] the blacklisted mapping uses a bad site "
+                             f"or relays ({m.n_relayed_edges} edges)")
+    links = WaferTopology(K, "all2all").links()
+    fp = FaultPlan(dead_rows=rows, dead_neurons=neurons,
+                   dead_links=np.array([sd == (0, 2) for sd in links]))
+    rt = mapper.build_runtime(m, cfg=BSS2, net_inst=net_inst, faults=fp,
+                              device="cuda")
+    spk = rt.run(ev_g)[1]["spikes"]
+    if not torch.equal(spk, spk1):
+        raise AssertionError("[13] the blacklisted K=4 run differs from K=1 "
+                             f"at {_first_spike_divergence(spk, spk1)}")
+    log(f"[13] blacklist ({bl.n_rows} rows, {bl.n_neurons} neurons, link "
+        f"(0, 2)) on four {R} x {C} chips: rows used "
+        f"{m.rows_used().tolist()}, no bad site used, no relay; run with "
+        f"the sites killed by faults == K=1 bit for bit")
+    return rt
+
+
+def phase_path_f():
+    """Path F, the network mapper at full width: the 480 x 2048 spec
+    mapped onto four native 256 x 512 chips and run through
+    ``build_runtime(...).run`` (6 windows of T = 128, eager, with the
+    launch counts set to 0 before and read after), chip-count parity
+    with K = 2 and K = 1, window 0 against the CPU, one window under
+    ``set_sync_debug_mode("error")``, a blacklisted mapping, every kernel
+    against its plain version at each geometry, CUDA-event times K = 4
+    against K = 1 and a ``torch.profiler`` trace. Returns the launches of
+    the K = 4 run."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels, mapper
+    from repro_torch.configs.bss2 import BSS2
+    from repro_torch.core import synapse
+    dev = torch.device("cuda")
+    cpu = torch.device("cpu")
+    spec = _path_f_spec()
+    maps, map_ms = _path_f_mappings(spec)
+    log(f"[13] path F: {spec.n_in} x {spec.n_neurons}, {spec.n_edges} "
+        f"edges; map_network onto 4 x 256 x 512 in {map_ms:.1f} ms (host, "
+        f"best of 3): rows {maps[4].rows_used().tolist()}, "
+        f"{maps[4].plan.n_routes} routes, no relay; K=2 "
+        f"{maps[2].chip_rows} x {maps[2].chip_cols} rows "
+        f"{maps[2].rows_used().tolist()}, K=1 {maps[1].chip_rows} x "
+        f"{maps[1].chip_cols} rows {maps[1].rows_used().tolist()}")
+    net_inst = mapper.sample_network_instance(
+        spec, torch.Generator().manual_seed(31), cfg=BSS2, device=dev)
+    rts = {K: mapper.build_runtime(m, cfg=BSS2, net_inst=net_inst,
+                                   device=dev) for K, m in maps.items()}
+    rng = np.random.default_rng(13)
+    ev_g = torch.from_numpy((rng.random((PATH_F_W, PATH_F_T, spec.n_in))
+                             < 0.05).astype(np.float32)).to(dev)
+    rt4 = rts[4]
+    rt4.run(ev_g[:2])                                  # warm-up
+    torch.cuda.synchronize()
+    routes = synapse.route_counts(dev)
+    synapse.reset_route_counts()
+    kernels.reset_launches()
+    state, out = rt4.run(ev_g)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    missing = [k for k in PATH_F_KERNELS if not counts[k]]
+    if missing:
+        raise AssertionError(f"[13] path F launched no {missing}: {counts}")
+    spk = out["spikes"]
+    if tuple(spk.shape) != (PATH_F_W, PATH_F_T, spec.n_neurons) or \
+            not float(spk.sum()) > 0 or not float(out["routed"].sum()) > 0:
+        raise AssertionError(f"[13] path F output {tuple(spk.shape)}, "
+                             f"{float(spk.sum())} spikes")
+    for x in _flatten(state):
+        if x.is_floating_point() and not bool(torch.isfinite(x).all()):
+            raise AssertionError("[13] non-finite state after path F")
+    log(f"[13] path F, K=4, {PATH_F_W} eager windows: launches {counts}; "
+        f"routes [dense, sparse] on the device {routes.tolist()}; "
+        f"{float(spk.sum()):.0f} spikes, per window "
+        f"{spk.sum((1, 2)).tolist()}")
+
+    # one window with no device-to-host read
+    st0 = rt4.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rt4.run(ev_g[:1], state=st0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("[13] one window of rt.run under set_sync_debug_mode('error'): no "
+        "device-to-host read")
+
+    # chip-count parity
+    outs = _path_f_parity(rts, ev_g)
+    log("[13] chip-count parity: " + ", ".join(
+        f"K={K} {rts[K].mapping.chip_rows} x {rts[K].mapping.chip_cols} "
+        f"routes {outs[K][1]}" for K in (4, 2, 1))
+        + f"; spec-order spikes bit for bit ({float(outs[1][0].sum()):.0f})")
+
+    # window 0 on the CPU from the same instance
+    rt_c = mapper.build_runtime(maps[4], cfg=BSS2,
+                                net_inst=_to(net_inst, cpu), device=cpu)
+    ev_c, ad_c = rt_c.place(ev_g[:1].cpu())
+    ev_d, ad_d = rt4.place(ev_g[:1])
+    _, o_c = rt_c.core.run_routed(rt_c.init_state(),
+                                  rt_c.router.init_buffer(PATH_F_T),
+                                  ev_c[0], ad_c[0], rt_c.router,
+                                  record_v=True)
+    _, o_g = rt4.core.run_routed(rt4.init_state(),
+                                 rt4.router.init_buffer(PATH_F_T), ev_d[0],
+                                 ad_d[0], rt4.router, record_v=True)
+    p = rt_c.inst["neuron_params"]
+    thr = p["v_thres"] + 2.0 * p["delta_t"]
+    s_g, s_c = o_g["spikes"].cpu(), o_c["spikes"]
+    v_quiet = torch.where(s_c == 0, o_c["v"], o_g["v"].cpu())
+    near = (v_quiet - thr).abs() <= 1e-4 + 1e-4 * thr.abs()
+    flip = s_g != s_c
+    if bool((flip & ~near).any()):
+        raise AssertionError("[13] window 0: a spike differs card vs CPU "
+                             "away from threshold")
+    if not bool(flip.any()) and not torch.equal(o_g["routed"].cpu(),
+                                                o_c["routed"]):
+        raise AssertionError("[13] window 0: routed grids differ")
+    log(f"[13] window 0 card vs CPU (fused backend): {int(flip.sum())} of "
+        f"{int(s_c.sum())} spikes flipped (at threshold); routed grids "
+        f"{'equal' if not bool(flip.any()) else 'not compared'}")
+
+    bl_rt = _path_f_blacklist(spec, net_inst, ev_g, outs[1][0])
+
+    # every kernel of the path against its plain version at each geometry
+    kparity = {}
+    for label, rt in (("K=4 (4 x 256 x 512)", rts[4]),
+                      ("K=2 (2 x 490 x 1024, Dale halves of 245)", rts[2]),
+                      ("K=1 (968 x 2048)", rts[1]),
+                      ("blacklisted (4 x 264 x 528)", bl_rt)):
+        kparity[label] = _path_f_kernels(rt, ev_g, label)
+
+    # eager time a window, K = 4 against K = 1, in turns
+    times = {4: [], 1: []}
+    for i in range(4):
+        for K in ((4, 1) if i % 2 == 0 else (1, 4)):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            rts[K].run(ev_g)
+            b.record()
+            b.synchronize()
+            times[K].append(a.elapsed_time(b) / PATH_F_W)
+    med = {K: float(np.median(v)) for K, v in times.items()}
+    log(f"[13] eager ms a window (CUDA events, {PATH_F_W} windows a run, 4 "
+        f"runs each in turns): K=4 median {med[4]:.4f} "
+        f"{[round(t, 4) for t in times[4]]}, K=1 median {med[1]:.4f} "
+        f"{[round(t, 4) for t in times[1]]}; K=4 / K=1 "
+        f"{med[4] / med[1]:.2f}")
+
+    # where a window's time goes, and the router's own kernels
+    summ = _traced(lambda: rt4.run(ev_g[:3]), "path_f_windows", 3)
+    _, o1 = rt4.core.run_routed(rt4.init_state(),
+                                rt4.router.init_buffer(PATH_F_T), ev_d[0],
+                                ad_d[0], rt4.router)
+    sp, routed = o1["spikes"], o1["routed"]
+
+    def route_calls():
+        for _ in range(3):
+            rt4.router.merge(routed, ev_d[0], ad_d[0])
+            rt4.router.route(sp, routed_in=routed)
+    r_summ = _traced(route_calls, "path_f_router", 3)
+    # a trace that lost device events (seen once: a corr launch and the
+    # router's kernels missing) is reported as such, not as numbers
+    n_corr = 0 if summ is None else sum(
+        c for k, (_, c) in summ["by_name"].items()
+        if k.startswith("corr_kernel"))
+    if summ is None or r_summ is None or not summ["by_name"]:
+        log("[13] profiler: NO DEVICE TIME in the trace")
+    elif n_corr != 3 or not r_summ["kernels_per_trial"]:
+        log(f"[13] profiler: the traces lost device events (corr_kernel "
+            f"x{n_corr} of 3 windows, {r_summ['kernels_per_trial']:.1f} "
+            f"router kernels a call); their numbers are not reported")
+    else:
+        top = sorted(summ["by_name"].items(), key=lambda kv: -kv[1][0])[:8]
+        w, bz = summ["window_us"], summ["busy_us"]
+        log(f"[13] profiler, 3 eager windows of K=4: window {w / 1e3:.3f} "
+            f"ms, device busy {bz / 1e3:.3f} ms = {bz / w:.4f} of it; "
+            f"{summ['kernels_per_trial']:.1f} kernels a window; by name: "
+            + "; ".join(f"{k} {t / 1e3:.4f} ({c})" for k, (t, c) in top))
+        log(f"[13] profiler, the router alone (merge + route, 3 calls on "
+            f"window 0's spikes): device busy {r_summ['busy_us'] / 1e3:.4f} "
+            f"ms, {r_summ['kernels_per_trial']:.1f} kernels a call, "
+            f"{r_summ['busy_us'] / bz:.4f} of the windows' busy time")
+    return counts
+
 def main() -> int:
     if not (REPO / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
@@ -2432,6 +2873,7 @@ def main() -> int:
     phase_playback()
     phase_path_d(counts, graph_a)
     counts_e, _, _ = phase_path_e()
+    counts_f = phase_path_f()
 
     kernels = []
     for name, (source, replaces) in SRC.items():
@@ -2446,6 +2888,7 @@ def main() -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             launches_path_e=counts_e[name],
+            launches_path_f=counts_f[name],
             **{k: r[k] for k in ("chain_floor_ms",) if k in r}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

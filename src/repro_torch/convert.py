@@ -10,6 +10,8 @@ and layouts, so a state moves over leaf by leaf as numpy arrays:
   back to a nested tuple/dict of numpy arrays with the same structure;
 * ``draws``: injected per-trial event grids and xi walks -> ``Draws``;
 * ``plan``: a reference ``WaferPlan`` -> the port's (its numpy arrays);
+* ``mapping``: a reference ``ChipMapping`` -> the port's, field by field
+  (``instance`` takes the mapper's spec-shaped ``net_inst`` as it is);
 * ``replay_reference_draws``: the reference's ``jax.random`` key chain
   replayed, so both packages consume the same numbers (PyTorch cannot
   reproduce threefry streams); ``replay_rstdp_xi`` likewise for the xi
@@ -29,6 +31,8 @@ from repro_torch.core import adex, correlation, stp, synapse
 from repro_torch.core.anncore import AnnCoreState
 from repro_torch.core.hybrid import (Draws, ExperimentState, RSTDPConfig,
                                      events_from_background)
+from repro_torch.mapper import (ChipMapping, ColumnPartition,
+                                NetworkSpec)
 from repro_torch.wafer.topology import WaferPlan, WaferTopology
 
 _PLAN_ARRAYS = ("src_chip", "src_col", "dst_chip", "dst_row", "addr",
@@ -41,7 +45,9 @@ def _t(x, device):
 
 
 def instance(ref_inst: Dict, device=None) -> Dict:
-    """Reference instance dict -> the port's, on ``device``."""
+    """Reference instance dict -> the port's, on ``device``: a chip or
+    fleet instance, or the mapper's spec-shaped ``net_inst``
+    (``sample_network_instance``: rows = sources, columns = neurons)."""
     device = resolve_device(device)
     out = {k: _t(v, device) for k, v in ref_inst.items()
            if k != "neuron_params"}
@@ -102,6 +108,26 @@ def plan(ref_plan) -> WaferPlan:
         topology=WaferTopology(topo.n_chips, topo.kind),
         n_rows=ref_plan.n_rows, n_cols=ref_plan.n_cols,
         **{k: np.array(getattr(ref_plan, k), np.int32) for k in _PLAN_ARRAYS})
+
+
+def mapping(ref_mapping) -> ChipMapping:
+    """Reference ``ChipMapping`` -> the port's: the spec, the column
+    partition, the row tables and planes (numpy copies in the same
+    dtypes), the plan (``plan``) and the relay counts, validated again."""
+    r = ref_mapping
+    spec = NetworkSpec(n_in=r.spec.n_in, n_neurons=r.spec.n_neurons,
+                       w_in=np.array(r.spec.w_in),
+                       w_rec=np.array(r.spec.w_rec), name=r.spec.name)
+    part = ColumnPartition(col_chip=np.array(r.part.col_chip),
+                           col_slot=np.array(r.part.col_slot),
+                           n_chips=r.part.n_chips, chip_cols=r.part.chip_cols)
+    out = ChipMapping(
+        spec=spec, part=part, plan=plan(r.plan),
+        n_relayed_edges=r.n_relayed_edges, n_transit_rows=r.n_transit_rows,
+        **{k: np.array(getattr(r, k)) for k in (
+            "row_source", "row_sign", "row_addr", "weights", "addresses")})
+    out.validate()
+    return out
 
 
 def replay_reference_draws(jax_random, key, stims,

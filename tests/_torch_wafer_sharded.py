@@ -7,7 +7,9 @@ the default; nccl on card ``RANK``, one card a rank), holds chips
 ``[rank K/WORLD, (rank+1) K/WORLD)`` of a K = 4 wafer, and runs the same
 routed windows as the local transport on every chip (which it runs too):
 its spikes, delivered grids and link counters must equal the local
-run's slice bit for bit. Not collected by pytest (no ``test_`` prefix).
+run's slice bit for bit. Last, a mapped network (``repro_torch.mapper``)
+through ``build_runtime(group=)`` against the local runtime. Not
+collected by pytest (no ``test_`` prefix).
 """
 import dataclasses
 import sys
@@ -22,6 +24,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 from repro_torch.configs.bss2 import BSS2  # noqa: E402
 from repro_torch.core.anncore import AnnCore  # noqa: E402
 from repro_torch.faults import FaultPlan, screen_links  # noqa: E402
+from repro_torch.mapper import (build_runtime, map_network,  # noqa: E402
+                                random_spec, sample_network_instance)
 from repro_torch.obs import trace as obs  # noqa: E402
 from repro_torch.verif.mismatch import sample_instance  # noqa: E402
 from repro_torch.wafer import (InterChipRouter, WaferTopology,  # noqa: E402
@@ -31,6 +35,17 @@ from repro_torch.wafer import (InterChipRouter, WaferTopology,  # noqa: E402
 K, R, C, T, W = 4, 16, 8, 32, 3
 COUNTERS = ("routed_events", "link_overflows", "link_events_max",
             "link_reroutes", "faults_injected")
+
+
+def ring_mask(n):
+    """Recurrent edges from quarter q to quarter q + 1 (q = 1, 3): they
+    cross a chip boundary of a K = 4 ring, so it maps without relays."""
+    q = n // 4
+    mask = np.zeros((n, n), bool)
+    for s in (1, 3):
+        d = (s + 1) % 4
+        mask[s * q:(s + 1) * q, d * q:(d + 1) * q] = True
+    return mask
 
 
 def counters(tele):
@@ -132,6 +147,29 @@ def main(rank, world, store, backend="gloo"):
     found = [screen_links(InterChipRouter(plan, device=dev, faults=fp,
                                           group=g)) for g in (None, group)]
     assert found[0] == found[1] == ((0, 2), (1, 3)), found
+
+    # a mapped network through build_runtime(group=): each rank runs its
+    # chips, the spec-order spikes (gathered over the group) equal the
+    # local runtime's, and its chips' planes the local planes' slice
+    for topology in ("ring", "all2all"):
+        n = 32
+        spec = random_spec(np.random.default_rng(7), 16, n, fan_out=4,
+                           rec_fan_out=3, rec_mask=ring_mask(n))
+        m = map_network(spec, K, chip_rows=64, chip_cols=n // K,
+                        topology=topology)
+        net_inst = sample_network_instance(
+            spec, torch.Generator().manual_seed(9), device=dev)
+        ev_in = torch.from_numpy((np.random.default_rng(8).random(
+            (W, T, 16)) < 0.3).astype(np.float32)).to(dev)
+        _, loc = build_runtime(m, net_inst=net_inst, device=dev).run(ev_in)
+        _, sh = build_runtime(m, net_inst=net_inst, device=dev,
+                              group=group).run(ev_in)
+        assert torch.equal(sh["spikes"], loc["spikes"]), topology
+        assert torch.equal(sh["chip_spikes"],
+                           loc["chip_spikes"][:, :, chips]), topology
+        assert torch.equal(sh["routed"], loc["routed"][:, chips]), topology
+        assert loc["spikes"].sum() > 0 and loc["routed"].sum() > 0
+        checked += 1
 
     try:
         InterChipRouter(make_plan(WaferTopology(3, "ring"), R, C, []),

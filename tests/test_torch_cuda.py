@@ -1187,3 +1187,197 @@ def test_wafer_chip_count_parity_on_card(cuda):
         np.testing.assert_array_equal(outs[1]["reward"].reshape(8, -1),
                                       outs[K]["reward"].reshape(8, -1))
         assert outs[K]["telemetry"]["routed_events"] == K * r1
+
+
+# ---------------------------------------------------------------------------
+# The network mapper on the card (path F)
+# ---------------------------------------------------------------------------
+
+def test_mapped_run_on_card_matches_cpu(cuda):
+    """``MappedRuntime.run`` on the card against the CPU: each window of
+    the card's run again on the CPU from the card's state and routed
+    grid, spikes equal up to flips at threshold and the routed grids bit
+    for bit where no spike flipped; the instance drawn once and placed."""
+    from repro_torch import mapper
+    spec = mapper.random_spec(np.random.default_rng(0), 20, 30, fan_out=4,
+                              rec_fan_out=3, dale=False)
+    m = mapper.map_network(spec, 2, chip_rows=mapper.min_chip_rows(
+        spec, 2, 17) + 8, chip_cols=17)
+    ni = mapper.sample_network_instance(
+        spec, torch.Generator().manual_seed(3), device="cpu")
+    rt_g = mapper.build_runtime(m, net_inst=ni, device=cuda)
+    rt_c = mapper.build_runtime(m, net_inst=ni, device="cpu")
+    ev_in = t((np.random.default_rng(1).random((3, 24, 20)) < 0.25)
+              .astype(np.float32))
+    _, free = rt_g.run(ev_in.to(cuda))
+    assert free["spikes"].shape == (3, 24, 30) and free["spikes"].sum() > 0
+    ev_g, ad_g = rt_g.place(ev_in.to(cuda))
+    ev_c, ad_c = rt_c.place(ev_in)
+    p = rt_c.inst["neuron_params"]
+    thr = (p["v_thres"] + 2.0 * p["delta_t"]).numpy()
+    st, routed = rt_g.init_state(), rt_g.router.init_buffer(24)
+    for w in range(3):
+        st_c, routed_c = _to_cpu(st), routed.cpu()
+        st, o_g = rt_g.core.run_routed(st, routed, ev_g[w], ad_g[w],
+                                       rt_g.router, record_v=True)
+        _, o_c = rt_c.core.run_routed(st_c, routed_c, ev_c[w], ad_c[w],
+                                      rt_c.router, record_v=True)
+        assert_spikes_match(o_g["spikes"].cpu(), o_c["spikes"],
+                            o_g["v"].cpu(), o_c["v"], thr)
+        if torch.equal(o_g["spikes"].cpu(), o_c["spikes"]):
+            assert torch.equal(o_g["routed"].cpu(), o_c["routed"])
+        routed = o_g["routed"]
+
+
+def _to_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return type(tree)(*(_to_cpu(v) for v in tree))
+
+
+def test_path_f_chip_count_parity_on_card(cuda):
+    """``chip_smoke.py``'s path F: the 480 x 2048 spec on four native
+    256 x 512 chips, two 490 x 1024 and one 968 x 2048 chip, the same
+    instance and stimulus: spec-order spikes bit for bit over 4 windows
+    of T = 128, every path kernel launched by the K = 4 run."""
+    import _torch_mapper
+    from repro_torch import mapper
+    spec = _torch_mapper.path_f_spec()
+    maps = _torch_mapper.path_f_mappings(spec)
+    ni = mapper.sample_network_instance(
+        spec, torch.Generator().manual_seed(31), cfg=BSS2, device=cuda)
+    ev_in = t((np.random.default_rng(13).random((4, 128, spec.n_in))
+               < 0.05).astype(np.float32)).to(cuda)
+    spikes = {}
+    for K in (4, 2, 1):
+        rt = mapper.build_runtime(maps[K], cfg=BSS2, net_inst=ni,
+                                  device=cuda)
+        kernels.reset_launches()
+        spikes[K] = rt.run(ev_in)[1]["spikes"]
+        if K == 4:
+            for k in ("stp_scan", "census", "synray", "synray_sparse",
+                      "neuron_scan", "corr"):
+                assert kernels.LAUNCHES[k] > 0, k
+    assert spikes[1].sum() > 0
+    assert torch.equal(spikes[4], spikes[1])
+    assert torch.equal(spikes[2], spikes[1])
+
+
+@pytest.mark.parametrize("N,R,C", [(4, 256, 512), (2, 490, 1024),
+                                   (1, 968, 2048), (4, 264, 528),
+                                   (3, 16, 20), (2, 18, 8), (4, 10, 4)])
+def test_path_f_kernels_at_mapped_geometries(cuda, N, R, C):
+    """Every kernel of a mapped window against its plain version at the
+    mapper's geometries: Dale halves of 128, 245 (odd), 484 and 132 rows,
+    C = 512, 1024, 2048 and 528, and the tier-1 tests' narrow widths (C =
+    20, 8, 4; halves of 8, 9 and 5 rows): ``stp_scan``, ``census``,
+    ``neuron_scan`` and ``corr`` bit for bit; ``synray`` (const-address
+    form bit-equal to the general one) and ``synray_sparse`` within
+    rtol = atol = 1e-4 of their plain versions, and ``synray_sparse``
+    bit-equal to ``synray`` on the windows that fit."""
+    from repro_torch.core import stp
+    rng = np.random.default_rng(R + C)
+    T = 128
+
+    def dev(x):
+        return t(np.ascontiguousarray(x)).to(cuda)
+    sp = dev((rng.random((T, N, R)) < 0.05).astype(np.float32))
+    r0 = dev(rng.random((N, R)).astype(np.float32))
+    scale = dev(rng.normal(1.0, 0.25, (N, R)).astype(np.float32))
+    skw = dict(u=0.2, recovery=stp.recovery_factor(20.0, 0.2))
+    for a, b in zip(stp_ops.stp_scan(r0, sp, scale, **skw),
+                    stp_scan_ref(r0, sp, scale, **skw)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    w = dev(rng.integers(0, 64, (N, R, C), dtype=np.int8))
+    a = dev(rng.integers(0, 4, (N, R, C), dtype=np.int8))
+    ea = dev(np.broadcast_to(rng.integers(0, 4, (N, R), dtype=np.int8),
+                             (T, N, R)))
+    currents = []
+    for p in (0.01, 0.08):                  # fits / overflows the caps
+        eff = dev(((rng.random((T, N, R)) < p)
+                   * rng.uniform(0.2, 1.2, (T, N, R))).astype(np.float32))
+        for h in (0, 1):
+            ev, eah = eff[..., h::2], ea[..., h::2]
+            wh, ah = w[:, h::2], a[:, h::2]
+            Rh = ev.shape[-1]
+            me = events.default_max_events(T, Rh, 0.02)
+            kc = events.default_k_cap(Rh, 0.02)
+            flag = census_ops.census(ev, me, kc)
+            assert torch.equal(flag, census_ref(ev, me, kc))
+            dense = synray_ops.synaptic_current(ev, eah, wh, ah,
+                                                const_addr=True)
+            assert torch.equal(dense, synray_ops.synaptic_current(
+                ev, eah, wh, ah))
+            torch.testing.assert_close(
+                dense, synaptic_current_ref(ev, eah, wh, ah), rtol=1e-4,
+                atol=1e-4)
+            sparse = sparse_ops.sparse_current_window(
+                ev, eah, wh, ah, max_events=me, k_cap=kc)
+            recs = events.regroup_window(ev.permute(1, 0, 2),
+                                         eah.permute(1, 0, 2), me, kc)
+            torch.testing.assert_close(
+                sparse, sparse_window_ref(*recs, wh, ah).permute(1, 0, 2),
+                rtol=1e-4, atol=1e-4)
+            if int(flag[0]):
+                assert torch.equal(sparse, dense)
+            currents.append(dense * 60.0)
+
+    cfg = dataclasses.replace(BSS2, n_rows=R, n_cols=C)
+    inst = sample_instance(cfg, torch.Generator().manual_seed(R), (N,),
+                           device=cuda)
+    prm = inst["neuron_params"]
+    st0 = adex.init_state((N, C), prm)
+    rc0 = torch.zeros((N, C), device=cuda)
+    nkw = dict(dt=cfg.dt, use_adex=True, decays=adex.decay_factors(
+        prm, cfg.dt), record_v=True)
+    g = neuron_ops.neuron_window(st0, rc0, currents[2], currents[3], prm,
+                                 **nkw)
+    r = neuron_window_ref(st0, rc0, currents[2], currents[3], prm, **nkw)
+    for x, y in zip((*g[0], g[1], *g[2]), (*r[0], r[1], *r[2])):
+        assert torch.equal(x, y)
+
+    post = g[2][0]
+    ops = (sp, post, dev(rng.random((N, R), dtype=np.float32)),
+           dev(rng.random((N, C), dtype=np.float32)),
+           dev(rng.uniform(0, 1023, (N, R, C)).astype(np.float32)),
+           dev(rng.uniform(0, 1023, (N, R, C)).astype(np.float32)))
+    for x, y in zip(corr_ops.correlation_window(*ops, lam=0.96),
+                    correlation_window_ref(*ops, lam=0.96)):
+        assert torch.equal(x, y)
+
+
+def test_sharded_transport_on_nccl(cuda, tmp_path):
+    """``tests/_torch_wafer_sharded.py`` on NCCL, one card a rank (4 ranks
+    where four cards are present, else 2): the sharded router and the
+    mapped runtime under a group equal to the local ones. NCCL takes no
+    two ranks on one card, so this needs two cards or more."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards or more: NCCL takes one card a rank")
+    world = 4 if n >= 4 else 2
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, str(here / "_torch_wafer_sharded.py"), str(rank),
+         str(world), str(tmp_path / "store"), "nccl"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for rank in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {rank}:\n{out[-2000:]}{err[-4000:]}"
+        assert f"WAFER_SHARDED_OK rank={rank} cases=14" in out, out + err

@@ -3,7 +3,9 @@ ranks over K = 4 chips, each holding two chips and their out-links, equal
 to the local transport bit for bit on the ring (point to point) and on
 all2all (all-gather), in every link mode, over and under the link budget,
 with link faults and failover forwards; the link screen on a sharded
-router equals the local one; a group that does not divide K raises
+router equals the local one; a mapped network run through
+``mapper.build_runtime(group=)`` equals the local runtime, ring and
+all2all; a group that does not divide K raises
 (tests/test_wafer.py::test_sharded_transport_matches_local_subprocess and
 tests/test_faults.py::test_sharded_link_faults_match_local_subprocess).
 
@@ -41,4 +43,4 @@ def test_sharded_transport_equals_local(tmp_path):
                 p.communicate()
     for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {rank}:\n{out[-2000:]}{err[-4000:]}"
-        assert f"WAFER_SHARDED_OK rank={rank} cases=12" in out, out + err
+        assert f"WAFER_SHARDED_OK rank={rank} cases=14" in out, out + err
