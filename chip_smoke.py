@@ -163,6 +163,29 @@ Phases, each reported on its own line:
    version; K = 4 against K = 1 eager ms a window (CUDA events, in
    turns) and a ``torch.profiler`` trace of 3 windows and of the router
    alone.
+14. Path G, LM serving (``repro_torch.serve``): ``ServeEngine`` on
+   qwen1.5-0.5b at full width in f32 (24 layers, d 1024, vocab 151,936,
+   0.464 B parameters from ``init_params`` with a seeded generator on the
+   card), 8 requests of 128 prompt tokens from a numpy seed, 32 greedy
+   new tokens: prefill ms and decode ms a token (``PhaseTimer``'s CUDA
+   events, median of 3 runs after a warm-up), tokens/s, peak device
+   memory, a ``torch.profiler`` trace of 4 decode steps (busy share,
+   kernels a step, the top kernels), beside the bounds (decode: parameter
+   bytes over 3.35 TB/s a step; prefill: 2 x parameters x tokens over 67
+   TFLOP/s). Request 0 of the timed run again on the CPU, teacher-forced
+   at its full prompt through all 32 tokens (both sides fed the engine's
+   tokens): logits within rtol = atol = 1e-3 at every step, an engine
+   token differing from the CPU's greedy one only where the CPU's top-2
+   gap is under that (a near tie). ``mamba2-130m`` at 8 x 512 (two SSD
+   chunks of 256: the inter-chunk state pass runs) and ``hymba-1.5b`` at
+   8 x 1152 (+ 128 meta tokens = 1280 positions: five chunks, and the
+   1024-token sliding window cuts beside the three global layers) at full
+   width the same way; every reduced arch of ``ASSIGNED_ARCHS`` generated
+   on the card at 48 positions (three chunks of 16, past the reduced
+   window of 8) and held to the CPU at 1e-4 the same way
+   (``hubert-xlarge``: its prefill frame logits). TF32 must be off. The
+   path launches none of the port's kernels (counts read); its numbers go
+   on a ``serve_path_g`` JSON line.
 
 Exits non-zero without a card, outside a checkout, or when any phase
 fails; the last line is the JSON device record.
@@ -2848,6 +2871,316 @@ def phase_path_f():
             f"{r_summ['busy_us'] / bz:.4f} of the windows' busy time")
     return counts
 
+
+# path G: LM serving (repro_torch.serve) at full qwen1.5-0.5b width
+PATH_G_ARCH, PATH_G_FAMILIES = "qwen1.5-0.5b", ("mamba2-130m", "hymba-1.5b")
+# prompt tokens a request at full width: qwen1.5-0.5b's 128; mamba2-130m's
+# 512, two SSD chunks of 256; hymba-1.5b's 1152, so that with its 128 meta
+# tokens 1280 positions fill five chunks and pass its 1024-token window
+PATH_G_PROMPT = {"qwen1.5-0.5b": 128, "mamba2-130m": 512, "hymba-1.5b": 1152}
+PATH_G_B, PATH_G_NEW = 8, 32
+# the reduced archs: prompt + prefix = 48 positions, three SSD chunks of 16
+# and six times the reduced window of 8
+PATH_G_REDUCED_POS, PATH_G_REDUCED_NEW = 48, 8
+# card against CPU on the logits of one request, |card - cpu| <= tol + tol
+# |cpu|: the house 1e-4 on the reduced archs (2-3 layers, d 64); 1e-3 at
+# full width, where 24-32 layers of fp32 sums run in cuBLAS's order on the
+# card and in the CPU BLAS's on the host
+PATH_G_TOL_REDUCED, PATH_G_TOL_FULL = 1e-4, 1e-3
+
+
+def _lm_params(arch, dev, seed):
+    import torch
+    from repro_torch.models.transformer import build_model
+    from repro_torch.parallel.sharding import (ShardingCtx, init_params,
+                                               param_bytes)
+    decls = build_model(arch, ShardingCtx()).decls
+    params = init_params(decls, torch.Generator(dev).manual_seed(seed), dev)
+    return params, param_bytes(decls)
+
+
+def _lm_batch(arch, tokens, rng, dev, patches="engine"):
+    """The model inputs of ``tokens`` [b, s] (numpy): frames for the
+    encoder; for a VLM beside the tokens the patch embeddings the engine
+    serves (zeros, ``patches="engine"``) or drawn ones (``"drawn"``)."""
+    import numpy as np
+    import torch
+    b, s = tokens.shape
+    if arch.family == "audio":
+        return dict(frames=torch.from_numpy(rng.standard_normal(
+            (b, s, arch.frame_dim)).astype(np.float32)).to(dev))
+    batch = dict(tokens=torch.from_numpy(tokens.astype(np.int64)).to(dev))
+    if arch.vit_dim:
+        shape = (b, arch.n_patches, arch.vit_dim)
+        batch["patch_embeds"] = (
+            torch.zeros(shape, device=dev) if patches == "engine" else
+            torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(dev))
+    return batch
+
+
+def _logits_agree(lg, lc, tol, what, tok=None):
+    """Card logits ``lg`` against CPU logits ``lc`` [b, V] (the same step):
+    within ``tol + tol |lc|`` everywhere; the card's token (``tok`` [b],
+    the engine's where given, else ``lg``'s greedy one) may differ from
+    the CPU's greedy token only where the CPU's top-2 gap is under ``tol``
+    (a near tie). Returns (max abs error, flips)."""
+    import torch
+    a, b = lg.float().cpu(), lc.float()
+    err = (a - b).abs()
+    bad = err > tol + tol * b.abs()
+    if bad.any():
+        raise AssertionError(f"{what}: card and CPU logits differ by "
+                             f"{err.max().item():.3e} (tol {tol})")
+    ta = a.argmax(-1) if tok is None else tok.reshape(-1).cpu()
+    tb = b.argmax(-1)
+    top2 = torch.topk(b, 2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    flip = ta != tb
+    if (flip & (gap >= tol)).any():
+        raise AssertionError(f"{what}: the card's token differs where the "
+                             f"CPU's top-2 gap {gap[flip].min().item():.3e} "
+                             f">= {tol}")
+    return err.max().item(), int(flip.sum())
+
+
+def _engine_against_cpu(arch, params_g, batch_g, out, tol, label):
+    """Requests of a ``ServeEngine.generate`` run on the card (their inputs
+    ``batch_g`` [b, s], their tokens ``out`` [b, n_new]) held against the
+    CPU, teacher-forced: the same parameters (copied) prefill the prompts
+    on the card and on the CPU, then decode step i feeds both the engine's
+    tokens i - 1 at the engine's position. At every step the logits agree
+    and the engine's tokens i are the CPU's greedy ones up to a near tie
+    (``_logits_agree``). ``out=None`` (the encoder) holds the prefill
+    frame logits only. Returns (max abs error, flips, decode steps)."""
+    import torch
+    from repro_torch.models.transformer import build_model, prefix_len
+    from repro_torch.parallel.sharding import ShardingCtx
+    from repro_torch.serve.engine import grow_cache
+    cpu = torch.device("cpu")
+    bundle = build_model(arch, ShardingCtx())
+    params_c = _to(params_g, cpu)
+    batch_c = _to(batch_g, cpu)
+    with torch.no_grad():
+        lg, cg = bundle.prefill(params_g, batch_g)
+        lc, cc = bundle.prefill(params_c, batch_c)
+        if out is None:
+            e, f = _logits_agree(lg.reshape(-1, lg.shape[-1]),
+                                 lc.reshape(-1, lc.shape[-1]), tol,
+                                 f"{label} frame logits")
+            return e, f, 0
+        out = out.to(torch.int64)
+        worst, flips = _logits_agree(lg[:, -1], lc[:, -1], tol,
+                                     f"{label} prefill", tok=out[:, 0])
+        total = batch_g["tokens"].shape[1] + prefix_len(arch)
+        n = out.shape[1] - 1
+        cg = grow_cache(cg, total, total + n)
+        cc = grow_cache(cc, total, total + n)
+        for i in range(n):
+            tok = out[:, i:i + 1]
+            lg, cg = bundle.decode_step(params_g, cg, tok.to(lg.device),
+                                        total + i)
+            lc, cc = bundle.decode_step(params_c, cc, tok, total + i)
+            e, f = _logits_agree(lg[:, -1], lc[:, -1], tol,
+                                 f"{label} decode step {i}",
+                                 tok=out[:, i + 1])
+            worst, flips = max(worst, e), flips + f
+    return worst, flips, n
+
+
+def _serve_timed(arch, params, prompts, n_new, reps=3):
+    """``ServeEngine.generate`` on the card, ``reps`` timed runs after a
+    warm-up: the median prefill and decode spans (CUDA events,
+    ``PhaseTimer``), the tokens of the last run, the launches of the
+    port's kernels in it and the peak device memory."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.obs.timing import PhaseTimer
+    from repro_torch.serve.engine import ServeEngine
+    dev = torch.device("cuda")
+    b, s = prompts.shape
+    eng = ServeEngine(arch, max_len=s + arch.n_meta_tokens + n_new,
+                      device=dev)
+    eng.generate(params, prompts[:, :8], n_new=2)           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timer = PhaseTimer(dev)
+    for _ in range(reps):
+        kernels.reset_launches()
+        out = eng.generate(params, prompts, n_new=n_new, timer=timer)
+        launches = dict(kernels.LAUNCHES)
+    med = {k: sorted(v)[len(v) // 2] * 1e3 for k, v in timer.samples.items()}
+    return (med["prefill"], med["decode"], out, launches,
+            torch.cuda.max_memory_allocated())
+
+
+def _decode_trace(arch, params, prompts, n_steps=4):
+    """A ``torch.profiler`` trace of ``n_steps`` decode steps at the served
+    batch (the cache from one prefill; ``_traced``)."""
+    import torch
+    from repro_torch.models.transformer import build_model, prefix_len
+    from repro_torch.parallel.sharding import ShardingCtx
+    from repro_torch.serve.engine import grow_cache
+    dev = torch.device("cuda")
+    bundle = build_model(arch, ShardingCtx())
+    toks = torch.from_numpy(prompts.astype("int64")).to(dev)
+    total = toks.shape[1] + prefix_len(arch)
+    with torch.no_grad():
+        logits, cache = bundle.prefill(params, dict(tokens=toks))
+        cache = grow_cache(cache, total, total + 2 * n_steps)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    state = {"t": total}
+
+    def steps():
+        with torch.no_grad():
+            for _ in range(n_steps):
+                # both profiler steps write the same positions
+                t = total + (state["t"] - total) % n_steps
+                bundle.decode_step(params, cache, tok, t)
+                state["t"] += 1
+    return _traced(steps, f"path_g_decode_{arch.name}", n_steps)
+
+
+def _serve_full(name, rng):
+    """One arch at full width on the card: 8 requests of its prompt length
+    (``PATH_G_PROMPT``), 32 greedy new tokens timed (``_serve_timed``),
+    the bounds, and request 0 of the timed run against the CPU
+    (``_engine_against_cpu``). Returns its record."""
+    import torch
+    from repro_torch.config import get_arch
+    dev = torch.device("cuda")
+    arch = get_arch(name)
+    params, n_bytes = _lm_params(arch, dev, seed=0)
+    n_params = n_bytes // 4
+    S = PATH_G_PROMPT[name]
+    prompts = rng.integers(0, arch.vocab, (PATH_G_B, S))
+    pre_ms, dec_ms, out, launches, peak = _serve_timed(
+        arch, params, prompts, PATH_G_NEW)
+    assert tuple(out.shape) == (PATH_G_B, PATH_G_NEW), out.shape
+    assert int(out.min()) >= 0 and int(out.max()) < arch.vocab, \
+        (name, int(out.min()), int(out.max()))
+    assert not any(launches.values()), (name, launches)
+    n_tok = PATH_G_B * (S + arch.n_meta_tokens)
+    rec = dict(
+        arch=name, params=n_params, param_bytes=n_bytes,
+        batch=PATH_G_B, prompt=S, prefix=arch.n_meta_tokens,
+        new=PATH_G_NEW, prefill_ms=pre_ms,
+        decode_ms_per_token=dec_ms / PATH_G_NEW,
+        tokens_per_s=PATH_G_B * PATH_G_NEW / ((pre_ms + dec_ms) * 1e-3),
+        decode_tokens_per_s=PATH_G_B * PATH_G_NEW / (dec_ms * 1e-3),
+        bound_decode_ms=n_bytes / MEM_BW * 1e3,
+        bound_prefill_ms=2 * n_params * n_tok / FP32_PEAK * 1e3,
+        max_memory_allocated=peak, launches=launches)
+    # request 0 alone: the three archs hold no MoE layer, so a request's
+    # logits do not depend on the others in its batch
+    t0 = time.time()
+    err, flips, steps = _engine_against_cpu(
+        arch, params, _lm_batch(arch, prompts[:1], rng, dev), out[:1],
+        PATH_G_TOL_FULL, name)
+    rec.update(cpu_max_abs_err=err, cpu_flips=flips, cpu_steps=steps,
+               cpu_tol=PATH_G_TOL_FULL, cpu_check_s=time.time() - t0)
+    log(f"[14] {name} full width ({n_params / 1e9:.3f} B params, "
+        f"{n_bytes / 1e9:.3f} GB f32): prefill {pre_ms:.3f} ms for "
+        f"{PATH_G_B} x {S} (+{arch.n_meta_tokens} meta; bound "
+        f"{rec['bound_prefill_ms']:.3f}), decode "
+        f"{rec['decode_ms_per_token']:.4f} ms a token (bound "
+        f"{rec['bound_decode_ms']:.4f}), {rec['tokens_per_s']:.1f} tokens/s "
+        f"end to end, {rec['decode_tokens_per_s']:.1f} decoding; peak "
+        f"{peak / 1e9:.3f} GB; request 0 of the timed run vs the CPU over "
+        f"the prefill and {steps} teacher-forced steps: max |err| "
+        f"{err:.3e}, {flips} near-tie flips ({rec['cpu_check_s']:.1f} s)")
+    return rec, params, prompts
+
+
+def phase_path_g():
+    """Path G, LM serving: ``ServeEngine`` at full qwen1.5-0.5b width (8
+    requests of 128 prompt tokens, 32 greedy new tokens; prefill and
+    decode timed with CUDA events, a profiler trace of 4 decode steps,
+    the bounds); ``mamba2-130m`` at 8 x 512 (two SSD chunks of 256, so
+    the inter-chunk state pass runs) and ``hymba-1.5b`` at 8 x 1152 (+ 128
+    meta = 1280 positions: five chunks, and its 1024-token sliding window
+    cuts in prefill and decode) the same way. In each, request 0 of the
+    timed run is held against the CPU teacher-forced at its full prompt
+    and all 32 tokens. Every served reduced arch is generated on the card
+    (2 requests of 48 positions: three chunks of 16, six reduced windows)
+    and both requests held against the CPU the same way (``hubert-xlarge``:
+    its prefill frame logits; ``internvl2-2b`` also its prefill on drawn
+    patch embeddings).
+    Path G launches none of the port's kernels (counts read). Returns the
+    ``serve_path_g`` record."""
+    import numpy as np
+    import torch
+    from repro_torch.config import ASSIGNED_ARCHS, get_arch
+    from repro_torch.models.transformer import build_model, prefix_len
+    from repro_torch.parallel.sharding import ShardingCtx
+    from repro_torch.serve.engine import ServeEngine
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(21)
+    rec = {}
+    main, params, prompts = _serve_full(PATH_G_ARCH, rng)
+    summ = _decode_trace(get_arch(PATH_G_ARCH), params, prompts)
+    if summ is None:
+        log("[14] profiler: the trace holds no device time")
+    else:
+        w, bz = summ["window_us"], summ["busy_us"]
+        top = sorted(summ["by_name"].items(), key=lambda kv: -kv[1][0])[:6]
+        main.update(trace_step_ms=w / 1e3 / 4, trace_busy_share=bz / w,
+                    trace_kernels_per_step=summ["kernels_per_trial"],
+                    trace_top=[[k, t / 1e3, c] for k, (t, c) in top])
+        log(f"[14] profiler, 4 decode steps of {PATH_G_ARCH} at batch "
+            f"{PATH_G_B}: {w / 4e3:.4f} ms a step, device busy "
+            f"{bz / w:.4f} of it, {summ['kernels_per_trial']:.1f} kernels "
+            f"a step; by time: "
+            + "; ".join(f"{k} {t / 1e3:.4f} ({c})" for k, (t, c) in top))
+    del params
+    rec["main"] = main
+    for name in PATH_G_FAMILIES:
+        r, p, _ = _serve_full(name, rng)
+        rec[name] = r
+        del p
+        torch.cuda.empty_cache()
+    reduced = {}
+    for name in ASSIGNED_ARCHS:
+        arch = get_arch(name).reduced()
+        params, _ = _lm_params(arch, dev, seed=1)
+        s = PATH_G_REDUCED_POS - prefix_len(arch)
+        toks = rng.integers(0, arch.vocab, (2, s))
+        out = None
+        if not arch.is_encoder_only:
+            eng = ServeEngine(arch, max_len=PATH_G_REDUCED_POS
+                              + PATH_G_REDUCED_NEW, device=dev)
+            out = eng.generate(params, toks, n_new=PATH_G_REDUCED_NEW)
+            assert tuple(out.shape) == (2, PATH_G_REDUCED_NEW)
+            assert int(out.max()) < arch.vocab, name
+        # the whole batch: a MoE layer dispatches it as one group, so
+        # capacity drops tie a request to the others
+        err, flips, steps = _engine_against_cpu(
+            arch, params, _lm_batch(arch, toks, rng, dev), out,
+            PATH_G_TOL_REDUCED, name)
+        if arch.vit_dim:
+            bundle = build_model(arch, ShardingCtx())
+            bg = _lm_batch(arch, toks[:1], rng, dev, patches="drawn")
+            with torch.no_grad():
+                lg = bundle.prefill(params, bg)[0]
+                lc = bundle.prefill(_to(params, torch.device("cpu")),
+                                    _to(bg, torch.device("cpu")))[0]
+            e, _ = _logits_agree(lg.reshape(-1, lg.shape[-1]),
+                                 lc.reshape(-1, lc.shape[-1]),
+                                 PATH_G_TOL_REDUCED,
+                                 f"{name} prefill on drawn patches")
+            err = max(err, e)
+        reduced[name] = dict(max_abs_err=err, flips=flips, steps=steps)
+        log(f"[14] {name} reduced: card vs CPU over "
+            f"{'the prefill frame logits' if out is None else f'the engine run of {s} + {prefix_len(arch)} positions, {steps} teacher-forced steps'}"
+            f": max |err| {err:.3e}, {flips} near-tie flips")
+    rec["reduced"] = reduced
+    rec["tol_reduced"], rec["tol_full"] = PATH_G_TOL_REDUCED, PATH_G_TOL_FULL
+    print("serve_path_g " + json.dumps(rec), flush=True)
+    return rec
+
+
 def main() -> int:
     if not (REPO / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
@@ -2874,6 +3207,7 @@ def main() -> int:
     phase_path_d(counts, graph_a)
     counts_e, _, _ = phase_path_e()
     counts_f = phase_path_f()
+    phase_path_g()
 
     kernels = []
     for name, (source, replaces) in SRC.items():

@@ -5,10 +5,13 @@ quadrants), 2 PPUs, CADC per column, analog parameter storage (capmem).
 Hardware acceleration factor 1000x vs biology: all time constants below are
 in MODEL time (us of emulated hardware time).
 
-Copy of ``repro/configs/bss2.py`` without the launcher's ``ArchConfig``
-shim (that module imports ``repro.config`` and with it JAX).
+Copy of ``repro/configs/bss2.py``, with its ``ArchConfig`` shim
+``BSS2_ARCH`` registered in ``repro_torch.config`` so both registries hold
+the same names.
 """
 from dataclasses import dataclass, field, replace
+
+from repro_torch.config import ArchConfig, register
 
 
 @dataclass(frozen=True)
@@ -74,3 +77,17 @@ class BSS2Config:
 
 BSS2 = BSS2Config()
 assert BSS2.n_synapses == 131072  # paper: "512 neurons and 130K synapses"
+
+# Thin ArchConfig shim so `--arch bss2` works in the launcher/dry-run.
+BSS2_ARCH = register(ArchConfig(
+    name="bss2",
+    family="neuromorphic",
+    n_layers=1,
+    d_model=512,          # neurons
+    n_heads=0,
+    n_kv_heads=0,
+    d_ff=256,             # synapse rows
+    vocab=0,
+    tie_embeddings=False,
+    source="this paper (Gruebl et al. 2020); full-size BSS-2 ASIC",
+))

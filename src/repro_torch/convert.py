@@ -12,6 +12,9 @@ and layouts, so a state moves over leaf by leaf as numpy arrays:
 * ``plan``: a reference ``WaferPlan`` -> the port's (its numpy arrays);
 * ``mapping``: a reference ``ChipMapping`` -> the port's, field by field
   (``instance`` takes the mapper's spec-shaped ``net_inst`` as it is);
+* ``params`` / ``lm_cache``: a reference LM parameter tree or decode
+  cache (nested dicts, numpy leaves) -> the same tree of tensors on a
+  device; ``to_numpy`` goes back;
 * ``replay_reference_draws``: the reference's ``jax.random`` key chain
   replayed, so both packages consume the same numbers (PyTorch cannot
   reproduce threefry streams); ``replay_rstdp_xi`` likewise for the xi
@@ -90,6 +93,23 @@ def to_numpy(tree):
         vals = [to_numpy(v) for v in tree]
         return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
     return tree
+
+
+def _tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree(v, device) for k, v in tree.items()}
+    return _t(tree, device)
+
+
+def params(ref_tree, device=None) -> Dict:
+    """A reference LM parameter tree (``init_params`` over
+    ``build_model(...).decls``) or decode cache (``prefill``'s, or one
+    grown to ``max_len``), nested dicts with numpy leaves -> the same tree
+    of tensors on ``device``, leaf for leaf."""
+    return _tree(ref_tree, resolve_device(device))
+
+
+lm_cache = params     # the decode cache is a tree like the parameters
 
 
 def draws(events, xi, device=None) -> Draws:

@@ -60,7 +60,8 @@ from repro_torch.configs.bss2 import BSS2, BSS2Config
 from repro_torch.core import synapse
 from repro_torch.core.anncore import AnnCore, AnnCoreState
 from repro_torch.core.ppu import VectorUnit
-from repro_torch.faults.model import as_plans, chain, remap_link_faults
+from repro_torch.faults.model import (as_plans, chain, remap_link_faults,
+                                      slice_chips)
 from repro_torch.obs import trace as obs_trace
 from repro_torch.ppuvm import isa, programs
 from repro_torch.verif.mismatch import sample_instance
@@ -206,7 +207,7 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
                     device=None, telemetry: bool = False, faults=None,
                     blacklist=None, wafer: int = None,
                     wafer_topology: str = "all2all", wafer_relay: bool = True,
-                    wafer_plan=None, link_budget: int = None,
+                    wafer_plan=None, group=None, link_budget: int = None,
                     link_mode: str = "auto"):
     """Build the experiment. Returns ``(init, trial, meta)``.
 
@@ -258,6 +259,14 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
         bus (relay rows carrying address 63; needs "all2all").
       wafer_plan: an explicit ``WaferPlan`` in place of the built-in
         split, with the per-chip geometry ``(2 n_inputs, n_neurons / K)``.
+      group: a ``torch.distributed`` process group of ``dp`` ranks
+        (wafer mode only): the sharded transport of
+        ``wafer.InterChipRouter(group=)``. Each rank holds chips ``[rank
+        K / dp, (rank + 1) K / dp)``: its core, vector unit, state and
+        draws are those chips' (``meta["chips"]``), the router every
+        link fault by its absolute id, and the run equals the local
+        transport's slice bit for bit. Telemetry's core counters count
+        the rank's own chips; the link counters are summed over the group.
       link_budget / link_mode: the router's bus budget and transport
         (``wafer.InterChipRouter``).
 
@@ -267,7 +276,8 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
     Python loop, ``meta["scanned_training"](state, stims, draws)`` runs the
     same batch as one device dispatch (see ``make_scanned_training``), and
     ``meta["draw"](generator, stims)`` draws them (in wafer mode for the
-    whole network, then placed on the chips).
+    whole network, then placed on the chips; under a ``group``, this
+    rank's chips of them).
     """
     device = resolve_device(device)
     if rule_impl not in ("python", "vm"):
@@ -282,6 +292,9 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
     I, C, T = ecfg.n_inputs, ecfg.n_neurons, ecfg.trial_steps
     K = wafer
     chip_cfg, plan = cfg, None
+    if group is not None and not K:
+        raise ValueError("a group shards the chips of a wafer run: pass "
+                         "wafer=K with it")
     if K:
         if prefix != ():
             raise ValueError("wafer mode owns the instance prefix")
@@ -338,7 +351,19 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
                                 for p in as_plans(overlay))
     router = None if not K else InterChipRouter(
         plan, device=device, link_budget=link_budget, link_mode=link_mode,
-        faults=overlay)
+        faults=overlay, group=group)
+    chips = slice(None)
+    if router is not None and router.dp > 1:
+        # this rank's chips: its block of the placed instance, the reward
+        # parity and the core's fault planes (the router keeps them all)
+        chips = router._chips
+        inst = {k: ({n: v[chips] for n, v in x.items()}
+                    if k == "neuron_params" else x[chips])
+                for k, x in inst.items()}
+        even = even[chips]
+        odd, nobody = odd[chips], nobody[chips]
+        overlay = slice_chips(overlay, chips)
+        prefix = (router.K_loc,)
     # const_addr: every driver row carries exactly one source here (input
     # i -> rows 2i/2i+1, address 0 throughout). In wafer mode the relay
     # rows break that promise where a relayed event lands: the dense route
@@ -475,6 +500,7 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
         d = Draws(events=events_from_background(bg, stims, ecfg), xi=xi)
         if K:
             d = wafer_draws(d, K)
+            d = Draws(events=d.events[:, :, chips], xi=d.xi[:, chips])
         return Draws(events=d.events.to(device), xi=d.xi.to(device))
 
     def train(state: ExperimentState, stims, draws: Draws):
@@ -514,7 +540,8 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
 
     meta = dict(cfg=cfg, ecfg=ecfg, inst=inst, core=core, ppu=ppu,
                 mask_a=mask_a, mask_b=mask_b, even=even, train=train,
-                draw=draw, scanned_training=scanned_training, router=router)
+                draw=draw, scanned_training=scanned_training, router=router,
+                chips=chips)
     return init, trial, meta
 
 
@@ -687,7 +714,7 @@ def run_training(n_trials: int = 300, ecfg: RSTDPConfig = RSTDPConfig(),
                  device=None, inst: Dict = None, draws: Draws = None,
                  telemetry: bool = False, faults=None, blacklist=None,
                  wafer: int = None, wafer_topology: str = "all2all",
-                 wafer_relay: bool = True, wafer_plan=None,
+                 wafer_relay: bool = True, wafer_plan=None, group=None,
                  link_budget: int = None, link_mode: str = "auto"):
     """Full §5 experiment. Returns ``(out, state, meta)``: ``out`` the
     metrics history as numpy arrays stacked [n_trials, ...] plus
@@ -695,8 +722,10 @@ def run_training(n_trials: int = 300, ecfg: RSTDPConfig = RSTDPConfig(),
     ``obs.trace.summary`` under ``"telemetry"``); ``state`` the final
     ``ExperimentState``. ``telemetry`` / ``faults`` / ``blacklist`` and the
     wafer keywords (``wafer``, ``wafer_topology``, ``wafer_relay``,
-    ``wafer_plan``, ``link_budget``, ``link_mode``) go to
-    ``make_experiment``.
+    ``wafer_plan``, ``group``, ``link_budget``, ``link_mode``) go to
+    ``make_experiment``. Under a ``group`` each rank runs and returns its
+    own chips (``meta["chips"]``), and injected ``draws`` are the rank's
+    own chips' as ``meta["draw"]`` gives them.
 
     Modes, as the reference's (``scan=None`` means ``scan=fused``):
       fused=True, scan=True   one device dispatch: ``make_scanned_training``
@@ -720,7 +749,8 @@ def run_training(n_trials: int = 300, ecfg: RSTDPConfig = RSTDPConfig(),
         sparse_mode=sparse_mode, rule_impl=rule_impl, device=device,
         telemetry=telemetry, faults=faults, blacklist=blacklist, wafer=wafer,
         wafer_topology=wafer_topology, wafer_relay=wafer_relay,
-        wafer_plan=wafer_plan, link_budget=link_budget, link_mode=link_mode)
+        wafer_plan=wafer_plan, group=group, link_budget=link_budget,
+        link_mode=link_mode)
     stims = stimuli(n_trials)
     if draws is None:
         draws = meta["draw"](torch.Generator().manual_seed(seed + 1), stims)

@@ -6,8 +6,9 @@ blacklist reduction (``faults.blacklist``)."""
 from repro_torch.faults.blacklist import (Blacklist, cadc_zero_code, screen,
                                           screen_chip, screen_links)
 from repro_torch.faults.model import (FaultPlan, as_plans, chain,
-                                      remap_link_faults, sample_fault_plan)
+                                      remap_link_faults, sample_fault_plan,
+                                      slice_chips)
 
 __all__ = ["FaultPlan", "as_plans", "chain", "sample_fault_plan",
-           "remap_link_faults", "Blacklist", "cadc_zero_code", "screen",
+           "remap_link_faults", "slice_chips", "Blacklist", "cadc_zero_code", "screen",
            "screen_chip", "screen_links"]

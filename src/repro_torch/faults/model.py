@@ -36,7 +36,7 @@ state); link arrays are indexed by the wafer topology's link order.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -273,3 +273,36 @@ def remap_link_faults(plan: FaultPlan, old_links, new_links) -> FaultPlan:
     kw = {f.name: getattr(plan, f.name) for f in fields(plan)}
     kw.update(dead_links=dl, flaky_links=fl)
     return FaultPlan(**kw)
+
+
+# the chip-plane fields and the rank of one chip's plane
+_CHIP_PLANES = (("dead_rows", 1), ("hot_neurons", 1), ("dead_neurons", 1),
+                ("stuck_w_mask", 2), ("stuck_w_val", 2),
+                ("cadc_stuck_mask", 1), ("cadc_stuck_code", 1),
+                ("cadc_code_offset", 1), ("store_flip", 2),
+                ("store_zero", 2))
+
+
+def slice_chips(faults, chips: slice):
+    """A fault overlay cut to a block of chips, for the rank of a sharded
+    wafer run that holds those chips: every chip plane with a leading
+    chip dim ([K, R], [K, C], [K, R, C]) keeps ``[chips]``; a plane of one
+    chip's shape applies to every chip and stays; the link faults keep
+    every link, indexed absolutely as the router reads them. ``None`` and
+    an empty overlay stay as they are."""
+    if faults is None:
+        return None
+    out = []
+    for p in as_plans(faults):
+        kw = {}
+        for name, rank in _CHIP_PLANES:
+            v = getattr(p, name)
+            if v is None or v.ndim == rank:
+                continue
+            if v.ndim != rank + 1:
+                raise ValueError(f"slice_chips: {name} has shape {v.shape}; "
+                                 f"expected a [K, ...] plane of rank "
+                                 f"{rank + 1}")
+            kw[name] = v[chips]
+        out.append(replace(p, **kw) if kw else p)
+    return out[0] if isinstance(faults, FaultPlan) else tuple(out)

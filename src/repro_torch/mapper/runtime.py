@@ -43,6 +43,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.bss2 import BSS2, BSS2Config
 from repro_torch.core.anncore import AnnCore
+from repro_torch.faults.model import slice_chips
 from repro_torch.mapper.mapping import ChipMapping
 from repro_torch.mapper.spec import NetworkSpec
 from repro_torch.verif.mismatch import ideal_instance, sample_instance
@@ -292,8 +293,10 @@ def build_runtime(mapping: ChipMapping, cfg: Optional[BSS2Config] = None,
         without a card).
       group / link_budget / link_mode / faults: forwarded to
         ``InterChipRouter`` (``faults`` to the core too). Under a
-        ``torch.distributed`` group each rank holds ``K / world`` chips;
-        faults are not taken together with a group.
+        ``torch.distributed`` group each rank holds ``K / world`` chips:
+        its core gets the instance and the fault plan's chip planes of
+        those chips (``faults.slice_chips``), the router every link
+        fault by its absolute link id.
 
     Returns: a ``MappedRuntime``.
     """
@@ -306,22 +309,20 @@ def build_runtime(mapping: ChipMapping, cfg: Optional[BSS2Config] = None,
             generator = torch.Generator().manual_seed(7)
         net_inst = sample_network_instance(mapping.spec, generator, cfg,
                                            device=device)
-    if group is not None and faults is not None:
-        raise ValueError("build_runtime: faults with a group are not "
-                         "supported (the core's fault planes span all K "
-                         "chips)")
     router = InterChipRouter(mapping.plan, device=device,
                              link_budget=link_budget, link_mode=link_mode,
                              faults=faults, group=group)
     inst = scatter_instance(mapping, net_inst, cfg, device=device)
+    core_faults = faults
     if router.dp > 1:
         chips = router._chips
         inst = {k: ({n: p[chips] for n, p in v.items()}
                     if k == "neuron_params" else v[chips])
                 for k, v in inst.items()}
+        core_faults = slice_chips(faults, chips)
     kw = {} if sparse_mode is None else {"sparse_mode": sparse_mode}
     core = AnnCore(chip_cfg, inst, backend=backend, const_addr=const_addr,
-                   telemetry=telemetry, faults=faults, **kw)
+                   telemetry=telemetry, faults=core_faults, **kw)
     return MappedRuntime(mapping=mapping, chip_cfg=chip_cfg, core=core,
                          router=router, net_inst=net_inst, inst=inst,
                          device=device)

@@ -1,0 +1,241 @@
+"""Attention: GQA (``repro/models/attention.py``).
+
+Three execution paths, as in the reference:
+
+  * ``attention_prefill`` — one block of plain softmax when the whole KV
+    fits in ``kv_block``, else an online softmax over KV blocks (a Python
+    loop, one block of scores at a time).
+  * ``attention_swa_blocked`` — exact banded sliding-window attention via
+    the two-block trick (each w-sized q block attends to its own and the
+    previous KV block).
+  * ``attention_decode`` — one query token against the KV cache.
+
+Scores and softmax statistics are fp32 (the contractions run on fp32
+operands, which is what the reference's ``preferred_element_type=f32``
+computes); the p@v contraction takes p in the compute dtype. Matrix
+products are ``torch.einsum`` / ``@``: the reference computes them
+outside any kernel too.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.config import ArchConfig
+from repro_torch.models.layers import apply_rope
+from repro_torch.parallel.sharding import Ax, ParamDecl, ShardingCtx
+
+NEG_INF = -1e30
+
+
+def _ein(eq, a, b):
+    """``einsum`` accumulated and returned in fp32 (the reference's
+    ``preferred_element_type=jnp.float32``)."""
+    return torch.einsum(eq, a.float(), b.float())
+
+
+def attn_decls(arch: ArchConfig) -> dict:
+    d, h, kvh, hd = arch.d_model, arch.n_heads, arch.n_kv_heads, arch.head_dim
+    decls = dict(
+        wq=ParamDecl((d, h * hd), (Ax.EMBED, Ax.HEADS_OUT)),
+        wk=ParamDecl((d, kvh * hd), (Ax.EMBED, Ax.HEADS_OUT)),
+        wv=ParamDecl((d, kvh * hd), (Ax.EMBED, Ax.HEADS_OUT)),
+        wo=ParamDecl((h * hd, d), (Ax.HEADS_OUT, Ax.EMBED)),
+    )
+    if arch.qkv_bias:
+        decls.update(
+            bq=ParamDecl((h * hd,), (None,), init="zeros"),
+            bk=ParamDecl((kvh * hd,), (None,), init="zeros"),
+            bv=ParamDecl((kvh * hd,), (None,), init="zeros"),
+        )
+    return decls
+
+
+def _qkv(x, p, arch: ArchConfig, ctx: ShardingCtx, positions):
+    b, s = x.shape[0], x.shape[1]
+    h, kvh, hd = arch.n_heads, arch.n_kv_heads, arch.head_dim
+    q = x @ ctx.cast(p["wq"])
+    k = x @ ctx.cast(p["wk"])
+    v = x @ ctx.cast(p["wv"])
+    if arch.qkv_bias:
+        q = q + ctx.cast(p["bq"])
+        k = k + ctx.cast(p["bk"])
+        v = v + ctx.cast(p["bv"])
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kvh, hd)
+    v = v.reshape(b, s, kvh, hd)
+    if arch.rope_theta:
+        q = apply_rope(q, positions, arch.rope_theta)
+        k = apply_rope(k, positions, arch.rope_theta)
+    return q, k, v
+
+
+def _mask(qpos, kpos, causal: bool, window: int):
+    mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                      device=qpos.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window:
+        mask &= (qpos[:, None] - kpos[None, :]) < window
+    return mask
+
+
+def attention_prefill(q, k, v, *, causal: bool, window: int, ctx: ShardingCtx,
+                      kv_block: int = 8192):
+    """Plain or online-softmax attention over KV blocks.
+
+    q: [b, sq, h, hd]; k/v: [b, skv, kvh, hd]. Returns [b, sq, h, hd].
+    """
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, sq, kvh, g, hd)
+    scale = 1.0 / (hd ** 0.5)
+
+    kv_block = min(kv_block, skv)
+    n_blocks = (skv + kv_block - 1) // kv_block
+    qpos = torch.arange(sq, device=q.device)
+
+    if n_blocks == 1:
+        sc = _ein("bqkgd,btkd->bkgqt", qg, k) * scale
+        mask = _mask(qpos, torch.arange(skv, device=q.device), causal, window)
+        sc = torch.where(mask[None, None, None], sc, NEG_INF)
+        p = torch.softmax(sc, dim=-1)
+        out = _ein("bkgqt,btkd->bqkgd", p.to(q.dtype), v)
+        return out.reshape(b, sq, h, hd).to(q.dtype)
+
+    m = torch.full((b, kvh, g, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, kvh, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, sq, kvh, g, hd), dtype=torch.float32,
+                      device=q.device)
+    for j in range(n_blocks):
+        lo = j * kv_block
+        hi = min(lo + kv_block, skv)
+        s_ij = _ein("bqkgd,btkd->bkgqt", qg, k[:, lo:hi]) * scale
+        mask = _mask(qpos, torch.arange(lo, hi, device=q.device), causal,
+                     window)
+        s_ij = torch.where(mask[None, None, None], s_ij, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s_ij, dim=-1))
+        p = torch.exp(s_ij - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + torch.sum(p, dim=-1)
+        pv = _ein("bkgqt,btkd->bqkgd", p.to(q.dtype), v[:, lo:hi])
+        acc = acc * alpha.permute(0, 3, 1, 2)[..., None] + pv
+        m = m_new
+
+    lt = l.permute(0, 3, 1, 2)[..., None]
+    out = acc / torch.clamp(lt, min=1e-30)
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def attention_swa_blocked(q, k, v, *, window: int, ctx: ShardingCtx):
+    """Exact sliding-window attention via the two-block band trick.
+
+    Requires sq == skv == s, s % window == 0. Each w-block of queries
+    attends to its own and the previous KV block (covers the full causal
+    window).
+    """
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    w = window
+    assert s % w == 0
+    nb = s // w
+    scale = 1.0 / (hd ** 0.5)
+
+    qb = q.reshape(b, nb, w, kvh, g, hd)
+    kb = k.reshape(b, nb, w, kvh, hd)
+    vb = v.reshape(b, nb, w, kvh, hd)
+    kcat = torch.cat([torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]],
+                                1), kb], 2)
+    vcat = torch.cat([torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]],
+                                1), vb], 2)
+    # kcat: [b, nb, 2w, kvh, hd]
+    sc = _ein("bnqkgd,bntkd->bnkgqt", qb, kcat) * scale
+    dev = q.device
+    i = torch.arange(w, device=dev)[:, None]           # q index within block
+    jj = torch.arange(2 * w, device=dev)[None, :]      # k index in the window
+    band = (jj <= i + w) & (jj > i)                    # causal + window
+    n = torch.arange(nb, device=dev)[:, None, None]
+    valid = ((n - 1) * w + jj[None]) >= 0     # first block has no predecessor
+    mask = band[None] & valid
+    sc = torch.where(mask[None, :, None, None], sc, NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    out = _ein("bnkgqt,bntkd->bnqkgd", p.to(q.dtype), vcat)
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def attention_decode(q, cache_k, cache_v, t, *, window: int,
+                     ctx: ShardingCtx):
+    """Single-token attention over the KV cache.
+
+    q: [b, 1, h, hd]; cache_k/v: [b, S, kvh, hd]; t: current position
+    (an int or a 0-d tensor, the new token's index). Attends to positions
+    <= t.
+    """
+    b, _, h, hd = q.shape
+    S, kvh = cache_k.shape[1], cache_k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, 1, kvh, g, hd)
+    scale = 1.0 / (hd ** 0.5)
+    sc = _ein("bqkgd,btkd->bkgqt", qg, cache_k) * scale
+    kpos = torch.arange(S, device=q.device)
+    mask = kpos[None, :] <= t
+    if window:
+        mask &= kpos[None, :] > (t - window)
+    sc = torch.where(mask[None, None, None], sc, NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    out = _ein("bkgqt,btkd->bqkgd", p.to(q.dtype), cache_v)
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def attn_layer(x, p, arch: ArchConfig, layer_idx: int, ctx: ShardingCtx, *,
+               positions, kv_block: int = 2048,
+               cache: Optional[dict] = None, t=None, collect_kv: bool = False):
+    """Full attention sublayer. Returns (out, new_cache_entry_or_None).
+
+    In decode (``cache`` given) the new k/v are written into the cache
+    tensors at position ``t`` in place, as the reference's donated decode
+    updates its cache, and the same dict is returned.
+    """
+    window = 0
+    if arch.swa_window and layer_idx not in arch.global_attn_layers:
+        window = arch.swa_window
+    q, k, v = _qkv(x, p, arch, ctx, positions=positions)
+    new_cache = None
+    if cache is not None:
+        idx = positions.reshape(1)
+        ck, cv = cache["k"], cache["v"]
+        ck.index_copy_(1, idx, k.to(ck.dtype))
+        cv.index_copy_(1, idx, v.to(cv.dtype))
+        o = attention_decode(q, ck, cv, t, window=window, ctx=ctx)
+        new_cache = dict(k=ck, v=cv)
+    else:
+        s = x.shape[1]
+        use_blocked = (window and s % window == 0
+                       and (s // window) >= max(ctx.model_size, 2))
+        if use_blocked:
+            o = attention_swa_blocked(q, k, v, window=window, ctx=ctx)
+        else:
+            o = attention_prefill(q, k, v, causal=arch.causal, window=window,
+                                  ctx=ctx, kv_block=kv_block)
+        if collect_kv:
+            new_cache = dict(k=k, v=v)
+    b, sq = o.shape[0], o.shape[1]
+    o = o.reshape(b, sq, arch.n_heads * arch.head_dim)
+    return o @ ctx.cast(p["wo"]), new_cache
+
+
+def cache_decls(arch: ArchConfig, batch: int, max_len: int, dtype) -> dict:
+    """KV-cache declarations per layer (batch over data, seq over model)."""
+    kvh, hd = arch.n_kv_heads, arch.head_dim
+    return dict(
+        k=ParamDecl((batch, max_len, kvh, hd),
+                    (Ax.BATCH, Ax.KV_SEQ, None, None), init="zeros",
+                    dtype=dtype),
+        v=ParamDecl((batch, max_len, kvh, hd),
+                    (Ax.BATCH, Ax.KV_SEQ, None, None), init="zeros",
+                    dtype=dtype),
+    )

@@ -1,6 +1,6 @@
 """One rank of the sharded-transport check (``tests/test_torch_wafer_
 sharded.py`` starts two of them): ``python _torch_wafer_sharded.py RANK
-WORLD STORE_FILE [gloo|nccl]``.
+WORLD STORE_FILE [gloo|nccl] [transport|gaps]``.
 
 Each rank joins a process group through a file store (gloo on the CPU,
 the default; nccl on card ``RANK``, one card a rank), holds chips
@@ -8,8 +8,12 @@ the default; nccl on card ``RANK``, one card a rank), holds chips
 routed windows as the local transport on every chip (which it runs too):
 its spikes, delivered grids and link counters must equal the local
 run's slice bit for bit. Last, a mapped network (``repro_torch.mapper``)
-through ``build_runtime(group=)`` against the local runtime. Not
-collected by pytest (no ``test_`` prefix).
+through ``build_runtime(group=)`` against the local runtime. The
+``gaps`` part runs what the reference takes with its ``ctx`` /
+``wafer_ctx``: a mapped network with dead rows, a hot neuron and a dead
+link through ``build_runtime(group=, faults=)``, and ``run_training(
+wafer=4, group=)`` (clean and faulted), each equal to the local
+transport's slice. Not collected by pytest (no ``test_`` prefix).
 """
 import dataclasses
 import sys
@@ -23,6 +27,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
 from repro_torch.configs.bss2 import BSS2  # noqa: E402
 from repro_torch.core.anncore import AnnCore  # noqa: E402
+from repro_torch.core.hybrid import run_training, stimuli  # noqa: E402
 from repro_torch.faults import FaultPlan, screen_links  # noqa: E402
 from repro_torch.mapper import (build_runtime, map_network,  # noqa: E402
                                 random_spec, sample_network_instance)
@@ -53,7 +58,94 @@ def counters(tele):
     return {k: s[k] for k in COUNTERS}
 
 
-def main(rank, world, store, backend="gloo"):
+def mapped_with_faults(group, chips, dev):
+    """``build_runtime(group=, faults=)`` against the local runtime with
+    the same plan: dead rows and a hot neuron on two chips' planes, a dead
+    link that carries traffic. Spikes, routed grids and link counters
+    equal; the plan changes the run."""
+    checked = 0
+    for topology in ("ring", "all2all"):
+        n = 32
+        spec = random_spec(np.random.default_rng(7), 16, n, fan_out=4,
+                           rec_fan_out=3, rec_mask=ring_mask(n))
+        m = map_network(spec, K, chip_rows=64, chip_cols=n // K,
+                        topology=topology)
+        net_inst = sample_network_instance(
+            spec, torch.Generator().manual_seed(9), device=dev)
+        ev_in = torch.from_numpy((np.random.default_rng(8).random(
+            (W, T, 16)) < 0.3).astype(np.float32)).to(dev)
+        _, clean = build_runtime(m, net_inst=net_inst, device=dev).run(ev_in)
+        busy = clean["routed"].sum(dim=(0, 2))     # events a chip gets
+        dst = int(torch.argmax(busy))
+        links = m.plan.topology.links()
+        dead = np.array([d == dst and s != dst for s, d in links])
+        dead_rows = np.zeros((K, 64), bool)
+        dead_rows[1, :3] = True
+        dead_rows[2, 5] = True
+        hot = np.zeros((K, n // K), bool)
+        hot[3, 2] = True
+        fp = FaultPlan(dead_rows=dead_rows, hot_neurons=hot,
+                       dead_links=dead)
+        _, loc = build_runtime(m, net_inst=net_inst, device=dev, faults=fp,
+                               telemetry=True).run(ev_in)
+        _, sh = build_runtime(m, net_inst=net_inst, device=dev, faults=fp,
+                              telemetry=True, group=group).run(ev_in)
+        assert torch.equal(sh["spikes"], loc["spikes"]), topology
+        assert torch.equal(sh["chip_spikes"],
+                           loc["chip_spikes"][:, :, chips]), topology
+        assert torch.equal(sh["routed"], loc["routed"][:, chips]), topology
+        assert counters(sh["telemetry"]) == counters(loc["telemetry"]), \
+            (topology, counters(sh["telemetry"]), counters(loc["telemetry"]))
+        assert not torch.equal(loc["spikes"], clean["spikes"]), topology
+        assert not torch.equal(loc["routed"], clean["routed"]), topology
+        assert counters(loc["telemetry"])["faults_injected"] == \
+            fp.total_sites
+        checked += 1
+    return checked
+
+
+def training(group, chips, dev):
+    """``run_training(wafer=4, group=)`` for 6 trials against the local
+    transport, clean and with a fault plan: each rank's weights, rewards,
+    rates and routed grid equal the local run's slice."""
+    checked = 0
+    plans = [None]
+    links = s5_column_plan(K, 16, 16).topology.links()
+    dead_rows = np.zeros((K, 32), bool)
+    dead_rows[2, 4:8] = True
+    hot = np.zeros((K, 4), bool)
+    hot[1, 1] = True
+    plans.append(FaultPlan(dead_rows=dead_rows, hot_neurons=hot,
+                           dead_links=np.array([sd == (1, 2)
+                                                for sd in links])))
+    for fp in plans:
+        kw = dict(n_trials=6, seed=3, wafer=4, device=dev, faults=fp)
+        loc, st_loc, _ = run_training(**kw)
+        sh, st_sh, meta = run_training(group=group, **kw)
+        assert meta["chips"] == chips
+        assert np.array_equal(sh["w_signed_final"],
+                              loc["w_signed_final"][chips])
+        for k in ("reward", "rates", "w", "mean_reward"):
+            assert np.array_equal(sh[k], loc[k][:, chips]), k
+        assert torch.equal(st_sh.routed, st_loc.routed[:, chips])
+        assert st_loc.routed.sum() > 0
+        if fp is None:
+            # the rank's draws from meta["draw"] go back in as they are
+            d = meta["draw"](torch.Generator().manual_seed(4), stimuli(6))
+            again, _, _ = run_training(group=group, draws=d, **kw)
+            assert np.array_equal(again["w_signed_final"],
+                                  sh["w_signed_final"])
+        checked += 1
+    try:
+        run_training(n_trials=1, device=dev, group=group)
+    except ValueError as e:
+        assert "wafer=K" in str(e)
+    else:
+        raise AssertionError("a group without a wafer was taken")
+    return checked
+
+
+def main(rank, world, store, backend="gloo", part="transport"):
     if backend == "nccl":
         dev = torch.device("cuda", rank)
         torch.cuda.set_device(dev)
@@ -63,6 +155,12 @@ def main(rank, world, store, backend="gloo"):
                             rank=rank, world_size=world)
     group = dist.group.WORLD
     chips = slice(rank * K // world, (rank + 1) * K // world)
+    if part == "gaps":
+        checked = (mapped_with_faults(group, chips, dev)
+                   + training(group, chips, dev))
+        dist.destroy_process_group()
+        print(f"WAFER_SHARDED_OK rank={rank} cases={checked}", flush=True)
+        return
     cfg = dataclasses.replace(BSS2.reduced(), n_rows=R, n_cols=C)
     inst = sample_instance(cfg, torch.Generator().manual_seed(3), (K,),
                            device=dev)
@@ -183,4 +281,4 @@ def main(rank, world, store, backend="gloo"):
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:5])
+    main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:6])

@@ -1381,3 +1381,119 @@ def test_sharded_transport_on_nccl(cuda, tmp_path):
     for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {rank}:\n{out[-2000:]}{err[-4000:]}"
         assert f"WAFER_SHARDED_OK rank={rank} cases=14" in out, out + err
+
+
+# ---------------------------------------------------------------------------
+# LM serving (path G): the engine on the card against the CPU, reduced archs
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("smollm-360m", "minitron-4b", "qwen1.5-0.5b", "phi4-mini-3.8b",
+            "internvl2-2b", "moonshot-v1-16b-a3b", "llama4-scout-17b-a16e",
+            "hymba-1.5b", "mamba2-130m")
+# positions a request holds (prompt + prefix): three reduced SSD chunks of
+# 16, six reduced sliding windows of 8
+LM_POS = 48
+
+
+def _lm_on(arch, dev, params=None):
+    from repro_torch.parallel.sharding import init_params
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(arch, max_len=LM_POS + 8, device=dev)
+    if params is None:
+        params = init_params(eng.bundle.decls,
+                             torch.Generator().manual_seed(0), device=dev)
+    return eng, params
+
+
+def _cpu_greedy_logits(bundle, params, batch, n_new, total):
+    """The CPU's greedy run step by step: the logits [b, n_new, V] that
+    chose each token."""
+    from repro_torch.serve.engine import grow_cache
+    with torch.no_grad():
+        logits, cache = bundle.prefill(params, batch)
+        cache = grow_cache(cache, total, total + n_new)
+        out = [logits[:, -1]]
+        for i in range(n_new - 1):
+            tok = torch.argmax(logits[:, -1], -1)[:, None]
+            logits, cache = bundle.decode_step(params, cache, tok, total + i)
+            out.append(logits[:, -1])
+    return torch.stack(out, 1)
+
+
+@pytest.mark.parametrize("name", LM_ARCHS)
+def test_serve_card_matches_cpu(cuda, name):
+    """``ServeEngine.generate`` on the card and on the CPU with the same
+    parameters, at ``LM_POS`` positions (the SSD's inter-chunk state pass
+    and the sliding window both at work): the prefill logits within rtol
+    = atol = 1e-4, and the greedy tokens equal up to a request's first
+    flip, which is allowed only where the CPU's top-2 logit gap is under
+    1e-4 (a near tie)."""
+    from repro_torch.config import get_arch
+    from repro_torch.models.transformer import prefix_len
+    arch = get_arch(name).reduced()
+    eng_c, p_c = _lm_on(arch, "cpu")
+    p_g = _to_dev(p_c, cuda)
+    eng_g, _ = _lm_on(arch, cuda, p_g)
+    s = LM_POS - prefix_len(arch)
+    prompts = np.random.default_rng(2).integers(0, arch.vocab, (2, s))
+    out_c = eng_c.generate(p_c, prompts, n_new=6)
+    out_g = eng_g.generate(p_g, prompts, n_new=6)
+    batch = dict(tokens=torch.from_numpy(prompts))
+    if arch.vit_dim:
+        batch["patch_embeds"] = torch.zeros((2, arch.n_patches,
+                                             arch.vit_dim))
+    with torch.no_grad():
+        lc, _ = eng_c.bundle.prefill(p_c, batch)
+        lg, _ = eng_g.bundle.prefill(p_g, _to_dev(batch, cuda))
+    np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    steps = _cpu_greedy_logits(eng_c.bundle, p_c, batch, 6,
+                               s + prefix_len(arch))
+    assert torch.equal(out_c, steps.argmax(-1).to(torch.int32))
+    for r in range(2):
+        diff = (out_c[r] != out_g[r]).nonzero()
+        if len(diff):
+            gap = _top2_gap(steps[r, int(diff[0])])
+            assert gap < 1e-4, (name, r, out_c[r], out_g[r], gap)
+
+
+def _to_dev(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_dev(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _top2_gap(logits):
+    t = torch.topk(logits.float(), 2).values
+    return float(t[0] - t[1])
+
+
+def test_serve_encoder_frames_card_matches_cpu(cuda):
+    """hubert-xlarge (reduced): the prefill frame logits on the card
+    against the CPU, within rtol = atol = 1e-4."""
+    from repro_torch.config import get_arch
+    from repro_torch.models.transformer import build_model
+    from repro_torch.parallel.sharding import ShardingCtx, init_params
+    arch = get_arch("hubert-xlarge").reduced()
+    bundle = build_model(arch, ShardingCtx())
+    p_c = init_params(bundle.decls, torch.Generator().manual_seed(0),
+                      device="cpu")
+    frames = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, LM_POS, arch.frame_dim)).astype(np.float32))
+    with torch.no_grad():
+        lc, cc = bundle.prefill(p_c, dict(frames=frames))
+        lg, cg = bundle.prefill(_to_dev(p_c, cuda),
+                                dict(frames=frames.to(cuda)))
+    assert cc == {} and cg == {}
+    np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_serve_launches_no_port_kernel(cuda):
+    """Path G runs PyTorch ops only: a generate on the card launches none
+    of the port's CUDA kernels."""
+    from repro_torch.config import get_arch
+    eng, params = _lm_on(get_arch("hymba-1.5b").reduced(), cuda)
+    kernels.reset_launches()
+    eng.generate(params, np.ones((2, 12), np.int64), n_new=4)
+    assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES

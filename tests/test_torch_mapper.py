@@ -631,6 +631,14 @@ def test_build_runtime_needs_a_device_without_a_card():
         spec, 2, 17) + 8, chip_cols=17)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mapper.build_runtime(m)
-    with pytest.raises(ValueError, match="group"):
-        mapper.build_runtime(m, device=CPU, group=object(),
-                             faults=FaultPlan())
+    # faults with a group are taken (tests/test_torch_wafer_sharded.py
+    # holds them to the local transport): each rank's core gets its
+    # chips' planes, the router every link
+    from repro_torch.faults import slice_chips
+    rows = np.zeros((2, m.chip_rows), bool)
+    rows[1, 3] = True
+    links = np.ones(len(m.plan.topology.links()), bool)
+    cut = slice_chips(FaultPlan(dead_rows=rows, dead_links=links),
+                      slice(1, 2))
+    assert cut.dead_rows.shape == (1, m.chip_rows) and cut.dead_rows[0, 3]
+    assert np.array_equal(cut.dead_links, links)

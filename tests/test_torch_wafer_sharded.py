@@ -5,7 +5,8 @@ all2all (all-gather), in every link mode, over and under the link budget,
 with link faults and failover forwards; the link screen on a sharded
 router equals the local one; a mapped network run through
 ``mapper.build_runtime(group=)`` equals the local runtime, ring and
-all2all; a group that does not divide K raises
+all2all, also with a fault plan; ``run_training(wafer=4, group=)``
+equals the local run's slice; a group that does not divide K raises
 (tests/test_wafer.py::test_sharded_transport_matches_local_subprocess and
 tests/test_faults.py::test_sharded_link_faults_match_local_subprocess).
 
@@ -24,12 +25,14 @@ WORLD = 2
 TIMEOUT_S = 120
 
 
-def test_sharded_transport_equals_local(tmp_path):
+def _run_ranks(tmp_path, *args):
+    """Start the two ranks with ``args`` after the store; their exit codes
+    and outputs."""
     store = tmp_path / "store"
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, str(HERE / "_torch_wafer_sharded.py"), str(rank),
-         str(WORLD), str(store)], stdout=subprocess.PIPE,
+         str(WORLD), str(store), *args], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, env=env)
         for rank in range(WORLD)]
     outs = []
@@ -41,6 +44,23 @@ def test_sharded_transport_equals_local(tmp_path):
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {rank}:\n{out[-2000:]}{err[-4000:]}"
+    return [(p.returncode, out, err) for p, (out, err) in zip(procs, outs)]
+
+
+def test_sharded_transport_equals_local(tmp_path):
+    for rank, (rc, out, err) in enumerate(_run_ranks(tmp_path)):
+        assert rc == 0, f"rank {rank}:\n{out[-2000:]}{err[-4000:]}"
         assert f"WAFER_SHARDED_OK rank={rank} cases=14" in out, out + err
+
+
+def test_sharded_faults_and_training_equal_local(tmp_path):
+    """``build_runtime(group=, faults=)`` (dead rows, a hot neuron, a dead
+    link; ring and all2all) and ``run_training(wafer=4, group=)`` over 6
+    trials (clean and faulted) equal to the local transport's slice:
+    spikes, routed grids, link counters, weights and rewards. A group
+    without a wafer raises (the reference's ``wafer_ctx`` has no effect
+    without one)."""
+    for rank, (rc, out, err) in enumerate(_run_ranks(tmp_path, "gloo",
+                                                     "gaps")):
+        assert rc == 0, f"rank {rank}:\n{out[-2000:]}{err[-4000:]}"
+        assert f"WAFER_SHARDED_OK rank={rank} cases=4" in out, out + err
