@@ -187,15 +187,61 @@ Phases, each reported on its own line:
    path launches none of the port's kernels (counts read); its numbers go
    on a ``serve_path_g`` JSON line.
 
+15. Path H, LM training (``repro_torch.train``): smollm-360m at full
+   width in f32 (32 layers, d 960, 15 / 5 heads, d_ff 2560, tied vocab
+   49,152; 0.362 B parameters), TF32 off, the reference's full-width
+   example (``examples/train_lm.py``: 8 x 512 tokens, AdamW lr 1e-3 with
+   20 warm-up steps). One step on a 1 x 512 sub-batch of the pipeline's
+   first batch on the card and on the CPU from the same parameters: the
+   loss, the gradient norm and every gradient leaf within rtol = atol =
+   1e-3 (path G's full-width tolerance), the parameters after AdamW within
+   1e-6 + 1e-5 |p| except elements whose CPU gradient is under 1e-5 in
+   size (the first step moves each parameter by ~lr sign(g), so a
+   gradient near 0 may move it apart: counted, held to 2 lr).
+   ``Trainer.train()`` for 20 steps, remat as the arch says (``"dots"``),
+   a checkpoint at the end, the launch counts set to 0 before and read
+   after (none of the eight kernels runs): step ms (CUDA events around
+   each step, median after the first), tokens/s, peak device memory, the
+   loss at every step (finite, lower at the end), the bound 6 x
+   parameters x tokens over 67 TFLOP/s. One step with remat as the arch
+   says and one with ``remat=False`` from copies of the trained state:
+   peak memory, loss and gradients (within 1e-5; bit-equal reported),
+   then two more of each in turns, timed. A ``torch.profiler`` trace of one step (busy share,
+   kernels, the top kernels). ``launch.serve --ckpt-dir`` on the
+   trainer's checkpoint; the state (parameters, moments, cursor) saved
+   and restored timed under ``build/`` (free space printed first), the
+   restored leaves equal bit for bit, and served (8 x 64 prompt tokens, 8
+   greedy new ones) giving the in-memory parameters' tokens. Crash and
+   restart at reduced smollm width in a child process (``chip_smoke.py
+   --crash-restart``) with ``torch.use_deterministic_algorithms`` on and
+   ``CUBLAS_WORKSPACE_CONFIG`` set before CUDA starts: a straight 8-step
+   run against one that fails at step 6 and resumes from the step-4
+   checkpoint, parameters and moments bit for bit. The three-factor
+   readout trainer on the initial parameters, frozen, at 8 x 512: 10
+   steps from zero codes timed; then from random codes and <R> = 0.5
+   (every token's modulation nonzero) one step under
+   ``set_sync_debug_mode("error")`` saturating at |w_q| = 31 as int8, and
+   one step on a 1 x 512 sub-batch against the CPU with the card's
+   Gumbel draws injected: the update within 1e-3 of its largest entry, a
+   sample differing only where the CPU's top-2 gap in ``logits / T + g``
+   is under 1e-3, a code by one only where the CPU's ``w_new`` lies within
+   1e-3 of a .5 boundary (both counted).
+   ``launch.train --arch smollm-360m --smoke --steps 5`` and ``--trainer
+   hybrid`` as child processes on the card. Its numbers go on a
+   ``train_path_h`` JSON line.
+
 Exits non-zero without a card, outside a checkout, or when any phase
 fails; the last line is the JSON device record.
 """
 from __future__ import annotations
 
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3181,7 +3227,571 @@ def phase_path_g():
     return rec
 
 
+# path H: LM training (repro_torch.train) at full smollm-360m width, the
+# reference's full-width example (examples/train_lm.py:29-30, 38-40)
+PATH_H_ARCH, PATH_H_SHAPE = "smollm-360m", ("train_small", 512, 8, "train")
+PATH_H_STEPS, PATH_H_LR, PATH_H_WARMUP = 20, 1e-3, 20
+# card against CPU at full width: gradients within rtol = atol = 1e-3
+# (path G's full-width tolerance: 32 layers of fp32 sums in cuBLAS's
+# order on the card and the CPU BLAS's on the host); the same for the
+# three-factor step's top-2 gaps and .5 boundaries
+PATH_H_TOL = 1e-3
+# remat as the arch says against remat off on the card: the same
+# kernels on the same operands, so equal up to 1e-5 (bit-equal expected)
+PATH_H_REMAT_TOL = 1e-5
+# crash / restart at reduced width (tests/test_runtime.py:135-153)
+PATH_H_CRASH = dict(steps=8, ckpt_every=4, fail_at_step=6)
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _leaves(tree, prefix=""):
+    """``{path: leaf}`` of a nested dict."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaves(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _events():
+    import torch
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def _path_h_against_cpu(bundle, params0, batch, cfg):
+    """One step on the card and on the CPU from the same parameters on
+    the 1 x 512 sub-batch ``batch`` (on the CPU): loss, grad norm and
+    every gradient leaf within ``PATH_H_TOL``; the parameters after AdamW
+    within 1e-6 + 1e-5 |p|, except elements whose CPU gradient is under
+    1e-5 in size (counted, held to 2 lr). The first step moves a
+    parameter by lr g / (|g| + eps), ~lr sign(g): a gradient error dg
+    moves it by ~lr eps dg / g^2, past 1e-6 only where |g| is within a
+    few 1e-6 of 0."""
+    import torch
+    from repro_torch.parallel.sharding import init_params
+    from repro_torch.train.optimizer import (adamw_init_decls, adamw_update,
+                                             global_norm)
+    from repro_torch.train.steps import value_and_grad
+    cpu, dev = torch.device("cpu"), params0["emb"].device
+    t0 = time.time()
+    p_g, p_c = _clone(params0), _to(params0, cpu)
+    l_g, g_g = value_and_grad(bundle.loss, p_g, _to(batch, dev))
+    l_c, g_c = value_and_grad(bundle.loss, p_c, batch)
+    n_g, n_c = float(global_norm(g_g)), float(global_norm(g_c))
+    assert abs(float(l_g) - float(l_c)) <= PATH_H_TOL * (1 + abs(float(l_c)))
+    assert abs(n_g - n_c) <= PATH_H_TOL * (1 + n_c), (n_g, n_c)
+    gg, gc_ = _leaves(g_g), _leaves(g_c)
+    grad_err = 0.0
+    for k in gc_:
+        a, b = gg[k].cpu(), gc_[k]
+        err = (a - b).abs()
+        if (err > PATH_H_TOL + PATH_H_TOL * b.abs()).any():
+            raise AssertionError(f"[15] gradient {k}: card and CPU differ "
+                                 f"by {err.max().item():.3e}")
+        grad_err = max(grad_err, err.max().item())
+    lr = float(cfg.lr * min(1.0, 1 / max(cfg.warmup_steps, 1)))
+    adamw_update(p_g, g_g, init_params(adamw_init_decls(bundle.decls),
+                                       device=dev), cfg)
+    adamw_update(p_c, g_c, init_params(adamw_init_decls(bundle.decls),
+                                       device=cpu), cfg)
+    pg, pc = _leaves(p_g), _leaves(p_c)
+    p_err, loose, n = 0.0, 0, 0
+    for k in pc:
+        a, b = pg[k].cpu(), pc[k]
+        err = (a - b).abs()
+        bad = err > 1e-6 + 1e-5 * b.abs()
+        if (gc_[k][bad].abs() >= 1e-5).any() or err.max() > 2 * lr + 1e-6:
+            raise AssertionError(f"[15] parameter {k} after AdamW: card and "
+                                 f"CPU differ by {err.max().item():.3e}")
+        loose += int(bad.sum())
+        n += b.numel()
+        p_err = max(p_err, err.max().item())
+    rec = dict(loss_card=float(l_g), loss_cpu=float(l_c),
+               grad_norm_card=n_g, grad_norm_cpu=n_c, grad_max_abs_err=grad_err,
+               param_max_abs_err=p_err, param_loose=loose, param_count=n,
+               first_step_lr=lr, tol=PATH_H_TOL, seconds=time.time() - t0)
+    log(f"[15] card vs CPU, one step on 1 x {batch['tokens'].shape[1]} "
+        f"tokens at full width: loss {float(l_g):.6f} / {float(l_c):.6f}, "
+        f"grad norm {n_g:.6f} / {n_c:.6f}, gradient leaves max |err| "
+        f"{grad_err:.3e} (tol {PATH_H_TOL}); parameters after AdamW max "
+        f"|err| {p_err:.3e}, {loose} of {n} past 1e-6 + 1e-5 |p| (CPU "
+        f"gradient under 1e-5; bound 2 lr = {2 * lr:.1e}) "
+        f"({rec['seconds']:.1f} s)")
+    del p_g, g_g, gg
+    return rec
+
+
+def _path_h_remat(arch, state, batch, cfg):
+    """One step (gradients, then AdamW) with remat as the arch says and
+    one with ``remat=False``, each from a copy of ``state``: the first
+    call of each gives its peak memory over what was resident, the copy
+    of the state included (the allocator's cache emptied before it), loss
+    and gradients compared;
+    then two more of each in turns (arch, off, off, arch), timed with CUDA
+    events on a warm cache."""
+    import dataclasses
+    import torch
+    from repro_torch.models.transformer import build_model
+    from repro_torch.parallel.sharding import ShardingCtx
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.steps import value_and_grad
+    bundles = {arch.remat_policy: build_model(arch, ShardingCtx()),
+               "off": build_model(dataclasses.replace(arch, remat=False),
+                                  ShardingCtx())}
+
+    def step(label, p, o):
+        e0, e1 = _events()
+        e0.record()
+        loss, g = value_and_grad(bundles[label].loss, p, batch)
+        adamw_update(p, g, o, cfg)
+        e1.record()
+        e1.synchronize()
+        return loss, g, e0.elapsed_time(e1)
+
+    def copies():
+        p, o = _clone(state["params"]), _clone(state["opt"])
+        torch.cuda.synchronize()
+        return p, o
+
+    rows, grads = {}, {}
+    for label in bundles:
+        p, o = copies()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()     # the copies included
+        torch.cuda.reset_peak_memory_stats()
+        loss, g, _ = step(label, p, o)
+        rows[label] = dict(peak_over_resident=torch.cuda.max_memory_allocated()
+                           - resident, loss=float(loss), ms_all=[])
+        grads[label] = (loss, g)
+        del p, o
+    labels = list(bundles)
+    for label in labels + labels[::-1]:
+        rows[label]["ms_all"].append(step(label, *copies())[2])
+    for label in labels:
+        rows[label]["ms"] = sorted(rows[label]["ms_all"])[0]
+    (l0, g0), (l1, g1) = grads.values()
+    err, equal = abs(float(l0) - float(l1)), torch.equal(l0, l1)
+    for k, x in _leaves(g0).items():
+        y = _leaves(g1)[k]
+        e = (x - y).abs().max().item()
+        if e > PATH_H_REMAT_TOL * (1 + y.abs().max().item()):
+            raise AssertionError(f"[15] remat {arch.remat_policy} vs off: "
+                                 f"gradient {k} differs by {e:.3e}")
+        err, equal = max(err, e), equal and torch.equal(x, y)
+    rows.update(max_abs_err=err, bit_equal=equal, tol=PATH_H_REMAT_TOL)
+    r, o = rows[arch.remat_policy], rows["off"]
+    log(f"[15] one step, remat {arch.remat_policy!r} / off, in turns: "
+        f"{', '.join(f'{t:.2f}' for t in r['ms_all'])} / "
+        f"{', '.join(f'{t:.2f}' for t in o['ms_all'])} ms; peak over "
+        f"resident {r['peak_over_resident'] / 1e9:.3f} / "
+        f"{o['peak_over_resident'] / 1e9:.3f} GB; loss and gradients max "
+        f"|err| {err:.3e} (tol {PATH_H_REMAT_TOL}), bit-equal {equal}")
+    return rows
+
+
+def _path_h_checkpoint(arch, state, ckpt_dir, cursor):
+    """``launch.serve --ckpt-dir`` on the trainer's checkpoint, then the
+    state saved and restored, timed, under ``build/``: the restored
+    leaves equal bit for bit, and served, the tokens of the in-memory
+    parameters."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.serve.engine import ServeEngine
+    dev = state["params"]["emb"].device
+    t0 = time.time()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         arch.name, "--ckpt-dir", str(ckpt_dir), "--batch", "8",
+         "--prompt-len", "64", "--new", "8"],
+        env=dict(os.environ, PYTHONPATH=str(REPO / "src")), cwd=REPO,
+        capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"[15] launch.serve --ckpt-dir failed: "
+                             f"{r.stdout[-2000:]}{r.stderr[-3000:]}")
+    serve_s = time.time() - t0
+    shutil.rmtree(ckpt_dir)
+    free = shutil.disk_usage(REPO / "build").free
+    full = dict(params=state["params"], opt=state["opt"], data=cursor)
+    n_bytes = sum(v.numel() * v.element_size()
+                  for v in _leaves(full).values() if hasattr(v, "numel"))
+    log(f"[15] checkpoint: {n_bytes / 1e9:.3f} GB of state, "
+        f"{free / 1e9:.1f} GB free under build/")
+    step = PATH_H_STEPS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = save_checkpoint(ckpt_dir, step, full)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back_step, back = restore_checkpoint(ckpt_dir, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    file_bytes = path.stat().st_size
+    assert back_step == step
+    a, b = _leaves(full), _leaves(back)
+    assert set(a) == set(b), set(a) ^ set(b)
+    for k, v in a.items():
+        if not torch.is_tensor(v):                    # the cursor: numpy
+            v = torch.as_tensor(np.asarray(v)).to(dev)
+        if not (b[k].dtype == v.dtype and torch.equal(b[k], v)):
+            raise AssertionError(f"[15] restored {k} differs")
+    assert b["opt/step"].dtype == torch.int32
+    assert b["data/seed"].dtype == b["data/step"].dtype == torch.int64
+    prompts = np.random.default_rng(15).integers(0, arch.vocab, (8, 64))
+    eng = ServeEngine(arch, max_len=64 + 8, device=dev)
+    t_mem = eng.generate(state["params"], prompts, n_new=8)
+    t_back = eng.generate(back["params"], prompts, n_new=8)
+    assert torch.equal(t_mem, t_back), (t_mem, t_back)
+    del back
+    shutil.rmtree(ckpt_dir)
+    rec = dict(state_bytes=n_bytes, file_bytes=file_bytes, free_bytes=free,
+               save_s=save_s, restore_s=restore_s,
+               save_gb_per_s=file_bytes / save_s / 1e9,
+               restore_gb_per_s=file_bytes / restore_s / 1e9,
+               serve_ckpt_s=serve_s)
+    log(f"[15] checkpoint save {save_s:.2f} s, restore to the card "
+        f"{restore_s:.2f} s ({file_bytes / 1e9:.3f} GB file); restored "
+        f"leaves bit-equal; served 8 x 64 + 8 greedy tokens equal to the "
+        f"in-memory parameters'; launch.serve --ckpt-dir on the trainer's "
+        f"checkpoint exit 0 ({serve_s:.1f} s)")
+    return rec
+
+
+def crash_restart_child() -> int:
+    """``chip_smoke.py --crash-restart``: with deterministic algorithms
+    on (``CUBLAS_WORKSPACE_CONFIG`` set by the caller before CUDA starts),
+    the reduced smollm trained 8 steps straight against a run that fails
+    at step 6 and resumes from the step-4 checkpoint in a fresh trainer;
+    prints a ``crash_restart`` JSON line."""
+    sys.path.insert(0, str(REPO / "src"))
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    from repro_torch.config import ShapeConfig, get_arch
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import (SimulatedFailure, Trainer,
+                                           TrainerConfig)
+    arch = get_arch(PATH_H_ARCH).reduced()
+    shape = ShapeConfig("smoke", 32, 4, "train")
+    dev = torch.device("cuda")
+    (REPO / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="crash_restart_", dir=REPO / "build"))
+    try:
+        def cfg(d, **kw):
+            return TrainerConfig(
+                steps=PATH_H_CRASH["steps"],
+                ckpt_every=PATH_H_CRASH["ckpt_every"], ckpt_dir=str(d),
+                log_every=100, opt=AdamWConfig(lr=1e-3, warmup_steps=2),
+                **kw)
+        out_a = Trainer(arch, shape, cfg(root / "a"), device=dev).train()
+        try:
+            Trainer(arch, shape, cfg(
+                root / "b", fail_at_step=PATH_H_CRASH["fail_at_step"]),
+                device=dev).train()
+            raise AssertionError("the injected failure did not happen")
+        except SimulatedFailure:
+            pass
+        out_b = Trainer(arch, shape, cfg(root / "b"), device=dev).train()
+    finally:
+        shutil.rmtree(root)
+    la = _leaves(dict(params=out_a["params"], opt=out_a["opt"]))
+    lb = _leaves(dict(params=out_b["params"], opt=out_b["opt"]))
+    unequal = [k for k in la if not torch.equal(la[k], lb[k])]
+    err = max((la[k].float() - lb[k].float()).abs().max().item()
+              for k in la)
+    print("crash_restart " + json.dumps(dict(
+        resumed_steps=[h["step"] for h in out_b["history"]],
+        leaves=len(la), unequal=unequal, max_abs_diff=err,
+        loss_a=out_a["history"][-1]["loss"],
+        loss_b=out_b["history"][-1]["loss"])), flush=True)
+    return 0 if not unequal else 1
+
+
+def _path_h_crash_restart():
+    t0 = time.time()
+    r = subprocess.run(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--crash-restart"],
+        env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"), cwd=REPO,
+        capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in r.stdout.splitlines()
+             if ln.startswith("crash_restart ")]
+    if r.returncode != 0 or not lines:
+        raise AssertionError(f"[15] crash / restart: exit {r.returncode}: "
+                             f"{r.stdout[-2000:]}{r.stderr[-3000:]}")
+    rec = json.loads(lines[-1][len("crash_restart "):])
+    rec["seconds"] = time.time() - t0
+    assert rec["resumed_steps"] == [4, 5, 6, 7], rec
+    log(f"[15] crash at step {PATH_H_CRASH['fail_at_step']} and resume "
+        f"from the step-4 checkpoint (reduced smollm, deterministic "
+        f"algorithms): {rec['leaves']} parameter and moment leaves "
+        f"bit-equal to the straight run ({rec['seconds']:.1f} s)")
+    return rec
+
+
+def _path_h_three_factor(arch, params0, shape):
+    """The three-factor readout trainer on the frozen initial parameters
+    at full width: 10 steps timed, one under sync-debug "error", the
+    codes' range, one step on a 1 x 512 sub-batch against the CPU with
+    the card's Gumbel draws injected."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.plasticity.three_factor import (HybridReadoutTrainer,
+                                                     PlasticState,
+                                                     sample_gumbel)
+    dev = params0["emb"].device
+    cpu = torch.device("cpu")
+    tr = HybridReadoutTrainer(arch, device=dev)
+    pipe = SyntheticLMPipeline(arch, shape, seed=0)
+    batches = [pipe.next_batch(dev) for _ in range(11)]
+    st = tr.init_state(torch.Generator(dev).manual_seed(1))
+    st, _ = tr.step(params0, st, batches[0])                  # warm-up
+    times, rewards = [], []
+    for b in batches[1:]:
+        e0, e1 = _events()
+        e0.record()
+        st, m = tr.step(params0, st, b)
+        e1.record()
+        times.append((e0, e1))
+        rewards.append(m["reward"])
+    torch.cuda.synchronize()
+    ms = sorted(a.elapsed_time(b) for a, b in times)
+    rewards = [float(r) for r in rewards]
+    m_zero = st.w_q.abs().max()
+    # from zero codes the readout samples uniformly over 49,152 tokens and
+    # 10 steps move no code: the remaining checks start from random codes
+    # and <R> = 0.5, so that every token's modulation is nonzero
+    gen = torch.Generator(dev).manual_seed(3)
+    st = PlasticState(
+        w_q=torch.randint(-tr.wmax, tr.wmax + 1, st.w_q.shape,
+                          generator=gen, device=dev).to(torch.int8),
+        mean_r=torch.tensor(0.5, device=dev), generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st1, _ = tr.step(params0, st, batches[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert st1.w_q.dtype == torch.int8
+    assert int(st1.w_q.abs().max()) == tr.wmax      # saturating writes
+    # against the CPU on a 1 x 512 sub-batch, the card's draws injected
+    t0 = time.time()
+    sub = {k: v[:1] for k, v in batches[1].items()}
+    n = sub["labels"].numel()
+    g = sample_gumbel(torch.Generator(dev).manual_seed(2),
+                      (n, arch.vocab_padded))
+    tr_c = HybridReadoutTrainer(arch, device=cpu)
+    p_c = _to(params0, cpu)
+    st_c = PlasticState(st.w_q.cpu(), st.mean_r.cpu(), torch.Generator())
+    w_g, _, m_g = tr.update(params0, st, sub, gumbel=g)
+    w_c, _, m_c = tr_c.update(p_c, st_c, _to(sub, cpu), gumbel=g.cpu())
+
+    def samples(trainer, p, s, b, gg):
+        with torch.no_grad():
+            phi = trainer.bundle.features(p, b, use_remat=False)[0]
+            logits = phi.reshape(n, -1) @ (s.w_q.float()
+                                           * trainer.pcfg.w_scale)
+            logits[:, arch.vocab:] = -1e30
+            return logits / trainer.pcfg.temperature + gg
+    zg = samples(tr, params0, st, sub, g).cpu()
+    zc = samples(tr_c, p_c, st_c, _to(sub, cpu), g.cpu())
+    top2 = torch.topk(zc, 2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    flip = zg.argmax(-1) != zc.argmax(-1)
+    assert not (flip & (gap >= PATH_H_TOL)).any(), gap[flip]
+    # a flipped sample moves dw in its two columns: codes there excluded
+    cols = torch.zeros(arch.vocab_padded, dtype=torch.bool)
+    cols[zg.argmax(-1)[flip]] = True
+    cols[zc.argmax(-1)[flip]] = True
+    q = lambda w: torch.clamp(torch.round(w), -tr.wmax, tr.wmax)
+    diff = (q(w_g.cpu()) - q(w_c)) * ~cols
+    frac = (w_c - torch.floor(w_c) - 0.5).abs()
+    assert int(diff.abs().max()) <= 1
+    assert (frac[diff != 0] < PATH_H_TOL).all(), frac[diff != 0].max()
+    # the update itself (in LSBs) outside the flipped columns
+    dw_c = (w_c - st_c.w_q.float())[:, ~cols]
+    dw_err = ((w_g.cpu() - w_c)[:, ~cols]).abs().max().item()
+    dw_max = dw_c.abs().max().item()
+    assert dw_err <= PATH_H_TOL * dw_max, (dw_err, dw_max)
+    rec = dict(ms=ms[len(ms) // 2], ms_all=ms, rewards=rewards,
+               dw_max_lsb=dw_max, dw_max_abs_err_lsb=dw_err,
+               reward_card=float(m_g["reward"]),
+               reward_cpu=float(m_c["reward"]), sample_flips=int(flip.sum()),
+               code_flips=int((diff != 0).sum()),
+               w_q_max_from_zero=int(m_zero),
+               cpu_check_s=time.time() - t0, tokens=int(batches[1][
+                   "labels"].numel()))
+    log(f"[15] three-factor readout at full width, {shape.global_batch} x "
+        f"{shape.seq_len} tokens: "
+        f"{rec['ms']:.2f} ms a step (median of 10; "
+        f"{rec['tokens'] / rec['ms'] * 1e3:.0f} tokens/s), rewards "
+        f"{', '.join(f'{r:.4f}' for r in rewards)}, max |w_q| "
+        f"{rec['w_q_max_from_zero']} after them; from random codes and <R> "
+        f"0.5: one step under sync-debug 'error', saturating at "
+        f"{tr.wmax}; vs the CPU on 1 x 512 with the card's draws: update "
+        f"max |err| {dw_err:.3e} of {dw_max:.3e} LSB, "
+        f"{rec['sample_flips']} sample and {rec['code_flips']} code flips "
+        f"at near ties ({rec['cpu_check_s']:.1f} s)")
+    return rec
+
+
+def _path_h_launchers():
+    """``launch.train --smoke --steps 5``, adamw and hybrid, as child
+    processes on the card at once."""
+    t0 = time.time()
+    ckpt = Path(tempfile.mkdtemp(prefix="launch_train_", dir=REPO / "build"))
+    cmds = {k: [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                PATH_H_ARCH, "--smoke", "--steps", "5", "--ckpt-every", "5",
+                "--ckpt-dir", str(ckpt / k), "--trainer", k]
+            for k in ("adamw", "hybrid")}
+    procs = {k: subprocess.Popen(c, env=dict(os.environ,
+                                             PYTHONPATH=str(REPO / "src")),
+                                 cwd=REPO, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, c in cmds.items()}
+    outs = {}
+    try:
+        for k, p in procs.items():
+            out, err = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise AssertionError(f"[15] launch.train --trainer {k} "
+                                     f"failed: {out[-2000:]}{err[-3000:]}")
+            outs[k] = out.strip().splitlines()[-1]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(ckpt)
+    log(f"[15] launch.train --smoke --steps 5 on the card: adamw "
+        f"'{outs['adamw']}', hybrid '{outs['hybrid']}' "
+        f"({time.time() - t0:.1f} s)")
+    return outs
+
+
+def phase_path_h():
+    """Path H, LM training at full smollm-360m width (see the module
+    docstring, phase 15). Returns the launch counts of the training run
+    (all 0) and prints the ``train_path_h`` record."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.config import ShapeConfig, get_arch
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.parallel.sharding import param_bytes
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    arch = get_arch(PATH_H_ARCH)
+    shape = ShapeConfig(*PATH_H_SHAPE)
+    ckpt_dir = REPO / "build" / "ckpt_path_h"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    (REPO / "build").mkdir(exist_ok=True)
+    cfg = AdamWConfig(lr=PATH_H_LR, warmup_steps=PATH_H_WARMUP)
+    tcfg = TrainerConfig(steps=PATH_H_STEPS, ckpt_every=PATH_H_STEPS,
+                         ckpt_dir=str(ckpt_dir), log_every=PATH_H_STEPS,
+                         opt=cfg)
+    tr = Trainer(arch, shape, tcfg, device=dev)
+    n_params = param_bytes(tr.bundle.decls) // 4
+    n_tok = shape.global_batch * shape.seq_len
+    rec = dict(arch=arch.name, params=n_params, batch=shape.global_batch,
+               seq=shape.seq_len, steps=PATH_H_STEPS, lr=PATH_H_LR,
+               warmup=PATH_H_WARMUP, remat=arch.remat,
+               remat_policy=arch.remat_policy)
+    # the initial parameters (the trainer draws the same from its seed):
+    # the CPU check and the three-factor trainer start from them
+    params0 = tr.init_state()["params"]
+    first = SyntheticLMPipeline(arch, shape, seed=0).next_batch(
+        torch.device("cpu"))
+    rec["cpu"] = _path_h_against_cpu(
+        tr.bundle, params0, {k: v[:1] for k, v in first.items()}, cfg)
+
+    # Trainer.train(): each step between CUDA events
+    step_fn, ev = tr.step_fn, []
+
+    def timed(*args):
+        e0, e1 = _events()
+        e0.record()
+        out = step_fn(*args)
+        e1.record()
+        ev.append((e0, e1))
+        return out
+    tr.step_fn = timed
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.time()
+    out = tr.train(resume=False)
+    train_s = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    assert not any(launches.values()), launches
+    losses = [h["loss"] for h in out["history"]]
+    assert all(np.isfinite(losses)) and len(losses) == PATH_H_STEPS, losses
+    assert losses[-1] < losses[0], losses
+    ms = [a.elapsed_time(b) for a, b in ev]
+    step_ms = sorted(ms[1:])[len(ms[1:]) // 2]
+    rec.update(losses=losses, step_ms=step_ms, step_ms_all=ms,
+               tokens_per_s=n_tok / (step_ms * 1e-3),
+               bound_ms=6 * n_params * n_tok / FP32_PEAK * 1e3,
+               max_memory_allocated=peak, peak_over_resident=peak - resident,
+               train_s=train_s, launches=launches)
+    log(f"[15] {arch.name} full width ({n_params / 1e9:.3f} B params), "
+        f"Trainer.train() {PATH_H_STEPS} steps of {shape.global_batch} x "
+        f"{shape.seq_len}, remat {arch.remat_policy!r}: {step_ms:.2f} ms a "
+        f"step (median after the first, {ms[0]:.2f} ms; bound "
+        f"{rec['bound_ms']:.2f}), {rec['tokens_per_s']:.0f} tokens/s; peak "
+        f"{peak / 1e9:.3f} GB ({(peak - resident) / 1e9:.3f} over the "
+        f"resident initial parameters); loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} [{', '.join(f'{x:.3f}' for x in losses)}]; "
+        f"none of the eight kernels launched ({train_s:.1f} s)")
+
+    state = dict(params=out["params"], opt=out["opt"])
+    batch = SyntheticLMPipeline(arch, shape, seed=0).next_batch(dev)
+    rec["remat"] = _path_h_remat(arch, state, batch, cfg)
+
+    def one_step():
+        step_fn(state["params"], state["opt"], {}, batch)
+    summ = _traced(one_step, "path_h_step", 1)
+    if summ is None:
+        log("[15] profiler: the trace holds no device time")
+    else:
+        w, bz = summ["window_us"], summ["busy_us"]
+        top = sorted(summ["by_name"].items(), key=lambda kv: -kv[1][0])[:6]
+        rec.update(trace_step_ms=w / 1e3, trace_busy_share=bz / w,
+                   trace_kernels=summ["kernels_per_trial"],
+                   trace_top=[[k, t / 1e3, c] for k, (t, c) in top])
+        log(f"[15] profiler, one training step: {w / 1e3:.2f} ms, device "
+            f"busy {bz / w:.4f} of it, {summ['kernels_per_trial']:.0f} "
+            f"kernels; by time: "
+            + "; ".join(f"{k} {t / 1e3:.3f} ({c})" for k, (t, c) in top))
+
+    rec["checkpoint"] = _path_h_checkpoint(arch, state,
+                                           ckpt_dir, tr.pipeline.state_dict())
+    del state, out, batch
+    torch.cuda.empty_cache()
+    rec["crash_restart"] = _path_h_crash_restart()
+    rec["three_factor"] = _path_h_three_factor(arch, params0, shape)
+    rec["launch_train"] = _path_h_launchers()
+    rec["phase_s"] = time.time() - t_phase
+    log(f"[15] path H wall time {rec['phase_s']:.1f} s")
+    print("train_path_h " + json.dumps(rec), flush=True)
+    return launches
+
+
 def main() -> int:
+    if sys.argv[1:] == ["--crash-restart"]:
+        return crash_restart_child()
     if not (REPO / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
               file=sys.stderr)
@@ -3208,6 +3818,7 @@ def main() -> int:
     counts_e, _, _ = phase_path_e()
     counts_f = phase_path_f()
     phase_path_g()
+    counts_h = phase_path_h()
 
     kernels = []
     for name, (source, replaces) in SRC.items():
@@ -3223,6 +3834,7 @@ def main() -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             launches_path_e=counts_e[name],
             launches_path_f=counts_f[name],
+            launches_path_h=counts_h.get(name, 0),
             **{k: r[k] for k in ("chain_floor_ms",) if k in r}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,12 +1,9 @@
 """Quickstart on the port: the machine model in a few lines.
 
   1. the BSS-2 machine model (paper's C1): emulate a spiking network,
-  2. the PPU hybrid-plasticity step (R-STDP, Eqs. 2-3).
-
-The reference's quickstart (``examples/quickstart.py``) has a third
-section, an assigned LM architecture through the same config system; the
-port has no LM stack yet (the seed's LLM scaffolding is the last module
-still to port), so that section is left out here.
+  2. the PPU hybrid-plasticity step (R-STDP, Eqs. 2-3),
+  3. an assigned LM architecture through the same stack: its initial
+     loss on a synthetic batch (``examples/quickstart.py``).
 
 Run:  PYTHONPATH=src python examples/torch_quickstart.py [--device cpu]
 
@@ -56,9 +53,21 @@ def main():
     print(f"[2] R-STDP: median <R> after {mr.shape[0]} trials = "
           f"{float(np.median(mr[-1])):.2f} (paper Fig. 11: -> ~1)")
 
-    # --- 3. an LM architecture: not in the port yet -----------------------
-    print("[3] LM architectures: not ported yet (the seed's LLM "
-          "scaffolding is the last module to port); skipped")
+    # --- 3. an assigned LM arch through the same stack --------------------
+    from repro_torch.config import ShapeConfig, get_arch
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.models.transformer import build_model
+    from repro_torch.parallel.sharding import ShardingCtx, init_params
+
+    arch = get_arch("smollm-360m").reduced()
+    bundle = build_model(arch, ShardingCtx())
+    params = init_params(bundle.decls, torch.Generator().manual_seed(0),
+                         device)
+    pipe = SyntheticLMPipeline(arch, ShapeConfig("s", 32, 2, "train"))
+    with torch.no_grad():
+        loss = bundle.loss(params, pipe.next_batch(device))
+    print(f"[3] {arch.name} (reduced): initial LM loss {float(loss):.3f} "
+          f"(ln V = {np.log(arch.vocab):.3f})")
     print("quickstart OK")
 
 

@@ -12,15 +12,17 @@ and layouts, so a state moves over leaf by leaf as numpy arrays:
 * ``plan``: a reference ``WaferPlan`` -> the port's (its numpy arrays);
 * ``mapping``: a reference ``ChipMapping`` -> the port's, field by field
   (``instance`` takes the mapper's spec-shaped ``net_inst`` as it is);
-* ``params`` / ``lm_cache``: a reference LM parameter tree or decode
-  cache (nested dicts, numpy leaves) -> the same tree of tensors on a
-  device; ``to_numpy`` goes back;
+* ``params`` / ``lm_cache``: any reference LM state tree (parameters,
+  AdamW state with its 0-d int32 ``step``, error-feedback trees, a
+  decode cache; nested dicts, numpy leaves) -> the same tree of tensors
+  on a device, leaf for leaf in the same dtypes; ``to_numpy`` goes back;
 * ``replay_reference_draws``: the reference's ``jax.random`` key chain
   replayed, so both packages consume the same numbers (PyTorch cannot
   reproduce threefry streams); ``replay_rstdp_xi`` likewise for the xi
   plane of ``VectorUnit.apply_rstdp`` / ``rules.rstdp``. Both take the
   ``jax.random`` module as an argument: this module imports no JAX
-  itself.
+  itself. ``replay_three_factor_draws`` likewise for a step of
+  ``HybridReadoutTrainer``.
 """
 from __future__ import annotations
 
@@ -102,10 +104,11 @@ def _tree(tree, device):
 
 
 def params(ref_tree, device=None) -> Dict:
-    """A reference LM parameter tree (``init_params`` over
-    ``build_model(...).decls``) or decode cache (``prefill``'s, or one
-    grown to ``max_len``), nested dicts with numpy leaves -> the same tree
-    of tensors on ``device``, leaf for leaf."""
+    """A reference LM state tree, nested dicts with numpy leaves (the
+    parameters of ``init_params`` over ``build_model(...).decls``, an
+    AdamW state ``{m, v, step}``, an error-feedback tree, a decode cache)
+    -> the same tree of tensors on ``device``, leaf for leaf (0-d leaves
+    stay 0-d, dtypes stay)."""
     return _tree(ref_tree, resolve_device(device))
 
 
@@ -187,3 +190,25 @@ def replay_rstdp_xi(jax_random, key, shape, noise: float, device=None):
     key, sub = jax_random.split(key)
     xi = np.asarray(noise * jax_random.normal(sub, tuple(shape)), np.float32)
     return key, _t(xi, device)
+
+
+def replay_three_factor_draws(jax_random, key, n_tokens: int, vocab: int,
+                              d_model: int, noise: float = 0.0,
+                              device=None):
+    """The draws one step of the reference's ``HybridReadoutTrainer``
+    consumes from its state's ``key``
+    (``repro/plasticity/three_factor.py:87-98``): ``key, k_samp, k_noise =
+    split(key, 3)``; ``categorical(k_samp, logits / T)`` is
+    ``argmax(gumbel(k_samp, [N, V]) + logits / T)``, and with ``noise > 0``
+    ``normal(k_noise, [d, V])``. Returns ``(next key, gumbel, noise or
+    None)``, the draws as float32 tensors on ``device`` for the port's
+    ``step(..., gumbel=, noise=)``."""
+    device = resolve_device(device)
+    key, k_samp, k_noise = jax_random.split(key, 3)
+    g = _t(np.asarray(jax_random.gumbel(k_samp, (n_tokens, vocab)),
+                      np.float32), device)
+    nz = None
+    if noise:
+        nz = _t(np.asarray(jax_random.normal(k_noise, (d_model, vocab)),
+                           np.float32), device)
+    return key, g, nz

@@ -1,14 +1,15 @@
-"""Serving driver: batched generation against a randomly initialised
-model (``repro/launch/serve.py``).
+"""Serving driver: batched generation against a randomly initialised or
+checkpointed model (``repro/launch/serve.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
       --batch 4 --new 16
 
 Runs on ``cuda`` unless ``--device cpu`` is given (no fallback: without a
 card and without ``--device`` it raises). ``--smoke`` serves the arch's
-reduced form. Parameters come from ``init_params`` with a generator seeded
-with 0 on the device, prompts from a numpy generator seeded with 1.
-``--ckpt-dir`` raises until the checkpoint slice is ported (``ROADMAP.md``).
+reduced form. Parameters come from the newest checkpoint in ``--ckpt-dir``
+(``launch/train.py``'s or the reference's), else from ``init_params`` with
+a generator seeded with 0 on the device; prompts from a numpy generator
+seeded with 1.
 """
 import argparse
 import time
@@ -35,10 +36,6 @@ def main(argv=None):
     from repro_torch.parallel.sharding import init_params
     from repro_torch.serve.engine import ServeEngine
 
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir: checkpoints are not ported yet (ROADMAP.md, queue "
-            "1: the training slice, checkpoint/)")
     device = resolve_device(args.device)
     arch = get_arch(args.arch)
     if args.smoke:
@@ -47,8 +44,15 @@ def main(argv=None):
                       + arch.n_meta_tokens
                       + (arch.n_patches if arch.vit_dim else 0),
                       device=device)
-    params = init_params(eng.bundle.decls,
-                         torch.Generator(device).manual_seed(0), device)
+    if args.ckpt_dir:
+        from repro_torch.checkpoint import restore_checkpoint
+        _, state = restore_checkpoint(args.ckpt_dir, device=device)
+        if state is None:
+            raise FileNotFoundError(f"no checkpoint in {args.ckpt_dir}")
+        params = state["params"]
+    else:
+        params = init_params(eng.bundle.decls,
+                             torch.Generator(device).manual_seed(0), device)
     prompts = np.random.default_rng(1).integers(
         0, max(arch.vocab, 2), (args.batch, args.prompt_len))
     if device.type == "cuda":

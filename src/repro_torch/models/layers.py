@@ -1,5 +1,5 @@
-"""Shared layer primitives: norms, RoPE, SwiGLU MLP, embeddings
-(``repro/models/layers.py``; the loss helpers come with training)."""
+"""Shared layer primitives: norms, RoPE, SwiGLU MLP, embeddings and the
+cross-entropy helpers (``repro/models/layers.py``)."""
 from __future__ import annotations
 
 import torch
@@ -96,3 +96,59 @@ def mask_vocab_pad(logits, real_vocab: int):
         logits = logits.clone()
         logits[..., real_vocab:] = -1e30
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Cross entropy
+# ---------------------------------------------------------------------------
+
+def _nll(logits, labels):
+    """Per-token negative log-likelihood of fp32 ``logits`` [..., V]: the
+    reference's log-sum-exp with the max held constant (``stop_gradient``)
+    and the gold logit gathered."""
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return lse - gold
+
+
+def lm_loss_chunked(x, emb_or_head, labels, ctx: ShardingCtx, *,
+                    tied: bool, mask=None, max_chunk_tokens: int = 1 << 18,
+                    real_vocab: int = 0):
+    """Cross entropy with the unembed fused per batch chunk.
+
+    The loop over batch chunks bounds the peak to one chunk's
+    [cb, S, V] fp32 logits: ``n_chunks`` is the largest divisor of the
+    batch not above tokens / ``max_chunk_tokens`` (at least 1).
+    """
+    b, s = labels.shape
+    n_chunks = max(1, (b * s) // max_chunk_tokens)
+    while b % n_chunks:
+        n_chunks -= 1
+    cb = b // n_chunks
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    denom = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        xc = x[i * cb:(i + 1) * cb]
+        if tied:
+            logits = unembed(xc, emb_or_head, ctx, real_vocab=real_vocab)
+        else:
+            logits = mask_vocab_pad(xc @ ctx.cast(emb_or_head), real_vocab)
+        nll = _nll(logits.float(), labels[i * cb:(i + 1) * cb])
+        if mask is not None:
+            mc = mask[i * cb:(i + 1) * cb]
+            total = total + torch.sum(nll * mc)
+            denom = denom + torch.sum(mc)
+        else:
+            total = total + torch.sum(nll)
+            denom = denom + nll.numel()
+    return total / torch.clamp(denom, min=1.0)
+
+
+def softmax_xent(logits, labels, mask=None):
+    """Cross entropy over the last dim, masked mean where ``mask`` is
+    given."""
+    nll = _nll(logits.float(), labels)
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

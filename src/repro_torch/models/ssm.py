@@ -120,10 +120,15 @@ def ssd_prefill(x, p, arch: ArchConfig, ctx: ShardingCtx, *,
     total = cum[:, :, -1]                             # [b, nc, nh]
 
     # ---- intra-chunk (masked kernel matmul) -------------------------------
-    # L[i,j] = exp(cum_i - cum_j) for i >= j
+    # L[i,j] = exp(cum_i - cum_j) for i >= j. The mask goes inside the exp:
+    # above the diagonal cum_i - cum_j > 0 can overflow to inf, and a
+    # where() after the exp would send 0 * inf = NaN into the gradient
+    # (the reference's order, repro/models/ssm.py:126); the values are
+    # the same
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [b,nc,Qi,Qj,nh]
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dev))
-    L = torch.where(tri[None, None, :, :, None], torch.exp(diff), 0.0)
+    L = torch.exp(torch.where(tri[None, None, :, :, None], diff,
+                              float("-inf")))
     scores = _ein("bcihn,bcjhn->bcijh", Ch_c, Bh_c)
     M = scores * L * dt_c[:, :, None, :, :]           # [b,nc,Q,Q,nh]
     y_diag = _ein("bcijh,bcjhp->bcihp", M.to(x.dtype), xs_c)
@@ -140,8 +145,8 @@ def ssd_prefill(x, p, arch: ArchConfig, ctx: ShardingCtx, *,
     dd = tot_cum[:, :, None, :] - tot_cum[:, None, :, :]   # [b, c, j, nh]
     strict = torch.tril(torch.ones((nc, nc), dtype=torch.bool, device=dev),
                         diagonal=-1)
-    dmat = torch.where(strict[None, :, :, None],
-                       torch.exp(dd - total[:, :, None, :]), 0.0)
+    dmat = torch.exp(torch.where(strict[None, :, :, None],
+                                 dd - total[:, :, None, :], float("-inf")))
     H = _ein("bcjh,bjhnp->bchnp", dmat, Sc)           # [b,nc,nh,ns,hd]
 
     # ---- inter-chunk output contribution -----------------------------------

@@ -6,7 +6,10 @@ dicts of tensors, over the reference's parameter tree (``emb``,
 ``layer_{i}``, ``ln_f``, ``head``, ...):
 
   * ``decls``            — ParamDecl tree (init, abstract shapes, specs)
+  * ``features``         — backbone features (pre-unembed), MoE aux, the
+                           audio label mask and optionally the cache
   * ``forward``          — logits for train/prefill
+  * ``loss``             — scalar LM / masked-unit loss (+ MoE aux)
   * ``prefill``          — last-token logits + the populated decode cache
   * ``make_cache_decls`` — decode-state declarations
   * ``decode_step``      — one-token step against the cache
@@ -21,16 +24,25 @@ Families:
                         layers
 
 The layers run as a Python loop. The reference scans homogeneous layer
-segments (``_layer_segments``) with remat, which is the same math; the
-loss comes with the training slice.
+segments (``_layer_segments``), which is the same math. ``loss`` runs
+each layer under activation checkpointing as the arch says
+(``ArchConfig.remat`` / ``remat_policy``, as the reference's
+``jax.checkpoint``): ``"dots"`` saves the outputs of the weight
+projections (``aten.mm`` / ``aten.addmm``, products without batch dims:
+``dots_with_no_batch_dims_saveable``) and recomputes the rest in the
+backward, ``"full"`` saves nothing. Remat changes memory and time, never
+the numbers.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Callable, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.config import ArchConfig, ShapeConfig
 from repro_torch.models import attention as A
@@ -38,6 +50,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.parallel.sharding import Ax, ParamDecl, ShardingCtx
+
+AUX_LOSS_W = 0.01
 
 
 # ---------------------------------------------------------------------------
@@ -194,8 +208,10 @@ class ModelBundle:
     arch: ArchConfig
     ctx: ShardingCtx
     decls: dict
+    features: Callable
     forward: Callable
     prefill: Callable
+    loss: Callable
     make_cache_decls: Callable
     decode_step: Callable
 
@@ -206,35 +222,89 @@ def _logits(x, params, arch: ArchConfig, ctx: ShardingCtx):
     return L.mask_vocab_pad(x @ ctx.cast(params["head"]), arch.vocab)
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy="dots"``: keep the
+    products without batch dims (the projections' ``mm`` / ``addmm``),
+    recompute everything else (norms, RoPE, the attention ``bmm``s)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_kwargs(arch: ArchConfig) -> dict:
+    """``torch.utils.checkpoint.checkpoint``'s keywords for the arch's
+    remat policy: ``"dots"`` selective, ``"full"`` saving nothing."""
+    kw = dict(use_reentrant=False)
+    if arch.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    elif arch.remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {arch.remat_policy!r}")
+    return kw
+
+
 def build_model(arch: ArchConfig, ctx: ShardingCtx) -> ModelBundle:
     decls = model_decls(arch)
+    remat_kw = _remat_kwargs(arch) if arch.remat else None
 
-    def features(params, batch, *, collect_cache=False):
+    def features(params, batch, *, collect_cache=False, use_remat=True):
         """Backbone forward -> final-norm features (pre-unembed), the MoE
         aux total, the audio label mask and (``collect_cache``) the
-        per-layer decode cache."""
+        per-layer decode cache. With ``use_remat`` (and ``arch.remat``)
+        each layer runs under activation checkpointing; the cache is
+        collected without it."""
         x, label_mask = _frontend(params, batch, arch, ctx)
         positions = torch.arange(x.shape[1], device=x.device)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         cache = {}
+        remat = remat_kw is not None and use_remat and not collect_cache
         for i in range(arch.n_layers):
-            x, aux, nc = _block(x, params[f"layer_{i}"], arch, i, ctx,
-                                positions=positions,
-                                collect_cache=collect_cache)
+            p_i = params[f"layer_{i}"]
+            if remat:
+                x, aux = checkpoint(_layer, x, p_i, i, positions,
+                                    **remat_kw)
+                nc = None
+            else:
+                x, aux, nc = _block(x, p_i, arch, i, ctx,
+                                    positions=positions,
+                                    collect_cache=collect_cache)
             if collect_cache:
                 cache[f"layer_{i}"] = nc
             aux_total = aux_total + aux
         x = L.rmsnorm(x, params["ln_f"], arch.norm_eps)
         return x, aux_total, label_mask, cache
 
+    def _layer(x, p_i, i, positions):
+        x, aux, _ = _block(x, p_i, arch, i, ctx, positions=positions)
+        return x, aux
+
     def forward(params, batch):
-        x, aux_total, label_mask, _ = features(params, batch)
+        x, aux_total, label_mask, _ = features(params, batch,
+                                               use_remat=False)
         return _logits(x, params, arch, ctx), aux_total, label_mask
+
+    def loss(params, batch):
+        """Mean next-token (audio: masked-unit) cross entropy over the
+        label positions, plus ``AUX_LOSS_W`` times the MoE aux loss."""
+        x, aux, label_mask, _ = features(params, batch)
+        pl = prefix_len(arch)
+        if pl:
+            x = x[:, pl:]
+        labels = batch["labels"]
+        mask = None
+        if arch.family == "audio":
+            mask = label_mask[None].float().expand(labels.shape)
+        emb_or_head = params["emb"] if arch.tie_embeddings else params["head"]
+        l = L.lm_loss_chunked(x, emb_or_head, labels, ctx,
+                              tied=arch.tie_embeddings, mask=mask,
+                              real_vocab=arch.vocab)
+        return l + AUX_LOSS_W * aux
 
     def prefill(params, batch):
         """Serving prefill: last-token logits + populated decode cache
         (an encoder's: the full frame logits and no cache)."""
-        x, _, _, cache = features(params, batch, collect_cache=True)
+        x, _, _, cache = features(params, batch, collect_cache=True,
+                                  use_remat=False)
         if arch.is_encoder_only:
             logits = L.mask_vocab_pad(x @ ctx.cast(params["head"]),
                                       arch.vocab)
@@ -272,8 +342,9 @@ def build_model(arch: ArchConfig, ctx: ShardingCtx) -> ModelBundle:
         x = L.rmsnorm(x, params["ln_f"], arch.norm_eps)
         return _logits(x, params, arch, ctx), new_cache
 
-    return ModelBundle(arch=arch, ctx=ctx, decls=decls, forward=forward,
-                       prefill=prefill, make_cache_decls=make_cache_decls,
+    return ModelBundle(arch=arch, ctx=ctx, decls=decls, features=features,
+                       forward=forward, prefill=prefill, loss=loss,
+                       make_cache_decls=make_cache_decls,
                        decode_step=decode_step)
 
 

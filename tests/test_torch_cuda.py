@@ -1497,3 +1497,116 @@ def test_serve_launches_no_port_kernel(cuda):
     kernels.reset_launches()
     eng.generate(params, np.ones((2, 12), np.int64), n_new=4)
     assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
+
+
+# ---------------------------------------------------------------------------
+# path H: LM training on the card
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_SHAPE_S, LM_TRAIN_B = 16, 2
+
+
+def _train_batch(arch, dev, seed=0):
+    from repro_torch.config import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    pipe = SyntheticLMPipeline(
+        arch, ShapeConfig("t", LM_TRAIN_SHAPE_S + arch.n_meta_tokens
+                          + (arch.n_patches if arch.vit_dim else 0),
+                          LM_TRAIN_B, "train"), seed=seed)
+    return pipe.next_batch(dev)
+
+
+@pytest.mark.parametrize("name", ["smollm-360m", "qwen1.5-0.5b",
+                                  "internvl2-2b", "moonshot-v1-16b-a3b",
+                                  "hubert-xlarge", "hymba-1.5b",
+                                  "mamba2-130m"])
+def test_train_step_card_matches_cpu(cuda, name):
+    """The loss and every gradient leaf of the reduced arch on the card
+    against the CPU (rtol = atol = 1e-4), then one AdamW step from the
+    same state: parameters within 1e-6 + 1e-5 |p|, except elements whose
+    CPU gradient is under 1e-5 in size: AdamW's first step moves a
+    parameter by lr g / (|g| + eps), so a gradient error dg moves it by
+    ~lr eps dg / g^2, and near 0 by up to 2 lr."""
+    from repro_torch.config import get_arch
+    from repro_torch.models.transformer import build_model
+    from repro_torch.parallel.sharding import ShardingCtx, init_params
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_init_decls,
+                                             adamw_update)
+    from repro_torch.train.steps import value_and_grad
+    arch = get_arch(name).reduced()
+    bundle = build_model(arch, ShardingCtx())
+    p_c = init_params(bundle.decls, torch.Generator().manual_seed(0),
+                      device="cpu")
+    p_g = _to_dev(p_c, cuda)
+    b_c = _train_batch(arch, "cpu")
+    l_c, g_c = value_and_grad(bundle.loss, p_c, b_c)
+    l_g, g_g = value_and_grad(bundle.loss, p_g, _to_dev(b_c, cuda))
+    np.testing.assert_allclose(float(l_g), float(l_c), rtol=1e-4, atol=1e-4)
+    leaves_c, leaves_g = _flat(g_c), _flat(g_g)
+    for k in leaves_c:
+        np.testing.assert_allclose(leaves_g[k].cpu().numpy(),
+                                   leaves_c[k].numpy(), rtol=1e-4,
+                                   atol=1e-4, err_msg=k)
+    cfg = AdamWConfig(lr=1e-3, warmup_steps=1)
+    o_c = init_params(adamw_init_decls(bundle.decls), device="cpu")
+    o_g = init_params(adamw_init_decls(bundle.decls), device=cuda)
+    adamw_update(p_c, g_c, o_c, cfg)
+    adamw_update(p_g, g_g, o_g, cfg)
+    pc, pg = _flat(p_c), _flat(p_g)
+    for k in pc:
+        a, b = pg[k].cpu().numpy(), pc[k].numpy()
+        err = np.abs(a - b)
+        bad = err > 1e-6 + 1e-5 * np.abs(b)
+        assert (np.abs(leaves_c[k].numpy()[bad]) < 1e-5).all(), k
+        assert (err <= 2 * cfg.lr + 1e-6).all(), k
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix: tree}
+
+
+def test_three_factor_step_on_card(cuda):
+    """A three-factor step on the card makes no read to the host (it runs
+    under ``set_sync_debug_mode("error")``), and with the CPU's Gumbel
+    draws injected it gives the CPU's codes: a code may differ by one only
+    where the CPU's ``w_new`` lies within 1e-3 of a .5 boundary."""
+    from repro_torch.config import get_arch
+    from repro_torch.parallel.sharding import init_params
+    from repro_torch.plasticity.three_factor import (HybridReadoutTrainer,
+                                                     PlasticState,
+                                                     sample_gumbel)
+    arch = get_arch("smollm-360m").reduced()
+    tr_g = HybridReadoutTrainer(arch, device=cuda)
+    tr_c = HybridReadoutTrainer(arch, device="cpu")
+    p_c = init_params(tr_c.bundle.decls, torch.Generator().manual_seed(0),
+                      device="cpu")
+    p_g = _to_dev(p_c, cuda)
+    st = tr_g.init_state(torch.Generator(cuda).manual_seed(1))
+    b_c = _train_batch(arch, "cpu")
+    b_g = _to_dev(b_c, cuda)
+    for _ in range(3):
+        st, _ = tr_g.step(p_g, st, b_g)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, m = tr_g.step(p_g, st, b_g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert st.w_q.dtype == torch.int8 and int(st.w_q.abs().max()) <= 31
+    g = sample_gumbel(torch.Generator().manual_seed(2),
+                      (LM_TRAIN_B * LM_TRAIN_SHAPE_S, arch.vocab_padded))
+    st_c = PlasticState(st.w_q.cpu(), st.mean_r.cpu(), torch.Generator())
+    new_g, m_g = tr_g.step(p_g, st, b_g, gumbel=g.to(cuda))
+    new_c, m_c = tr_c.step(p_c, st_c, b_c, gumbel=g)
+    diff = (new_g.w_q.cpu().int() - new_c.w_q.int())
+    assert int(diff.abs().max()) <= 1
+    w_new = tr_c.update(p_c, st_c, b_c, gumbel=g)[0]
+    frac = (w_new - torch.floor(w_new) - 0.5).abs()
+    assert (frac[diff != 0] < 1e-3).all()
+    np.testing.assert_allclose(float(m_g["mean_r"]), float(m_c["mean_r"]),
+                               rtol=1e-6)

@@ -25,6 +25,10 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert "repro_torch.wafer.router" in names, names
+for m in ("train.optimizer", "train.steps", "train.trainer", "data.pipeline",
+          "parallel.compress", "checkpoint.ckpt", "plasticity.three_factor",
+          "launch.train"):
+    assert "repro_torch." + m in names, m
 """
 
 
