@@ -230,6 +230,24 @@ Phases, each reported on its own line:
    hybrid`` as child processes on the card. Its numbers go on a
    ``train_path_h`` JSON line.
 
+16. Path I, the LM on a device mesh (``repro_torch.parallel.sharding`` on
+   a ``DeviceMesh``: parameters as DTensors placed by the logical-axis
+   rules, activations constrained, ``launch.mesh.make_smoke_mesh``): a
+   world of 1 on NCCL through a file store under ``build/`` and a 1 x 1
+   mesh over (``data``, ``model``). qwen1.5-0.5b at full width served as
+   in path G (8 x 128 prompt tokens, 32 greedy new ones) with and
+   without the mesh on the same parameters, in turns: tokens equal bit
+   for bit (the first divergence printed otherwise), prefill ms and
+   decode ms a token of each, a ``torch.profiler`` trace of 4 decode
+   steps under the mesh (kernels a step, busy share). smollm-360m at full
+   width, 8 x 512, 3 ``Trainer.train()`` steps with and without the mesh
+   in turns (twice each): losses equal bit for bit, step ms of each; the
+   mesh run's checkpoint (gathered, written by rank 0) restored without a
+   mesh and onto the mesh, every parameter and moment bit for bit on its
+   placements. Launch counts zeroed before and read after (none of the
+   eight kernels runs: ``launches_path_i``); the group destroyed before
+   the kernels line. Its numbers go on a ``mesh_path_i`` JSON line.
+
 Exits non-zero without a card, outside a checkout, or when any phase
 fails; the last line is the JSON device record.
 """
@@ -3060,15 +3078,17 @@ def _serve_timed(arch, params, prompts, n_new, reps=3):
             torch.cuda.max_memory_allocated())
 
 
-def _decode_trace(arch, params, prompts, n_steps=4):
+def _decode_trace(arch, params, prompts, n_steps=4, ctx=None,
+                  name="path_g"):
     """A ``torch.profiler`` trace of ``n_steps`` decode steps at the served
-    batch (the cache from one prefill; ``_traced``)."""
+    batch (the cache from one prefill; ``_traced``), under ``ctx``'s mesh
+    where given (``params`` placed on it)."""
     import torch
     from repro_torch.models.transformer import build_model, prefix_len
     from repro_torch.parallel.sharding import ShardingCtx
     from repro_torch.serve.engine import grow_cache
     dev = torch.device("cuda")
-    bundle = build_model(arch, ShardingCtx())
+    bundle = build_model(arch, ctx or ShardingCtx())
     toks = torch.from_numpy(prompts.astype("int64")).to(dev)
     total = toks.shape[1] + prefix_len(arch)
     with torch.no_grad():
@@ -3084,7 +3104,7 @@ def _decode_trace(arch, params, prompts, n_steps=4):
                 t = total + (state["t"] - total) % n_steps
                 bundle.decode_step(params, cache, tok, t)
                 state["t"] += 1
-    return _traced(steps, f"path_g_decode_{arch.name}", n_steps)
+    return _traced(steps, f"{name}_decode_{arch.name}", n_steps)
 
 
 def _serve_full(name, rng):
@@ -3789,6 +3809,195 @@ def phase_path_h():
     return launches
 
 
+# path I: the LM on a device mesh (DTensor placement by the logical-axis
+# rules). One card: a world of 1 (NCCL takes one card a rank) and a 1 x 1
+# mesh, on which every placement is Replicate() and every redistribute a
+# no-op, so the mesh must give path G's tokens and path H's losses bit for
+# bit; what it adds is DTensor's dispatch on the host
+PATH_I_STEPS, PATH_I_REPS = 3, 2
+
+
+def _path_i_serve(ctx, rec):
+    """qwen1.5-0.5b at full width served with and without the mesh on the
+    same parameters and path G's prompts (8 x 128, 32 greedy new tokens),
+    timed in turns (CUDA events, ``PhaseTimer``): tokens equal, prefill
+    ms, decode ms a token; a trace of 4 decode steps under the mesh."""
+    import numpy as np
+    import torch
+    from repro_torch.config import get_arch
+    from repro_torch.obs.timing import PhaseTimer
+    from repro_torch.parallel.sharding import place_tree
+    from repro_torch.serve.engine import ServeEngine
+    dev = torch.device("cuda")
+    arch = get_arch(PATH_G_ARCH)
+    params, n_bytes = _lm_params(arch, dev, seed=0)
+    prompts = np.random.default_rng(21).integers(
+        0, arch.vocab, (PATH_G_B, PATH_G_PROMPT[PATH_G_ARCH]))
+    max_len = prompts.shape[1] + PATH_G_NEW
+    engs = dict(plain=ServeEngine(arch, max_len=max_len, device=dev),
+                mesh=ServeEngine(arch, ctx, max_len=max_len))
+    placed = place_tree(params, engs["mesh"].bundle.decls, ctx)
+    held = dict(plain=params, mesh=placed)
+    timers = {k: PhaseTimer(dev) for k in engs}
+    outs = {}
+    for k, e in engs.items():
+        e.generate(held[k], prompts[:, :8], n_new=2)          # warm-up
+    for _ in range(PATH_I_REPS):
+        for k in ("plain", "mesh", "mesh", "plain"):
+            outs[k] = engs[k].generate(held[k], prompts, n_new=PATH_G_NEW,
+                                       timer=timers[k])
+    if not torch.equal(outs["plain"], outs["mesh"]):
+        diff = (outs["plain"] != outs["mesh"]).nonzero()
+        r, c = (int(v) for v in diff[0])
+        raise AssertionError(
+            f"[16] qwen tokens under the mesh differ from path G's: first at "
+            f"request {r}, new token {c} ({int(outs['mesh'][r, c])} vs "
+            f"{int(outs['plain'][r, c])}); {len(diff)} of {outs['mesh'].numel()}")
+    med = {k: {n: sorted(v)[len(v) // 2] * 1e3 for n, v in t.samples.items()}
+           for k, t in timers.items()}
+    for k in engs:
+        rec[f"prefill_ms_{k}"] = med[k]["prefill"]
+        rec[f"decode_ms_per_token_{k}"] = med[k]["decode"] / PATH_G_NEW
+    rec["tokens_equal"] = True
+    rec["serve_params_bytes"] = n_bytes
+    summ = _decode_trace(arch, placed, prompts, ctx=ctx, name="path_i")
+    if summ is not None:
+        w, bz = summ["window_us"], summ["busy_us"]
+        top = sorted(summ["by_name"].items(), key=lambda kv: -kv[1][0])[:6]
+        rec.update(trace_step_ms=w / 1e3 / 4, trace_busy_share=bz / w,
+                   trace_kernels_per_step=summ["kernels_per_trial"],
+                   trace_top=[[k, t / 1e3, c] for k, (t, c) in top])
+    log(f"[16] {PATH_G_ARCH} full width on the 1 x 1 mesh: the {PATH_G_B} x "
+        f"{PATH_G_NEW} tokens equal path G's; prefill "
+        f"{rec['prefill_ms_mesh']:.3f} ms (no mesh "
+        f"{rec['prefill_ms_plain']:.3f}), decode "
+        f"{rec['decode_ms_per_token_mesh']:.4f} ms a token (no mesh "
+        f"{rec['decode_ms_per_token_plain']:.4f}), in turns"
+        + ("" if summ is None else
+           f"; a traced mesh decode step {rec['trace_step_ms']:.3f} ms, "
+           f"{rec['trace_kernels_per_step']:.1f} kernels, device busy "
+           f"{rec['trace_busy_share']:.4f}"))
+    del params, placed, held, engs
+    torch.cuda.empty_cache()
+
+
+def _path_i_train(ctx, rec):
+    """smollm-360m at full width, 8 x 512: ``PATH_I_STEPS`` steps of
+    ``Trainer.train()`` without and with the mesh, in turns (twice each,
+    each step between CUDA events): losses equal; step ms. The mesh run
+    checkpoints its last step (gathered): restored without a mesh and
+    onto the mesh, every leaf equal to the trained state bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.config import ShapeConfig, get_arch
+    from repro_torch.parallel.sharding import full
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    dev = torch.device("cuda")
+    arch = get_arch(PATH_H_ARCH)
+    shape = ShapeConfig(*PATH_H_SHAPE)
+    ckpt = REPO / "build" / "ckpt_path_i"
+    losses, ms = {}, {"plain": [], "mesh": []}
+    for k in ("plain", "mesh", "mesh", "plain"):
+        shutil.rmtree(ckpt, ignore_errors=True)
+        tcfg = TrainerConfig(
+            steps=PATH_I_STEPS, ckpt_every=PATH_I_STEPS, ckpt_dir=str(ckpt),
+            log_every=PATH_I_STEPS,
+            opt=AdamWConfig(lr=PATH_H_LR, warmup_steps=PATH_H_WARMUP))
+        tr = (Trainer(arch, shape, tcfg, ctx) if k == "mesh"
+              else Trainer(arch, shape, tcfg, device=dev))
+        step_fn, ev = tr.step_fn, []
+
+        def timed(*args, step_fn=step_fn, ev=ev):
+            e0, e1 = _events()
+            e0.record()
+            out = step_fn(*args)
+            e1.record()
+            ev.append((e0, e1))
+            return out
+        tr.step_fn = timed
+        out = tr.train(resume=False)
+        torch.cuda.synchronize()
+        ms[k] += [a.elapsed_time(b) for a, b in ev[1:]]
+        got = [h["loss"] for h in out["history"]]
+        assert np.isfinite(got).all(), (k, got)
+        assert losses.setdefault(k, got) == got, (k, losses[k], got)
+        if k == "mesh" and "restored" not in rec:
+            state = dict(params=out["params"], opt=out["opt"])
+            _, plain = restore_checkpoint(ckpt, device=dev)
+            _, placed = restore_checkpoint(ckpt, shardings=tr.shardings())
+            n = 0
+            for part in ("params", "opt"):
+                for key, x in _leaves(state[part]).items():
+                    want = full(x)
+                    assert torch.equal(_get(plain[part], key), want), key
+                    y = _get(placed[part], key)
+                    assert tuple(y.placements) == tuple(x.placements), key
+                    assert torch.equal(full(y), want), key
+                    n += 1
+            rec["restored"] = n
+        del tr, out
+        torch.cuda.empty_cache()
+    if losses["mesh"] != losses["plain"]:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["mesh"],
+                                                      losses["plain"]))
+        raise AssertionError(f"[16] smollm losses under the mesh "
+                             f"{losses['mesh']} vs {losses['plain']} "
+                             f"(max rel {rel:.3e})")
+    for k in ms:
+        rec[f"step_ms_{k}"] = sorted(ms[k])[len(ms[k]) // 2]
+    rec["losses"] = losses["mesh"]
+    log(f"[16] {PATH_H_ARCH} full width, {shape.global_batch} x "
+        f"{shape.seq_len}, {PATH_I_STEPS} steps on the 1 x 1 mesh: losses "
+        f"equal no mesh's bit for bit ({', '.join(f'{x:.4f}' for x in losses['mesh'])}); "
+        f"{rec['step_ms_mesh']:.2f} ms a step (no mesh "
+        f"{rec['step_ms_plain']:.2f}, in turns); the mesh's checkpoint "
+        f"restored without a mesh and onto it, {rec['restored']} leaves bit "
+        f"for bit")
+
+
+def _get(tree, key):
+    for k in key.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def phase_path_i():
+    """Path I, the LM on a device mesh (see the module docstring, phase
+    16). Returns the launch counts of the path (all 0) and prints the
+    ``mesh_path_i`` record."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.parallel.sharding import ShardingCtx
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    t_phase = time.time()
+    torch.cuda.set_device(0)
+    (REPO / "build").mkdir(exist_ok=True)
+    store = REPO / "build" / "path_i_store"
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        ctx = ShardingCtx(mesh=make_smoke_mesh((1, 1), device_type="cuda"))
+        rec = dict(mesh=[1, 1], torch=torch.__version__)
+        kernels.reset_launches()
+        _path_i_serve(ctx, rec)
+        _path_i_train(ctx, rec)
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    assert not any(launches.values()), launches
+    rec["launches"] = launches
+    rec["phase_s"] = time.time() - t_phase
+    log(f"[16] path I wall time {rec['phase_s']:.1f} s; none of the eight "
+        f"kernels launched")
+    print("mesh_path_i " + json.dumps(rec), flush=True)
+    return launches
+
+
 def main() -> int:
     if sys.argv[1:] == ["--crash-restart"]:
         return crash_restart_child()
@@ -3819,6 +4028,7 @@ def main() -> int:
     counts_f = phase_path_f()
     phase_path_g()
     counts_h = phase_path_h()
+    counts_i = phase_path_i()
 
     kernels = []
     for name, (source, replaces) in SRC.items():
@@ -3835,6 +4045,7 @@ def main() -> int:
             launches_path_e=counts_e[name],
             launches_path_f=counts_f[name],
             launches_path_h=counts_h.get(name, 0),
+            launches_path_i=counts_i.get(name, 0),
             **{k: r[k] for k in ("chain_floor_ms",) if k in r}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -11,10 +11,11 @@
   to a writer thread, so the train loop waits only for the copy from the
   device;
 * **complete**: optimizer state and the data cursor are part of the
-  checkpoint, so a restart continues exactly.
-
-Re-placing a checkpoint onto a device mesh (``shardings=``) comes with
-the mesh (``parallel/sharding.py::MESH_PENDING``).
+  checkpoint, so a restart continues exactly;
+* **elastic**: a DTensor leaf is saved whole (``full_tensor()``, a
+  collective every rank makes in the same order; rank 0 writes, the
+  others wait at a barrier), and ``restore_checkpoint(shardings=)``
+  places each leaf on the mesh it is given, whatever mesh wrote it.
 """
 from __future__ import annotations
 
@@ -27,9 +28,11 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch import resolve_device
-from repro_torch.parallel.sharding import MESH_PENDING
+from repro_torch.parallel.sharding import MeshPlacement, ShardingCtx, full
 
 
 def _flatten(tree, prefix=""):
@@ -37,7 +40,8 @@ def _flatten(tree, prefix=""):
     if isinstance(tree, dict):
         for k, v in tree.items():
             out.update(_flatten(v, f"{prefix}{k}/"))
-    elif isinstance(tree, (list, tuple)):
+    elif isinstance(tree, (list, tuple)) and \
+            not isinstance(tree, MeshPlacement):
         for i, v in enumerate(tree):
             out.update(_flatten(v, f"{prefix}{i}/"))
     else:
@@ -58,19 +62,41 @@ def _unflatten(flat: Dict[str, Any]):
 
 def _host(x):
     """A leaf as a numpy array the caller owns: a tensor copied off its
-    device (a copy on the CPU too: training updates tensors in place)."""
+    device (a copy on the CPU too: training updates tensors in place), a
+    DTensor gathered whole first."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True).numpy()
+        return full(x.detach()).to("cpu", copy=True).numpy()
     return np.asarray(x)
+
+
+def _host_state(state):
+    """``(host tree, sharded, writes)``: the state's leaves gathered to
+    numpy in the tree's order (the same collectives on every rank),
+    whether a DTensor leaf was among them, and whether this rank writes:
+    rank 0 when one was."""
+    flat = _flatten(state)
+    host = {k: _host(v) for k, v in flat.items()}
+    sharded = any(isinstance(v, DTensor) for v in flat.values())
+    writes = not sharded or dist.get_rank() == 0
+    return _unflatten(host), sharded, writes
 
 
 def save_checkpoint(ckpt_dir, step: int, state: Dict[str, Any],
                     meta: Optional[dict] = None):
     """state: {'params': tree, 'opt': tree, 'data': tree, ...} with tensor
-    or numpy leaves."""
+    (or DTensor: every rank calls) or numpy leaves."""
+    host_state, sharded, writes = _host_state(state)
+    if writes:
+        _write(ckpt_dir, step, host_state, meta)
+    if sharded:
+        dist.barrier()
+    return Path(ckpt_dir) / f"step_{step:08d}.npz"
+
+
+def _write(ckpt_dir, step: int, host_state, meta):
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    host = {k: _host(v) for k, v in _flatten(state).items()}
+    host = _flatten(host_state)
     tmp = ckpt_dir / f"step_{step:08d}.tmp.npz"
     final = ckpt_dir / f"step_{step:08d}.npz"
     with open(tmp, "wb") as f:
@@ -99,18 +125,33 @@ def restore_checkpoint(ckpt_dir, step: Optional[int] = None,
                        shardings=None, device=None):
     """Load a checkpoint (the newest without ``step``) as ``(step,
     state)``, every leaf a tensor on ``device`` (``None``: ``cuda``,
-    raising without a card); ``(None, None)`` when there is none."""
-    if shardings is not None:
-        raise NotImplementedError(MESH_PENDING)
-    device = resolve_device(device)
+    raising without a card); ``(None, None)`` when there is none.
+
+    ``shardings``: a tree like part of the state with ``MeshPlacement``
+    leaves (``tree_pspecs(decls, ctx)``; ``None`` leaves stay plain).
+    Each leaf it names is placed on that mesh by those placements, each
+    rank keeping its shard of the whole leaf, whatever mesh wrote it;
+    the other leaves go to the mesh's device."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             return None, None
+    sh = _flatten(shardings) if shardings is not None else {}
+    placed = [v for v in sh.values() if isinstance(v, MeshPlacement)]
+    device = (ShardingCtx(mesh=placed[0].mesh).device if placed
+              else resolve_device(device))
+    flat = {}
     with np.load(ckpt_dir / f"step_{step:08d}.npz") as data:
-        flat = {k.replace("|", "/"): torch.from_numpy(data[k]).to(device)
-                for k in data.files}
+        for k in data.files:
+            key = k.replace("|", "/")
+            x = torch.from_numpy(data[k])
+            where = sh.get(key)
+            if isinstance(where, MeshPlacement):
+                flat[key] = ShardingCtx(mesh=where.mesh).place(
+                    x, where.placements)
+            else:
+                flat[key] = x.to(device)
     return step, _unflatten(flat)
 
 
@@ -124,21 +165,26 @@ class CheckpointManager:
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._sharded = False      # a save gathered DTensors: ranks meet
 
     def save(self, step: int, state, meta=None):
+        """Every rank calls under a mesh (the gather is a collective);
+        only the writing rank writes, in its thread when async."""
         # the device -> host copy happens here (a consistent snapshot)
-        host_state = _unflatten({k: _host(v)
-                                 for k, v in _flatten(state).items()})
-        if self.async_save:
-            self.wait()
+        host_state, sharded, writes = _host_state(state)
+        self._sharded |= sharded
+        if writes and self.async_save:
+            self._join()
             self._thread = threading.Thread(
                 target=self._write_async, args=(step, host_state, meta))
             self._thread.start()
-        else:
+        elif writes:
             self._write(step, host_state, meta)
+        if sharded:
+            dist.barrier()
 
     def _write(self, step, host_state, meta):
-        save_checkpoint(self.dir, step, host_state, meta)
+        _write(self.dir, step, host_state, meta)
         self._gc()
 
     def _write_async(self, step, host_state, meta):
@@ -148,6 +194,15 @@ class CheckpointManager:
             self._error = e
 
     def wait(self):
+        """The last write finished (under a mesh: on every rank, each
+        rank calling)."""
+        try:
+            self._join()
+        finally:
+            if self._sharded:
+                dist.barrier()
+
+    def _join(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None

@@ -15,7 +15,9 @@ and layouts, so a state moves over leaf by leaf as numpy arrays:
 * ``params`` / ``lm_cache``: any reference LM state tree (parameters,
   AdamW state with its 0-d int32 ``step``, error-feedback trees, a
   decode cache; nested dicts, numpy leaves) -> the same tree of tensors
-  on a device, leaf for leaf in the same dtypes; ``to_numpy`` goes back;
+  on a device, leaf for leaf in the same dtypes (``params`` with a
+  device-mesh ``ctx`` and the tree's ``decls``: DTensors placed by the
+  decls); ``to_numpy`` goes back;
 * ``replay_reference_draws``: the reference's ``jax.random`` key chain
   replayed, so both packages consume the same numbers (PyTorch cannot
   reproduce threefry streams); ``replay_rstdp_xi`` likewise for the xi
@@ -38,6 +40,7 @@ from repro_torch.core.hybrid import (Draws, ExperimentState, RSTDPConfig,
                                      events_from_background)
 from repro_torch.mapper import (ChipMapping, ColumnPartition,
                                 NetworkSpec)
+from repro_torch.parallel.sharding import place_tree
 from repro_torch.wafer.topology import WaferPlan, WaferTopology
 
 _PLAN_ARRAYS = ("src_chip", "src_col", "dst_chip", "dst_row", "addr",
@@ -103,13 +106,19 @@ def _tree(tree, device):
     return _t(tree, device)
 
 
-def params(ref_tree, device=None) -> Dict:
+def params(ref_tree, device=None, ctx=None, decls=None) -> Dict:
     """A reference LM state tree, nested dicts with numpy leaves (the
     parameters of ``init_params`` over ``build_model(...).decls``, an
     AdamW state ``{m, v, step}``, an error-feedback tree, a decode cache)
     -> the same tree of tensors on ``device``, leaf for leaf (0-d leaves
-    stay 0-d, dtypes stay)."""
-    return _tree(ref_tree, resolve_device(device))
+    stay 0-d, dtypes stay). With a ``ctx`` on a device mesh each leaf is
+    placed on it by ``decls`` (the tree's ``ParamDecl`` tree), each rank
+    keeping its shard."""
+    if ctx is None or not ctx.places:
+        return _tree(ref_tree, resolve_device(device))
+    if decls is None:
+        raise ValueError("placing a tree on a device mesh needs its decls")
+    return place_tree(_tree(ref_tree, "cpu"), decls, ctx)
 
 
 lm_cache = params     # the decode cache is a tree like the parameters

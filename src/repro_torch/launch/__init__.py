@@ -1,1 +1,2 @@
-"""Command-line entry points (``repro/launch``): ``serve``."""
+"""Command-line entry points (``repro/launch``): ``serve``, ``train``, and
+the device meshes they build (``mesh``)."""

@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config import ArchConfig
 from repro_torch.models.layers import apply_rope
@@ -62,12 +63,24 @@ def _qkv(x, p, arch: ArchConfig, ctx: ShardingCtx, positions):
         q = q + ctx.cast(p["bq"])
         k = k + ctx.cast(p["bk"])
         v = v + ctx.cast(p["bv"])
+    # the projections' head dims whole before they are split into heads (a
+    # head count the model axis does not divide cannot be split sharded);
+    # the layout the reference constrains to below
+    q = ctx.constrain(q, Ax.BATCH, Ax.SEQ, None)
+    k = ctx.constrain(k, Ax.BATCH, Ax.SEQ, None)
+    v = ctx.constrain(v, Ax.BATCH, Ax.SEQ, None)
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, kvh, hd)
     v = v.reshape(b, s, kvh, hd)
     if arch.rope_theta:
         q = apply_rope(q, positions, arch.rope_theta)
         k = apply_rope(k, positions, arch.rope_theta)
+    # the reference's context-parallel sites; on a device mesh the
+    # sequence stays whole (``ShardingCtx.WHOLE``), so these keep the
+    # batch over the data axes
+    q = ctx.constrain(q, Ax.BATCH, Ax.SEQ, None, None)
+    k = ctx.constrain(k, Ax.BATCH, Ax.SEQ, None, None)
+    v = ctx.constrain(v, Ax.BATCH, Ax.SEQ, None, None)
     return q, k, v
 
 
@@ -99,10 +112,13 @@ def attention_prefill(q, k, v, *, causal: bool, window: int, ctx: ShardingCtx,
 
     if n_blocks == 1:
         sc = _ein("bqkgd,btkd->bkgqt", qg, k) * scale
+        # the reference's q-dim site (the sequence whole on a device mesh)
+        sc = ctx.constrain(sc, Ax.BATCH, None, None, Ax.SEQ, None)
         mask = _mask(qpos, torch.arange(skv, device=q.device), causal, window)
         sc = torch.where(mask[None, None, None], sc, NEG_INF)
         p = torch.softmax(sc, dim=-1)
         out = _ein("bkgqt,btkd->bqkgd", p.to(q.dtype), v)
+        out = ctx.constrain(out, Ax.BATCH, Ax.SEQ, None, None, None)
         return out.reshape(b, sq, h, hd).to(q.dtype)
 
     m = torch.full((b, kvh, g, sq), NEG_INF, dtype=torch.float32,
@@ -114,6 +130,7 @@ def attention_prefill(q, k, v, *, causal: bool, window: int, ctx: ShardingCtx,
         lo = j * kv_block
         hi = min(lo + kv_block, skv)
         s_ij = _ein("bqkgd,btkd->bkgqt", qg, k[:, lo:hi]) * scale
+        s_ij = ctx.constrain(s_ij, Ax.BATCH, None, None, Ax.SEQ, None)
         mask = _mask(qpos, torch.arange(lo, hi, device=q.device), causal,
                      window)
         s_ij = torch.where(mask[None, None, None], s_ij, NEG_INF)
@@ -122,6 +139,7 @@ def attention_prefill(q, k, v, *, causal: bool, window: int, ctx: ShardingCtx,
         alpha = torch.exp(m - m_new)
         l = l * alpha + torch.sum(p, dim=-1)
         pv = _ein("bkgqt,btkd->bqkgd", p.to(q.dtype), v[:, lo:hi])
+        pv = ctx.constrain(pv, Ax.BATCH, Ax.SEQ, None, None, None)
         acc = acc * alpha.permute(0, 3, 1, 2)[..., None] + pv
         m = m_new
 
@@ -154,6 +172,7 @@ def attention_swa_blocked(q, k, v, *, window: int, ctx: ShardingCtx):
                                 1), vb], 2)
     # kcat: [b, nb, 2w, kvh, hd]
     sc = _ein("bnqkgd,bntkd->bnkgqt", qb, kcat) * scale
+    sc = ctx.constrain(sc, Ax.BATCH, Ax.SEQ, None, None, None, None)
     dev = q.device
     i = torch.arange(w, device=dev)[:, None]           # q index within block
     jj = torch.arange(2 * w, device=dev)[None, :]      # k index in the window
@@ -164,7 +183,8 @@ def attention_swa_blocked(q, k, v, *, window: int, ctx: ShardingCtx):
     sc = torch.where(mask[None, :, None, None], sc, NEG_INF)
     p = torch.softmax(sc, dim=-1)
     out = _ein("bnkgqt,bntkd->bnqkgd", p.to(q.dtype), vcat)
-    return out.reshape(b, s, h, hd).to(q.dtype)
+    out = out.reshape(b, s, h, hd).to(q.dtype)
+    return ctx.constrain(out, Ax.BATCH, Ax.SEQ, None, None)
 
 
 def attention_decode(q, cache_k, cache_v, t, *, window: int,
@@ -181,6 +201,7 @@ def attention_decode(q, cache_k, cache_v, t, *, window: int,
     qg = q.reshape(b, 1, kvh, g, hd)
     scale = 1.0 / (hd ** 0.5)
     sc = _ein("bqkgd,btkd->bkgqt", qg, cache_k) * scale
+    sc = ctx.constrain(sc, Ax.BATCH, None, None, None, Ax.KV_SEQ)
     kpos = torch.arange(S, device=q.device)
     mask = kpos[None, :] <= t
     if window:
@@ -198,7 +219,8 @@ def attn_layer(x, p, arch: ArchConfig, layer_idx: int, ctx: ShardingCtx, *,
 
     In decode (``cache`` given) the new k/v are written into the cache
     tensors at position ``t`` in place, as the reference's donated decode
-    updates its cache, and the same dict is returned.
+    updates its cache (a DTensor cache: into a new one), and the cache
+    entry is returned.
     """
     window = 0
     if arch.swa_window and layer_idx not in arch.global_attn_layers:
@@ -207,9 +229,10 @@ def attn_layer(x, p, arch: ArchConfig, layer_idx: int, ctx: ShardingCtx, *,
     new_cache = None
     if cache is not None:
         idx = positions.reshape(1)
-        ck, cv = cache["k"], cache["v"]
-        ck.index_copy_(1, idx, k.to(ck.dtype))
-        cv.index_copy_(1, idx, v.to(cv.dtype))
+        ck = _write_at(cache["k"], idx, k)
+        cv = _write_at(cache["v"], idx, v)
+        ck = ctx.constrain(ck, Ax.BATCH, Ax.KV_SEQ, None, None)
+        cv = ctx.constrain(cv, Ax.BATCH, Ax.KV_SEQ, None, None)
         o = attention_decode(q, ck, cv, t, window=window, ctx=ctx)
         new_cache = dict(k=ck, v=cv)
     else:
@@ -225,7 +248,19 @@ def attn_layer(x, p, arch: ArchConfig, layer_idx: int, ctx: ShardingCtx, *,
             new_cache = dict(k=k, v=v)
     b, sq = o.shape[0], o.shape[1]
     o = o.reshape(b, sq, arch.n_heads * arch.head_dim)
+    o = ctx.constrain(o, Ax.BATCH, Ax.SEQ, None)
     return o @ ctx.cast(p["wo"]), new_cache
+
+
+def _write_at(cache, idx, new):
+    """``new`` [b, 1, kvh, hd] written into ``cache`` at position ``idx``:
+    in place, or, for a DTensor cache (a sharded dim takes no in-place
+    write), as a new cache with the same values."""
+    if isinstance(cache, DTensor):
+        at = torch.arange(cache.shape[1], device=idx.device) == idx
+        return torch.where(at[None, :, None, None], new.to(cache.dtype),
+                           cache)
+    return cache.index_copy_(1, idx, new.to(cache.dtype))
 
 
 def cache_decls(arch: ArchConfig, batch: int, max_len: int, dtype) -> dict:

@@ -5,7 +5,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.parallel.sharding import Ax, ParamDecl, ShardingCtx
+from repro_torch.parallel.sharding import (Ax, ParamDecl, ShardingCtx,
+                                           implicit_replication)
 
 
 # ---------------------------------------------------------------------------
@@ -31,6 +32,21 @@ def rmsnorm_gated(x, z, w, eps: float = 1e-5):
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * w.float()).to(dt)
+
+
+def pad_dim1(x, before: int, after: int):
+    """``x`` with ``before`` / ``after`` zero rows around dim 1, as a
+    concatenation (DTensor's ``F.pad`` has given a wrong output shape when
+    only the pad widths changed between calls)."""
+    shape = list(x.shape)
+    parts = []
+    for n in (before, after):
+        shape[1] = n
+        parts.append(torch.zeros(shape, dtype=x.dtype, device=x.device)
+                     if n else None)
+    with implicit_replication():
+        return torch.cat([p for p in (parts[0], x, parts[1])
+                          if p is not None], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -81,20 +97,28 @@ def embed_decl(vocab: int, d: int) -> ParamDecl:
 
 
 def embed_lookup(tokens, emb, ctx: ShardingCtx):
+    # under a mesh the ids whole on every rank: DTensor (torch 2.11) takes
+    # no lookup backward on batch-sharded ids (it asks for a normalised
+    # shard dim; ``tests/_torch_lm_mesh.py`` part ``grads``)
+    tokens = ctx.constrain(tokens, *(None,) * tokens.ndim)
     return ctx.cast(emb)[tokens]
 
 
 def unembed(x, emb, ctx: ShardingCtx, real_vocab: int = 0):
-    """Logits against the (tied) embedding."""
-    logits = x @ ctx.cast(emb).T
+    """Logits against the (tied) embedding; the weight operand is held
+    vocab-sharded, embed-replicated, as the reference constrains it."""
+    emb_c = ctx.constrain(ctx.cast(emb), Ax.VOCAB_ACT, None)
+    logits = x @ emb_c.T
+    axes = (Ax.BATCH,) + (Ax.NONE,) * (x.ndim - 2) + (Ax.VOCAB_ACT,)
+    logits = ctx.constrain(logits, *axes)
     return mask_vocab_pad(logits, real_vocab)
 
 
 def mask_vocab_pad(logits, real_vocab: int):
     """-1e30 on the padded vocab columns (vocab_padded > vocab)."""
     if real_vocab and logits.shape[-1] > real_vocab:
-        logits = logits.clone()
-        logits[..., real_vocab:] = -1e30
+        col = torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where(col < real_vocab, logits, -1e30)
     return logits
 
 
@@ -120,6 +144,12 @@ def lm_loss_chunked(x, emb_or_head, labels, ctx: ShardingCtx, *,
     The loop over batch chunks bounds the peak to one chunk's
     [cb, S, V] fp32 logits: ``n_chunks`` is the largest divisor of the
     batch not above tokens / ``max_chunk_tokens`` (at least 1).
+
+    Under a device mesh each chunk's logits go into the cross entropy
+    with the vocab whole (the batch stays over the data axes): on torch
+    2.11, DTensor's gradient of a ``log`` of a sum over a vocab sharded
+    on one mesh dim, with the batch sharded on the other, is wrong
+    (``tests/_torch_lm_mesh.py``, part ``ops``).
     """
     b, s = labels.shape
     n_chunks = max(1, (b * s) // max_chunk_tokens)
@@ -133,7 +163,10 @@ def lm_loss_chunked(x, emb_or_head, labels, ctx: ShardingCtx, *,
         if tied:
             logits = unembed(xc, emb_or_head, ctx, real_vocab=real_vocab)
         else:
-            logits = mask_vocab_pad(xc @ ctx.cast(emb_or_head), real_vocab)
+            w_c = ctx.constrain(ctx.cast(emb_or_head), None, Ax.VOCAB_ACT)
+            logits = ctx.constrain(xc @ w_c, Ax.BATCH, None, Ax.VOCAB_ACT)
+            logits = mask_vocab_pad(logits, real_vocab)
+        logits = ctx.constrain(logits, Ax.BATCH, None, None)
         nll = _nll(logits.float(), labels[i * cb:(i + 1) * cb])
         if mask is not None:
             mc = mask[i * cb:(i + 1) * cb]

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ArchConfig
-from repro_torch.models.layers import rmsnorm_gated
+from repro_torch.models.layers import pad_dim1, rmsnorm_gated
 from repro_torch.parallel.sharding import Ax, ParamDecl, ShardingCtx
 
 
@@ -56,7 +56,7 @@ def _causal_conv(x, w, b):
     k = w.shape[0]
     y = x * w[k - 1]
     for i in range(1, k):
-        shifted = F.pad(x, (0, 0, i, 0))[:, :-i]
+        shifted = pad_dim1(x, i, 0)[:, :-i]
         y = y + shifted * w[k - 1 - i]
     return y + b
 
@@ -90,7 +90,7 @@ def ssd_prefill(x, p, arch: ArchConfig, ctx: ShardingCtx, *,
         # only valid with return_state=False, since the tail would pollute
         # the final state)
         assert not return_state, "padded prefill cannot return a state"
-        x = F.pad(x, (0, 0, 0, pad))
+        x = pad_dim1(x, 0, pad)
     s_len = s_in + pad
     nc = s_len // Q
     dev = x.device
@@ -115,6 +115,11 @@ def ssd_prefill(x, p, arch: ArchConfig, ctx: ShardingCtx, *,
     def chunk(t):
         return t.reshape(b, nc, Q, *t.shape[2:])
     xs_c, Bh_c, Ch_c, dt_c, dA_c = map(chunk, (xs, Bh, Ch, dt, dA))
+    xs_c = ctx.constrain(xs_c, Ax.BATCH, Ax.SEQ, None, None, None)
+    Bh_c = ctx.constrain(Bh_c, Ax.BATCH, Ax.SEQ, None, None, None)
+    Ch_c = ctx.constrain(Ch_c, Ax.BATCH, Ax.SEQ, None, None, None)
+    dt_c = ctx.constrain(dt_c, Ax.BATCH, Ax.SEQ, None, None)
+    dA_c = ctx.constrain(dA_c, Ax.BATCH, Ax.SEQ, None, None)
 
     cum = torch.cumsum(dA_c, dim=2)                   # [b, nc, Q, nh]
     total = cum[:, :, -1]                             # [b, nc, nh]
@@ -130,8 +135,10 @@ def ssd_prefill(x, p, arch: ArchConfig, ctx: ShardingCtx, *,
     L = torch.exp(torch.where(tri[None, None, :, :, None], diff,
                               float("-inf")))
     scores = _ein("bcihn,bcjhn->bcijh", Ch_c, Bh_c)
+    scores = ctx.constrain(scores, Ax.BATCH, Ax.SEQ, None, None, None)
     M = scores * L * dt_c[:, :, None, :, :]           # [b,nc,Q,Q,nh]
     y_diag = _ein("bcijh,bcjhp->bcihp", M.to(x.dtype), xs_c)
+    y_diag = ctx.constrain(y_diag, Ax.BATCH, Ax.SEQ, None, None, None)
 
     # ---- chunk states ------------------------------------------------------
     # S_c = Σ_j exp(total_c - cum_j) dt_j B_j ⊗ x_j    [b, nc, nh, ns, hd]
@@ -157,6 +164,7 @@ def ssd_prefill(x, p, arch: ArchConfig, ctx: ShardingCtx, *,
     y = (y_diag + y_off).reshape(b, s_len, nh, hd)
     y = y + xs * p["d_skip"].float()[None, None, :, None]
     y = y.reshape(b, s_len, di).to(x.dtype)
+    y = ctx.constrain(y, Ax.BATCH, Ax.SEQ, None)
     y = rmsnorm_gated(y, z, p["norm_w"], arch.norm_eps)
     out = y @ ctx.cast(p["w_out"])
     if pad:

@@ -149,11 +149,17 @@ def _block(x, p, arch: ArchConfig, i: int, ctx: ShardingCtx, *, positions,
 
     h2 = L.rmsnorm(x, p["ln2"], arch.norm_eps)
     if "moe" in p:
-        y, a = M.moe_ffn(h2, p["moe"], arch, ctx)
+        # expert parallelism (``moe_ffn_ep``) is the default under a mesh;
+        # ``moe_impl="gspmd"`` keeps the DP-grouped dispatch of ``moe_ffn``
+        moe_fn = (M.moe_ffn
+                  if ctx.overrides.get("moe_impl", "ep") == "gspmd"
+                  else M.moe_ffn_ep)
+        y, a = moe_fn(h2, p["moe"], arch, ctx)
         aux = aux + a
     else:
         y = L.mlp(h2, p["mlp"], ctx)
-    return x + y, aux, new_cache
+    x = ctx.constrain(x + y, Ax.BATCH, Ax.SEQ, None)
+    return x, aux, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -178,7 +184,7 @@ def _frontend(params, batch, arch: ArchConfig, ctx: ShardingCtx):
                                               device=dev) / d))
         ang = pos.float()[:, None] * inv[None, :]
         pe = torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(x.dtype)
-        return x + pe[None], masked
+        return ctx.constrain(x + pe[None], Ax.BATCH, Ax.SEQ, None), masked
 
     parts = []
     if arch.n_meta_tokens:
@@ -192,7 +198,7 @@ def _frontend(params, batch, arch: ArchConfig, ctx: ShardingCtx):
         parts.append(proj @ ctx.cast(params["vit_proj"]["w2"]))
     parts.append(L.embed_lookup(batch["tokens"], params["emb"], ctx))
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
-    return x, None
+    return ctx.constrain(x, Ax.BATCH, Ax.SEQ, None), None
 
 
 def prefix_len(arch: ArchConfig) -> int:
@@ -219,7 +225,9 @@ class ModelBundle:
 def _logits(x, params, arch: ArchConfig, ctx: ShardingCtx):
     if arch.tie_embeddings:
         return L.unembed(x, params["emb"], ctx, real_vocab=arch.vocab)
-    return L.mask_vocab_pad(x @ ctx.cast(params["head"]), arch.vocab)
+    logits = ctx.constrain(x @ ctx.cast(params["head"]), Ax.BATCH, None,
+                           Ax.VOCAB_ACT)
+    return L.mask_vocab_pad(logits, arch.vocab)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -306,9 +314,9 @@ def build_model(arch: ArchConfig, ctx: ShardingCtx) -> ModelBundle:
         x, _, _, cache = features(params, batch, collect_cache=True,
                                   use_remat=False)
         if arch.is_encoder_only:
-            logits = L.mask_vocab_pad(x @ ctx.cast(params["head"]),
-                                      arch.vocab)
-            return logits, {}
+            logits = ctx.constrain(x @ ctx.cast(params["head"]), Ax.BATCH,
+                                   Ax.SEQ, None)
+            return L.mask_vocab_pad(logits, arch.vocab), {}
         return _logits(x[:, -1:], params, arch, ctx), cache
 
     def make_cache_decls(batch_size: int, max_len: int):
@@ -327,7 +335,8 @@ def build_model(arch: ArchConfig, ctx: ShardingCtx) -> ModelBundle:
     def decode_step(params, cache, token, t):
         """token: [b, 1] int; t: the position (an int or a 0-d tensor).
         -> (logits, new_cache); the KV entries are written in place."""
-        x = L.embed_lookup(token, params["emb"], ctx)
+        x = ctx.constrain(L.embed_lookup(token, params["emb"], ctx),
+                          Ax.BATCH, None, None)
         if isinstance(t, torch.Tensor):
             positions = t.reshape(1).to(device=x.device, dtype=torch.int64)
         else:
@@ -342,10 +351,18 @@ def build_model(arch: ArchConfig, ctx: ShardingCtx) -> ModelBundle:
         x = L.rmsnorm(x, params["ln_f"], arch.norm_eps)
         return _logits(x, params, arch, ctx), new_cache
 
-    return ModelBundle(arch=arch, ctx=ctx, decls=decls, features=features,
-                       forward=forward, prefill=prefill, loss=loss,
+    def scoped(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            with ctx.scope():
+                return fn(*args, **kwargs)
+        return run
+
+    return ModelBundle(arch=arch, ctx=ctx, decls=decls,
+                       features=scoped(features), forward=scoped(forward),
+                       prefill=scoped(prefill), loss=scoped(loss),
                        make_cache_decls=make_cache_decls,
-                       decode_step=decode_step)
+                       decode_step=scoped(decode_step))
 
 
 # ---------------------------------------------------------------------------
@@ -380,3 +397,14 @@ def input_specs(arch: ArchConfig, shape: ShapeConfig,
         return specs
     # decode
     return dict(token=_spec((B, 1), torch.int32))
+
+
+def input_shardings(arch: ArchConfig, shape: ShapeConfig,
+                    ctx: ShardingCtx) -> dict:
+    """The placements of every model input of the shape cell: batch over
+    the data axes (``None`` leaves without a mesh)."""
+    out = {}
+    for k, v in input_specs(arch, shape, ctx).items():
+        axes = (Ax.BATCH,) + (None,) * (v.ndim - 1)
+        out[k] = ctx.act_sharding(axes, tuple(v.shape))
+    return out

@@ -1,5 +1,6 @@
-"""Logical-axis sharding (``repro/parallel``): the host part."""
+"""Logical-axis sharding (``repro/parallel``): specs, and DTensor
+placement on a device mesh."""
 from repro_torch.parallel.sharding import (  # noqa: F401
-    Ax, MeshShape, ParamDecl, ShardingCtx, abstract_params, init_params,
-    param_bytes,
+    Ax, MeshPlacement, MeshShape, ParamDecl, ShardingCtx, abstract_params,
+    full, init_params, param_bytes, place_tree, tree_pspecs,
 )

@@ -12,11 +12,15 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.parallel.sharding import full
+
 
 def compress(g, bits: int = 8):
-    """Per-tensor symmetric int quantization. Returns (q, scale)."""
+    """Per-tensor symmetric int quantization. Returns (q, scale). The
+    scale of a sharded leaf (a DTensor) is the max over the whole leaf,
+    a replicated 0-d tensor."""
     qmax = 2 ** (bits - 1) - 1
-    scale = torch.clamp(torch.amax(torch.abs(g)) / qmax, min=1e-20)
+    scale = torch.clamp(full(torch.amax(torch.abs(g))) / qmax, min=1e-20)
     q = torch.clamp(torch.round(g / scale), -qmax, qmax).to(torch.int8)
     return q, scale
 
@@ -29,8 +33,7 @@ def ef_init(params):
     """Zero error-feedback accumulators matching the gradient tree."""
     if isinstance(params, dict):
         return {k: ef_init(v) for k, v in params.items()}
-    return torch.zeros(params.shape, dtype=torch.float32,
-                       device=params.device)
+    return torch.zeros_like(params, dtype=torch.float32)
 
 
 def ef_compress_grads(grads, err, bits: int = 8):

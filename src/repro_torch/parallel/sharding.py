@@ -1,4 +1,4 @@
-"""Logical-axis sharding, the host part (``repro/parallel/sharding.py``).
+"""Logical-axis sharding (``repro/parallel/sharding.py``).
 
 Every parameter and activation dimension carries a *logical* axis name;
 two rule tables (params vs activations) map logical axes onto mesh axes:
@@ -6,7 +6,8 @@ two rule tables (params vs activations) map logical axes onto mesh axes:
   * params:  FSDP over ``data`` (embed dim) x tensor-parallel over
              ``model`` (ff / heads_out / vocab / expert dims).
   * acts:    batch over the data axes (incl. ``pod`` in multi-pod),
-             sequence over ``model``.
+             sequence over ``model`` (on a ``DeviceMesh`` the sequence
+             stays whole, ``ShardingCtx.WHOLE``).
 
 The spec builders (``param_pspec`` / ``act_pspec`` / ``instance_pspec``)
 return a tuple with one entry a dimension: ``None``
@@ -16,27 +17,30 @@ reference's ``PartitionSpec`` prints on current JAX. They read the mesh's
 shape and axis names only, so a ``MeshShape`` (a mesh given by shape and
 names, no devices) is enough, and ``_pspec``'s divisibility demotion
 applies as in the reference: a dimension the mesh axes do not divide
-evenly stays replicated.
+evenly stays replicated, so no placement is ever uneven.
 
-Placing tensors on a real ``torch.distributed`` ``DeviceMesh`` (DTensor)
-is the next slice of the port (``ROADMAP.md``, queue 1, "the mesh"):
-``init_params`` and ``ServeEngine`` raise when given one, and
-``constrain`` is the identity, as the reference's is without a mesh.
+On a ``torch.distributed`` ``DeviceMesh`` tensors are DTensors: a spec
+becomes DTensor placements (``placements``), ``init_params`` keeps each
+rank's shard of the full leaf it draws, and ``constrain`` redistributes
+an activation (the reference's ``with_sharding_constraint``; the
+sequence kept whole, ``ShardingCtx.WHOLE``). A mesh changes where
+tensors live, never what they hold: the model's functions run on
+DTensors unchanged, DTensor's sharding propagation playing GSPMD's part.
+Model code runs inside ``ctx.scope()``, where the plain tensors it makes
+(masks, positions, iotas: the same on every rank) count as replicated.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch import resolve_device
 from repro_torch.config import MeshConfig
-
-MESH_PENDING = ("placing tensors on a DeviceMesh is not ported yet "
-                "(ROADMAP.md, queue 1: the mesh, DTensor placement in "
-                "init_params)")
 
 
 class Ax:
@@ -113,14 +117,43 @@ def _norm(r):
     return r
 
 
+class MeshPlacement(NamedTuple):
+    """Where a leaf lives on a device mesh: the counterpart of the
+    reference's ``NamedSharding``."""
+    mesh: Any
+    placements: tuple
+
+
+def full(x):
+    """The whole value of ``x``: a DTensor gathered (a collective every
+    rank makes), a plain tensor as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+@contextlib.contextmanager
+def implicit_replication(on: bool = True):
+    """DTensor ops take plain tensors as replicated inside (restoring the
+    previous setting on exit, so it nests)."""
+    disp = DTensor._op_dispatcher
+    prev = disp._allow_implicit_replication
+    disp._allow_implicit_replication = prev or on
+    try:
+        yield
+    finally:
+        disp._allow_implicit_replication = prev
+
+
 @dataclass
 class ShardingCtx:
     """Carries mesh + rules + dtype policy through model code. ``mesh``:
-    ``None`` (one device), a ``MeshShape``, or a ``DeviceMesh`` (whose
-    placement is not ported yet)."""
+    ``None`` (one device), a ``MeshShape`` (specs only, no placement) or a
+    ``DeviceMesh`` (tensors are placed as DTensors). ``overrides``: the
+    reference's knobs; the port reads ``moe_impl`` (``"gspmd"`` for
+    ``moe_ffn`` under a mesh, else ``moe_ffn_ep``)."""
     mesh: Optional[Any] = None
     mesh_cfg: MeshConfig = field(default_factory=MeshConfig)
     compute_dtype: Any = torch.float32
+    overrides: dict = field(default_factory=dict)
 
     def __post_init__(self):
         self.param_rules, self.act_rules = _rules(self.mesh_cfg)
@@ -179,13 +212,98 @@ class ShardingCtx:
             axes[-1] = Ax.NRN
         return self._pspec(axes, self.act_rules, shape)
 
+    # -- placements on a DeviceMesh -----------------------------------------
+    # logical axes a DTensor activation keeps whole on every rank: DTensor
+    # (torch 2.11) cannot flatten a sharded dim behind the first in the
+    # views that ``@`` and ``einsum`` make, and [batch, seq] go into each
+    # projection flattened; GSPMD reshards there instead
+    WHOLE = (Ax.SEQ,)
+
+    def _names(self) -> tuple:
+        return tuple(self._sizes())
+
+    def placements(self, spec) -> tuple:
+        """A spec tuple as DTensor placements, one a mesh dim: ``Shard(d)``
+        where the mesh dim names tensor dim ``d`` (a tuple entry shards
+        the dim on each of its mesh dims, in mesh-dim order: the
+        reference's major-to-minor split), else ``Replicate()``. A mesh
+        dim of size 1 replicates: a split into one part is the whole."""
+        sizes = self._sizes()
+        out = []
+        for name in self._names():
+            pl = Replicate()
+            for d, e in enumerate(spec):
+                if sizes[name] > 1 and (
+                        e == name or (isinstance(e, tuple) and name in e)):
+                    pl = Shard(d)
+            out.append(pl)
+        return tuple(out)
+
+    def param_sharding(self, axes, shape=None) -> Optional[tuple]:
+        if self.mesh is None:
+            return None
+        return self.placements(self.param_pspec(axes, shape))
+
+    def act_sharding(self, axes, shape=None) -> Optional[tuple]:
+        """An activation's placements (the sequence kept whole,
+        ``WHOLE``)."""
+        if self.mesh is None:
+            return None
+        axes = tuple(None if a in self.WHOLE else a for a in axes)
+        return self.placements(self.act_pspec(axes, shape))
+
+    def instance_sharding(self, shape, cols: Optional[int] = None
+                          ) -> Optional[tuple]:
+        if self.mesh is None:
+            return None
+        return self.placements(self.instance_pspec(shape, cols))
+
+    @property
+    def device(self) -> Optional[torch.device]:
+        """The rank's device on a device mesh (its card on ``cuda``)."""
+        if not self.places:
+            return None
+        if self.mesh.device_type == "cuda":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device(self.mesh.device_type)
+
+    def place(self, x, placements):
+        """``x`` on the mesh with ``placements``: a DTensor redistributed,
+        a plain tensor (the full value, the same on every rank) cut to
+        this rank's shard with no communication."""
+        if isinstance(x, DTensor):
+            if tuple(x.placements) == tuple(placements) and \
+                    x.device_mesh == self.mesh:
+                return x
+            return x.redistribute(self.mesh, placements)
+        return DTensor.from_local(
+            _local_shard(x, self.mesh, placements).to(self.device),
+            self.mesh, placements, run_check=False)
+
+    def scope(self):
+        """The context model code runs in: under a device mesh, plain
+        tensors count as replicated DTensors; else nothing."""
+        return (implicit_replication() if self.places
+                else contextlib.nullcontext())
+
     # -- activation constraint ----------------------------------------------
     def constrain(self, x, *axes):
-        """The reference's ``with_sharding_constraint`` by logical axes:
-        the identity here (no mesh places tensors in this slice)."""
-        if self.mesh is not None:
-            assert len(axes) == x.ndim, (axes, x.shape)
-        return x
+        """``with_sharding_constraint`` by logical axes: a DTensor is
+        redistributed to the activation spec (the sequence kept whole,
+        ``WHOLE``), anything else (no mesh, a ``MeshShape``) passes as it
+        is."""
+        if self.mesh is None:
+            return x
+        assert len(axes) == x.ndim, (axes, x.shape)
+        if not isinstance(x, DTensor) or self.mesh.size() == 1:
+            return x
+        # redistributed even where the placements already match: the
+        # backward then brings the gradient back to this layout, which
+        # the ops before it were written for (without it torch 2.11
+        # refuses, in the backward, to flatten a dim that arrives
+        # sharded; ``tests/_torch_lm_mesh.py`` part ``grads``)
+        return x.redistribute(self.mesh, self.act_sharding(axes,
+                                                           tuple(x.shape)))
 
     @property
     def dp_size(self) -> int:
@@ -269,20 +387,67 @@ def _init_leaf(decl: ParamDecl, generator: torch.Generator):
     return x * scale
 
 
+def _local_shard(x, mesh, placements):
+    """This rank's block of the full tensor ``x`` under ``placements``
+    (even splits only: ``_pspec`` demotes the rest): a copy of its own
+    when cut, so the full tensor can be freed; ``x`` when replicated."""
+    coord = mesh.get_coordinate()
+    cut = x
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            n = mesh.size(i)
+            step = cut.shape[pl.dim] // n
+            cut = cut.narrow(pl.dim, coord[i] * step, step)
+    return x.contiguous() if cut is x else cut.clone(
+        memory_format=torch.contiguous_format)
+
+
 def init_params(decls, generator: Optional[torch.Generator] = None,
                 device=None, ctx: Optional[ShardingCtx] = None):
     """Materialise a tree of ``ParamDecl`` into tensors on ``device``
-    (``None``: ``cuda``, raising without a card). Leaves are drawn from
-    ``generator`` (default: a CPU generator seeded with 0) in sorted-key
-    order, on the generator's device, and moved to ``device``. A ``ctx``
-    with a real device mesh raises (its placement is not ported yet)."""
-    device = resolve_device(device)
-    if ctx is not None and ctx.places:
-        raise NotImplementedError(MESH_PENDING)
+    (``None``: ``cuda``, raising without a card; under a device mesh the
+    rank's device). Leaves are drawn from ``generator`` (default: a CPU
+    generator seeded with 0) in sorted-key order, on the generator's
+    device, and moved to ``device``.
+
+    With a ``ctx`` on a device mesh every rank draws every *full* leaf in
+    the same order and keeps its shard by the decl's placements, so the
+    parameters equal the ones drawn without a mesh bit for bit, with no
+    communication."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
+    if ctx is not None and ctx.places:
+        return tree_map(lambda d: ctx.place(
+            _init_leaf(d, generator),
+            ctx.param_sharding(d.axes, d.shape)), decls, _is_decl)
+    device = resolve_device(device)
     return tree_map(lambda d: _init_leaf(d, generator).to(device), decls,
                     _is_decl)
+
+
+def place_tree(tree, decls, ctx: ShardingCtx):
+    """A tree of tensors (full values, or DTensors) placed on ``ctx``'s
+    mesh leaf by leaf by the placements of ``decls`` (a tree of the same
+    structure); the tree as it is without a device mesh."""
+    if not ctx.places:
+        return tree
+    if _is_decl(decls):
+        return ctx.place(tree, ctx.param_sharding(decls.axes, decls.shape))
+    return {k: place_tree(tree[k], decls[k], ctx) for k in decls}
+
+
+def tree_pspecs(decls, ctx: ShardingCtx, as_sharding: bool = True):
+    """The spec tree of a ``ParamDecl`` tree: ``MeshPlacement`` leaves
+    (mesh and placements; ``None`` without a mesh) or, with
+    ``as_sharding=False``, spec tuples."""
+    if as_sharding:
+        def fn(d):
+            pl = ctx.param_sharding(d.axes, d.shape)
+            return None if pl is None else MeshPlacement(ctx.mesh, pl)
+    else:
+        def fn(d):
+            return ctx.param_pspec(d.axes, d.shape)
+    return tree_map(fn, decls, _is_decl)
 
 
 def abstract_params(decls):

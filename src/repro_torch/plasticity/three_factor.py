@@ -19,6 +19,11 @@ Sampling is the Gumbel-max form of ``jax.random.categorical``:
 ``argmax(logits / T + g)`` with ``g`` standard Gumbel. ``step`` takes
 ``g`` (and the weight noise) as injected draws; without them it draws
 from the state's ``torch.Generator``.
+
+Under a device mesh the frozen backbone runs on the placed parameters
+(plain leaves are placed by their decls); its features are gathered
+whole, and the int8 readout and its update stay replicated: every rank
+computes them alike from the same draws (the same seed on every rank).
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.config import ArchConfig
 from repro_torch.models.transformer import build_model, prefix_len
-from repro_torch.parallel.sharding import MESH_PENDING, ShardingCtx
+from repro_torch.parallel.sharding import ShardingCtx, full, place_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,17 +64,16 @@ def sample_gumbel(generator: torch.Generator, shape) -> torch.Tensor:
 
 class HybridReadoutTrainer:
     """Reward-modulated plasticity on a quantized readout head, on
-    ``device`` (``None``: ``cuda``, raising without a card)."""
+    ``device`` (``None``: ``cuda``, raising without a card; under a
+    device mesh the rank's device)."""
 
     def __init__(self, arch: ArchConfig, ctx: Optional[ShardingCtx] = None,
                  pcfg: ThreeFactorConfig = ThreeFactorConfig(),
                  device=None):
         self.arch = arch
         self.ctx = ctx or ShardingCtx()
-        if self.ctx.places:
-            raise NotImplementedError(MESH_PENDING)
         self.pcfg = pcfg
-        self.device = resolve_device(device)
+        self.device = self.ctx.device or resolve_device(device)
         self.bundle = build_model(arch, self.ctx)
         self.wmax = 2 ** (arch.plasticity_bits - 1) - 1    # signed 6-bit: 31
 
@@ -102,7 +106,8 @@ class HybridReadoutTrainer:
         rounds and clips to the signed ``plasticity_bits`` range."""
         arch, pcfg = self.arch, self.pcfg
         # substrate forward (backbone frozen: the "analog core")
-        feats = self.bundle.features(params, batch, use_remat=False)[0]
+        params = place_tree(params, self.bundle.decls, self.ctx)
+        feats = full(self.bundle.features(params, batch, use_remat=False)[0])
         pl_ = prefix_len(arch)
         if pl_:
             feats = feats[:, pl_:]

@@ -15,15 +15,20 @@ differs (it decays the parameters first and adds ``eps`` to
 The moments are declared with the parameters' shapes and axes, and
 ``step`` is an int32 0-d tensor. The updates run in place under
 ``torch.no_grad()`` (the counterpart of the reference's donated buffers)
-and return the same trees; metrics stay on the device.
+and return the same trees; metrics stay on the device. On a device mesh
+the leaves are DTensors (``step`` replicated): the ``_foreach`` updates
+run on each leaf's local shard beside its gradient's and moments' (all
+on the leaf's placements), and the global norm is over the full leaves.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch.parallel.sharding import ParamDecl, tree_leaves, tree_map
+from repro_torch.parallel.sharding import (ParamDecl, full, tree_leaves,
+                                           tree_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,9 +67,11 @@ def _schedule(cfg: AdamWConfig, step):
 
 
 def global_norm(tree):
-    """The fp32 l2 norm over every leaf of ``tree``."""
+    """The fp32 l2 norm over every leaf of ``tree`` (each DTensor leaf's
+    norm over the whole leaf: a replicated plain 0-d tensor)."""
     leaves = [g.float() for g in tree_leaves(tree, _is_tensor)]
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(leaves)))
+    norms = [full(n) for n in torch._foreach_norm(leaves)]
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
 @torch.no_grad()
@@ -73,19 +80,16 @@ def adamw_update(params, grads, opt_state, cfg: AdamWConfig):
     ``v``, ``step``) are updated and returned with the metrics
     ``grad_norm`` and ``lr`` (0-d tensors)."""
     step = opt_state["step"]
-    lr = _schedule(cfg, step)
+    lr = _schedule(cfg, full(step))
     gn = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
     step.add_(1)
-    t = step.float()
+    t = full(step).float()
     c1 = 1.0 - cfg.b1 ** t
     c2 = 1.0 - cfg.b2 ** t
 
-    ps = tree_leaves(params, _is_tensor)
-    ms = tree_leaves(opt_state["m"], _is_tensor)
-    vs = tree_leaves(opt_state["v"], _is_tensor)
-    g = torch._foreach_mul([x.float() for x in tree_leaves(grads, _is_tensor)],
-                           scale)
+    ps, gs, ms, vs = _shards(params, grads, opt_state["m"], opt_state["v"])
+    g = torch._foreach_mul([x.float() for x in gs], scale)
     torch._foreach_mul_(ms, cfg.b1)                      # b1 m + (1 - b1) g
     torch._foreach_add_(ms, g, alpha=1 - cfg.b1)
     torch._foreach_mul_(vs, cfg.b2)                      # b2 v + (1 - b2) g g
@@ -101,16 +105,34 @@ def adamw_update(params, grads, opt_state, cfg: AdamWConfig):
     return params, opt_state, dict(grad_norm=gn, lr=lr)
 
 
+def _shards(params, *trees):
+    """The leaves of ``params`` and of ``trees`` (gradients, moments) as
+    lists of tensors the elementwise update runs on: a DTensor leaf and
+    its companions as their local shards, each companion on the leaf's
+    placements first (a gradient redistributed; a moment, placed by the
+    same decl, already is). The update is elementwise, so shard by shard
+    is the whole update."""
+    out = [tree_leaves(params, _is_tensor)] + [
+        tree_leaves(t, _is_tensor) for t in trees]
+    for i, p in enumerate(out[0]):
+        if not isinstance(p, DTensor):
+            continue
+        for leaves in out:
+            x = leaves[i]
+            if tuple(x.placements) != tuple(p.placements):
+                x = x.redistribute(p.device_mesh, p.placements)
+            leaves[i] = x.to_local()
+    return out
+
+
 @torch.no_grad()
 def sgd_update(params, grads, opt_state, lr: float = 1e-2,
                momentum: float = 0.9):
     """SGD with momentum, in place: ``m = momentum m + g``, ``p -= lr m``,
     ``step += 1``."""
-    ps = tree_leaves(params, _is_tensor)
-    ms = tree_leaves(opt_state["m"], _is_tensor)
+    ps, gs, ms = _shards(params, grads, opt_state["m"])
     torch._foreach_mul_(ms, momentum)
-    torch._foreach_add_(ms, [g.float() for g in tree_leaves(grads,
-                                                            _is_tensor)])
+    torch._foreach_add_(ms, [g.float() for g in gs])
     torch._foreach_add_(ps, ms, alpha=-lr)
     opt_state["step"].add_(1)
     return params, opt_state, {}

@@ -1,14 +1,18 @@
 """Step builders shared by the trainer and the benchmarks
 (``repro/train/steps.py``). The reference's ``jax.value_and_grad`` is
 autograd over the model's functions on detached views of the
-parameters."""
+parameters. On DTensor parameters (a device mesh) the gradients are
+DTensors placed like the parameters, and the backward, like the model's
+forward, takes plain tensors as replicated."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.transformer import ModelBundle
+from repro_torch.parallel.sharding import implicit_replication
 from repro_torch.train.optimizer import AdamWConfig, adamw_update
 
 
@@ -21,20 +25,32 @@ def _views(tree):
 
 def _grads(tree):
     """The ``.grad`` of each leaf of ``_views``' tree (zeros where the
-    loss does not reach the leaf, as the reference's gradient is)."""
+    loss does not reach the leaf, as the reference's gradient is); a
+    DTensor leaf's gradient on the leaf's placements (a partial sum
+    reduced)."""
     if isinstance(tree, dict):
         return {k: _grads(v) for k, v in tree.items()}
-    return tree.grad if tree.grad is not None else torch.zeros_like(tree)
+    if tree.grad is None:
+        return torch.zeros_like(tree)
+    if isinstance(tree, DTensor):
+        return tree.grad.redistribute(tree.device_mesh, tree.placements)
+    return tree.grad
 
 
 def value_and_grad(loss_fn, params, batch):
     """``(loss, grads)`` of ``loss_fn(params, batch)``: the loss as a
     detached 0-d tensor, the gradients as a tree like ``params``."""
     live = _views(params)
-    with torch.enable_grad():
+    with torch.enable_grad(), implicit_replication(_any_dtensor(params)):
         loss = loss_fn(live, batch)
         loss.backward()
     return loss.detach(), _grads(live)
+
+
+def _any_dtensor(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_any_dtensor(v) for v in tree.values())
+    return isinstance(tree, DTensor)
 
 
 def accumulate_grads(loss_fn, params, batch, accum_steps: int = 1):

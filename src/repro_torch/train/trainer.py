@@ -10,6 +10,12 @@
 The step updates the parameters and moments in place (the reference
 donates them); ``float(metrics["loss"])`` once a step is the loop's one
 read to the host.
+
+Under a device mesh (reference ``:84-125``) the state lives on the mesh:
+parameters and moments placed by their decls, error feedback like the
+parameters. Every rank draws the same global batch (same seed and
+cursor) and places it by ``input_shardings``; a checkpoint is re-placed
+onto the current mesh on restore, whatever mesh wrote it.
 """
 from __future__ import annotations
 
@@ -25,10 +31,10 @@ from repro_torch import resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import ArchConfig, ShapeConfig
 from repro_torch.data.pipeline import SyntheticLMPipeline
-from repro_torch.models.transformer import build_model
+from repro_torch.models.transformer import build_model, input_shardings
 from repro_torch.parallel import compress as gc
-from repro_torch.parallel.sharding import (MESH_PENDING, ShardingCtx,
-                                           init_params)
+from repro_torch.parallel.sharding import (ShardingCtx, full, init_params,
+                                           tree_pspecs)
 from repro_torch.train.optimizer import (AdamWConfig, adamw_init_decls,
                                          adamw_update)
 from repro_torch.train.steps import accumulate_grads
@@ -57,16 +63,15 @@ class TrainerConfig:
 
 class Trainer:
     """Train ``arch`` on ``shape``'s synthetic batches on ``device``
-    (``None``: ``cuda``, raising without a card)."""
+    (``None``: ``cuda``, raising without a card; under a device mesh the
+    rank's device)."""
 
     def __init__(self, arch: ArchConfig, shape: ShapeConfig,
                  tcfg: TrainerConfig, ctx: Optional[ShardingCtx] = None,
                  device=None):
         self.arch, self.shape, self.tcfg = arch, shape, tcfg
         self.ctx = ctx or ShardingCtx()
-        if self.ctx.places:
-            raise NotImplementedError(MESH_PENDING)
-        self.device = resolve_device(device)
+        self.device = self.ctx.device or resolve_device(device)
         self.bundle = build_model(arch, self.ctx)
         self.pipeline = SyntheticLMPipeline(arch, shape, seed=tcfg.seed)
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=3)
@@ -90,14 +95,35 @@ class Trainer:
         """Parameters drawn from a generator on the device seeded with
         ``tcfg.seed``, zero moments, zero error feedback when on."""
         gen = torch.Generator(self.device).manual_seed(self.tcfg.seed)
-        params = init_params(self.bundle.decls, gen, self.device)
+        params = init_params(self.bundle.decls, gen, self.device, self.ctx)
         opt = init_params(adamw_init_decls(self.bundle.decls),
-                          device=self.device)
+                          device=self.device, ctx=self.ctx)
         err = gc.ef_init(params) if self.tcfg.grad_compress_bits else {}
         return dict(params=params, opt=opt, err=err, step=0)
 
+    def shardings(self):
+        """Where a restored state's leaves go (``restore_checkpoint``'s
+        ``shardings``): parameters and moments by their decls, error
+        feedback like the parameters; ``None`` without a device mesh."""
+        if not self.ctx.places:
+            return None
+        psh = tree_pspecs(self.bundle.decls, self.ctx)
+        return dict(params=psh, err=psh,
+                    opt=tree_pspecs(adamw_init_decls(self.bundle.decls),
+                                    self.ctx))
+
+    def next_batch(self):
+        """The pipeline's next global batch, placed by ``input_shardings``
+        under a device mesh."""
+        batch = self.pipeline.next_batch(self.device)
+        if not self.ctx.places:
+            return batch
+        sh = input_shardings(self.arch, self.shape, self.ctx)
+        return {k: self.ctx.place(v, sh[k]) for k, v in batch.items()}
+
     def restore_or_init(self):
-        step, state = self.ckpt.restore_latest(device=self.device)
+        step, state = self.ckpt.restore_latest(shardings=self.shardings(),
+                                               device=self.device)
         if state is None:
             return self.init_state()
         self.pipeline.load_state_dict(state.pop("data"))
@@ -113,10 +139,10 @@ class Trainer:
         for step in range(st["step"], self.tcfg.steps):
             if step == self.tcfg.fail_at_step:
                 raise SimulatedFailure(f"injected failure at step {step}")
-            batch = self.pipeline.next_batch(self.device)
+            batch = self.next_batch()
             t0 = time.perf_counter()
             params, opt, err, metrics = self.step_fn(params, opt, err, batch)
-            loss = float(metrics["loss"])
+            loss = float(full(metrics["loss"]))
             dt = time.perf_counter() - t0
             history.append(dict(step=step, loss=loss, sec=dt))
             if step % self.tcfg.log_every == 0:

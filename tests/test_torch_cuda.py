@@ -1610,3 +1610,47 @@ def test_three_factor_step_on_card(cuda):
     assert (frac[diff != 0] < 1e-3).all()
     np.testing.assert_allclose(float(m_g["mean_r"]), float(m_c["mean_r"]),
                                rtol=1e-6)
+
+
+def _lm_mesh_ranks(tmp_path, world, part):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    store = tmp_path / f"store_{world}_{part}"
+    procs = [subprocess.Popen(
+        [sys.executable, str(here / "_torch_lm_mesh.py"), str(rank),
+         str(world), str(store), "nccl", part, str(tmp_path)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for rank in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    print(f"rank 0, world {world}, part {part}:\n{outs[0][0][-6000:]}")
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {rank}:\n{out[-8000:]}{err[-4000:]}"
+        assert f"LM_MESH_OK rank={rank} part={part}" in out, out + err
+
+
+def test_lm_mesh_on_nccl(cuda, tmp_path):
+    """``tests/_torch_lm_mesh.py`` parts place, serve, ops, grads, train,
+    launch, families, moe and reshard on NCCL, one card a rank (4 ranks on a
+    (2, 2) mesh where four cards are present, else 2 on (1, 2)), each
+    against the port without a mesh; with four, the reshard onto a world
+    of 2 too. NCCL takes no two ranks on one card, so this needs two cards
+    or more."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards or more: NCCL takes one card a rank")
+    world = 4 if n >= 4 else 2
+    _lm_mesh_ranks(tmp_path, world, "all")
+    if world == 4:
+        _lm_mesh_ranks(tmp_path, 2, "reshard2")

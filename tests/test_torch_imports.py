@@ -1,6 +1,7 @@
 """Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``repro``, and
-``chip_smoke.py`` refuses to run without a card or outside a checkout."""
+neither JAX nor anything of the JAX package ``repro``, importing it
+(``launch.mesh`` too) starts no process group, and ``chip_smoke.py``
+refuses to run without a card or outside a checkout."""
 import os
 import shutil
 import subprocess
@@ -27,8 +28,13 @@ assert not bad, bad
 assert "repro_torch.wafer.router" in names, names
 for m in ("train.optimizer", "train.steps", "train.trainer", "data.pipeline",
           "parallel.compress", "checkpoint.ckpt", "plasticity.three_factor",
-          "launch.train"):
+          "launch.train", "launch.mesh"):
     assert "repro_torch." + m in names, m
+# importing launch.mesh starts no process group and no CUDA state
+import torch
+import torch.distributed as dist
+assert not dist.is_initialized()
+assert not torch.cuda.is_initialized()
 """
 
 

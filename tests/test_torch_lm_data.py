@@ -368,6 +368,48 @@ def test_checkpoint_manager_keep_gc_and_async(tmp_path):
     bad.wait()                         # the error is raised once
 
 
-def test_restore_with_shardings_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PC.restore_checkpoint(tmp_path, shardings={}, device="cpu")
+def test_restore_with_shardings_places_on_a_mesh(tmp_path):
+    """A checkpoint the reference wrote, restored with ``shardings=``
+    onto a (1, 1) mesh of a one-rank gloo world (the many-rank cases are
+    in ``tests/test_torch_lm_mesh.py``): the named leaves are DTensors on
+    the mesh with their placements, equal to the plain restore; the
+    unnamed ones plain tensors; a DTensor state saved again (gathered,
+    written by rank 0) equals the first file."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.parallel.sharding import (ParamDecl, ShardingCtx,
+                                               tree_pspecs)
+    decls = dict(w=ParamDecl((4, 6), ("embed", "ff")),
+                 b=dict(c=ParamDecl((6,), (None,))))
+    rng = np.random.default_rng(0)
+    state = dict(params=dict(w=rng.standard_normal((4, 6)).astype(
+        np.float32), b=dict(c=np.arange(6, dtype=np.float32))),
+        data=dict(step=np.int64(3)))
+    RC.save_checkpoint(tmp_path / "ref", 1, state)
+    _, plain = PC.restore_checkpoint(tmp_path / "ref", device="cpu")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        ctx = ShardingCtx(mesh=make_smoke_mesh((1, 1), device_type="cpu"))
+        step, st = PC.restore_checkpoint(
+            tmp_path / "ref", shardings=dict(params=tree_pspecs(decls, ctx)))
+        assert step == 1
+        for got, want, d in ((st["params"]["w"], plain["params"]["w"],
+                              decls["w"]),
+                             (st["params"]["b"]["c"], plain["params"]["b"][
+                                 "c"], decls["b"]["c"])):
+            assert isinstance(got, DTensor) and got.device_mesh == ctx.mesh
+            assert tuple(got.placements) == ctx.param_sharding(d.axes,
+                                                               d.shape)
+            assert torch.equal(got.full_tensor(), want)
+        assert not isinstance(st["data"]["step"], DTensor)
+        assert int(st["data"]["step"]) == 3
+        PC.save_checkpoint(tmp_path / "again", 1, st)
+    finally:
+        dist.destroy_process_group()
+    with np.load(tmp_path / "ref" / "step_00000001.npz") as a, \
+            np.load(tmp_path / "again" / "step_00000001.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])

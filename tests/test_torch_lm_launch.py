@@ -2,7 +2,7 @@
 CPU: ``tests/test_system.py::test_train_checkpoint_serve_roundtrip``
 mirrored, ``repro_torch.launch.train`` (adamw, hybrid, bss2) and
 ``repro_torch.launch.serve --ckpt-dir`` on a checkpoint it wrote, and
-``--mesh`` raising until the mesh is ported."""
+``--mesh single|multi`` refusing a world of the wrong size."""
 import os
 import subprocess
 import sys
@@ -98,8 +98,14 @@ def test_launch_train_hybrid_and_bss2(capsys):
     assert "final median <R>" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("mesh", ["single", "multi"])
-def test_launch_train_mesh_raises(mesh):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+@pytest.mark.parametrize("mesh,need", [("single", 256), ("multi", 512)])
+def test_launch_train_mesh_names_the_world_it_needs(mesh, need):
+    """``--mesh single|multi`` on a world of one (no ``torchrun``): the
+    production mesh's ``ValueError`` naming the ranks it needs, before
+    any process group starts (training on a smoke mesh is in
+    ``tests/test_torch_lm_mesh.py``)."""
+    import torch.distributed as dist
+    with pytest.raises(ValueError, match=f"world of {need} ranks"):
         train_main.main(["--arch", "smollm-360m", "--smoke", "--device",
                          "cpu", "--mesh", mesh])
+    assert not dist.is_initialized()

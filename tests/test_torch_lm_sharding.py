@@ -175,18 +175,47 @@ def test_init_params_rules():
     assert not torch.equal(p["n"], r["n"])
 
 
-def test_init_params_refuses_a_device_mesh():
-    class FakeDeviceMesh:
-        mesh_dim_names = ("data", "model")
-        shape = (1, 1)
-    ctx = ps.ShardingCtx(mesh=FakeDeviceMesh())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ps.init_params(dict(a=ps.ParamDecl((2,), (None,))), device="cpu",
-                       ctx=ctx)
-    from repro_torch.serve.engine import ServeEngine
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServeEngine(port_arch("qwen1.5-0.5b").reduced(), ctx=ctx,
-                    device="cpu")
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: "x".join(
+    map(str, m[0])))
+def test_placements_follow_the_specs(mesh):
+    """A spec as DTensor placements, one a mesh dim: ``Shard(d)`` where
+    the mesh dim names tensor dim ``d`` (on each mesh dim of a tuple
+    entry) and has more than one rank, else ``Replicate()``; over every
+    decl of every reduced arch (demotion included) and the activation
+    specs. ``tree_pspecs`` gives ``MeshPlacement`` leaves, or the spec
+    tuples."""
+    from torch.distributed.tensor import Replicate, Shard
+    _, port = _ctxs(*mesh)
+    names = port.mesh.axis_names
+    size = dict(zip(names, port.mesh.shape))
+    for spec in [("data", "model"), (None, ("pod", "data")), (None, None),
+                 ("model", None, "data")]:
+        if any(e not in names for e in spec if isinstance(e, str)):
+            continue
+        pl = port.placements(spec)
+        assert len(pl) == len(names)
+        for name, p in zip(names, pl):
+            dims = [d for d, e in enumerate(spec) if size[name] > 1 and (
+                e == name or (isinstance(e, tuple) and name in e))]
+            assert p == (Shard(dims[0]) if dims else Replicate()), (spec, pl)
+    for name in ASSIGNED_ARCHS:
+        decls = build_model(port_arch(name).reduced(), port).decls
+        sh = ps.tree_pspecs(decls, port)
+        specs = ps.tree_pspecs(decls, port, as_sharding=False)
+        for d, s, sp in zip(_port_leaves(decls),
+                            ps.tree_leaves(sh, lambda x: isinstance(
+                                x, ps.MeshPlacement)),
+                            ps.tree_leaves(specs, lambda x: isinstance(
+                                x, tuple))):
+            assert sp == port.param_pspec(d.axes, d.shape)
+            assert s.mesh is port.mesh
+            assert s.placements == port.placements(sp)
+            assert s.placements == port.param_sharding(d.axes, d.shape)
+    # an activation's placements keep the sequence whole (``WHOLE``)
+    act = port.act_sharding((ps.Ax.BATCH, ps.Ax.SEQ, None), (8, 16, 4))
+    assert act == port.placements(port.act_pspec(
+        (ps.Ax.BATCH, None, None), (8, 16, 4)))
+    assert ps.ShardingCtx().param_sharding((ps.Ax.EMBED,), (4,)) is None
 
 
 @pytest.mark.parametrize("name", ASSIGNED_ARCHS)
