@@ -31,8 +31,10 @@ Phases, each reported on its own line:
    also with resources at 0 and a negative scale (-0.0 efficacies) and at
    1, timed beside the loop. Times are medians of
    CUDA-event timings; ``bound_ms`` is the larger of bytes over 3.35 TB/s
-   and operations over 67 TFLOP/s (float32, outside the tensor cores),
-   counted from the data (non-zero events, spikes).
+   and operations over 67 TFLOP/s (float32, outside the tensor cores;
+   ``config.HW``): the bytes from each kernel's ``work`` function, which
+   a cost recorder must count for one call too, the operations counted
+   from the data (non-zero events, spikes).
 3. Path A, the main path: the §5 experiment at full width (``BSS2``, 128
    inputs x 512 neurons, 16 instances, 128 steps, ``backend="blocked"``,
    ``sparse_mode`` left at its default) for 6 trials, stimuli A, B, none,
@@ -248,6 +250,32 @@ Phases, each reported on its own line:
    eight kernels runs: ``launches_path_i``); the group destroyed before
    the kernels line. Its numbers go on a ``mesh_path_i`` JSON line.
 
+17. Path J, launch and analysis (``repro_torch.analysis``,
+   ``launch.dryrun``): the BSS-2 fleet cell (``core.hybrid
+   .trace_bss2_cell``: each rank's local fleet of full 256 x 512 chips,
+   16 / 2 / 8 / 1 instances for train_4k / prefill_32k / decode_32k /
+   long_500k on 16 x 16, 8 / 1 / 4 / 16 on 2 x 16 x 16) for the four
+   shapes on both meshes on the card, launch counts zeroed before and
+   read after (``launches_path_j``: stp_scan, census, synray,
+   synray_sparse, neuron_scan and corr must launch). Each cell's
+   recorded trial prints its per-device FLOPs, HBM bytes and kernel
+   entries; train_4k on 16 x 16 is traced on the CPU too (the plain
+   versions), and the counts must be equal; each kernel entry's bytes a
+   call must equal the bytes its phase-2 bound divides (phase 2 checks
+   the same for all eight kernels on one call each). The local fleet's
+   trial is timed as a ``TrialGraph`` replay in turns with eager (medians
+   of CUDA-event timings) and set beside the roofline's step time and
+   bottleneck. Then ``python -m repro_torch.launch.dryrun`` in a child
+   under a time limit: qwen1.5-0.5b train_4k and decode_32k and
+   moonshot-v1-16b-a3b decode_32k on a fake 256-rank 16 x 16 world, each
+   report's terms printed. Last, the roofline of what the card ran: path
+   H's training step (smollm-360m, 8 x 512, f32) and path G's decode step
+   (qwen1.5-0.5b, batch 8, a 160-position cache, f32) counted on a world
+   of one (fake tensors, no mesh), beside phase 15's and phase 14's
+   measured times: measured / roofline step time. The card's memory
+   (``total_memory``) is printed beside ``HW.hbm_bytes``. Its numbers go
+   on a ``roofline_path_j`` JSON line.
+
 Exits non-zero without a card, outside a checkout, or when any phase
 fails; the last line is the JSON device record.
 """
@@ -264,8 +292,10 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-MEM_BW = 3.35e12        # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
-FP32_PEAK = 67e12       # H100 SXM float32 outside the tensor cores, FLOP/s
+# the card's HBM rate (bytes/s) and float32 peak outside the tensor cores
+# (FLOP/s): ``repro_torch.config.HW``'s, set by ``main`` (NVIDIA's data
+# sheet, H100 SXM5 80 GB)
+MEM_BW = FP32_PEAK = None
 SRC = {
     "synray": ("src/repro_torch/csrc/synray.cu",
                "src/repro/kernels/synray/kernel.py:48"),
@@ -298,6 +328,29 @@ def log(msg):
 def bound_ms(n_bytes, n_ops):
     t_b, t_o = n_bytes / MEM_BW, n_ops / FP32_PEAK
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def _counted_bytes(name, fn):
+    """The bytes one call of ``fn`` counts for kernel ``name`` under a
+    cost recorder (``repro_torch.analysis.cost``): its wrapper's declared
+    work, the bytes its bound divides."""
+    from repro_torch.analysis import cost
+    with cost.recording() as rec:
+        rec.begin()
+        fn()
+        rec.end()
+    return rec.kernels[name]["bytes"]
+
+
+def _row(name, work, fn, **row):
+    """A kernel's row: its ``work`` bytes (what ``bound_ms`` divides) and
+    the bytes a recorder counts for one call of ``fn``, which must be the
+    same."""
+    counted = _counted_bytes(name, fn)
+    if counted != work.bytes:
+        raise AssertionError(f"{name}: the recorder counts {counted} bytes, "
+                             f"the bound divides {work.bytes}")
+    return dict(row, bytes=work.bytes, counted_bytes=counted)
 
 
 def time_ms(fn, reps):
@@ -476,17 +529,17 @@ def neuron_row(s0, rc0, ie, ii, params, decays):
         s0, rc0, ie, ii, params, dt=kw["dt"], decays=decays,
         packed_params=packed), 25)
     # currents read, state and parameters read, spikes and state written;
-    # about 30 flops a step
-    n_bytes = (2 * T * N * C + 6 * N * C + 12 * N * C + T * N * C
-               + 6 * N * C) * 4
-    b_ms, b_by = bound_ms(n_bytes, 30 * T * N * C)
+    # about 30 flops a step (the wrapper's declared work)
+    work = neuron_ops.work(T, N, C)
+    b_ms, b_by = bound_ms(work.bytes, work.flops)
     log(f"[2] neuron_scan at [T={T}, N={N}, C={C}], {n_spk:.0f} spikes: "
         f"{ms:.4f} ms device time as the main path calls it; wrapper and "
         f"kernel on the host clock {host[len(host) // 2]:.4f} ms; chain "
         f"floor (currents in registers) {floor_ms:.4f} ms, {ms / floor_ms:.2f}"
         f"x; byte bound {b_ms:.4f} ms ({b_by}); bit-equal to the plain "
         f"version")
-    return dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
+    return _row("neuron_scan", work, call,
+                max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, ms=ms, chain_floor_ms=floor_ms,
                 plain_ms=time_ms(lambda: neuron_window_ref(
                     s0, rc0, ie, ii, params, **kw), 3))
@@ -521,17 +574,20 @@ def synray_row(ev, ea, w_h, st_h, tag):
     lib_ms = time_ms(lambda: torch.bmm(ev_n, w_eff), 25)
     nz = (ev != 0).float()
     n_fma = float(torch.einsum("tnr,nr->", nz, match.sum(-1)))
-    n_bytes = T * N * Rh * 4 + N * Rh + 2 * N * Rh * C + T * N * C * 4
-    b_ms, b_by = bound_ms(n_bytes, 2 * n_fma)
-    ms = time_ms(lambda: synray_ops.synaptic_current(ev, ea, w_h, st_h,
-                                                     const_addr=True), 25)
+    work = synray_ops.work(T, N, Rh, C)
+    b_ms, b_by = bound_ms(work.bytes, 2 * n_fma)
+
+    def call():
+        return synray_ops.synaptic_current(ev, ea, w_h, st_h, const_addr=True)
+    ms = time_ms(call, 25)
     general_ms = time_ms(lambda: synray_ops.synaptic_current(ev, ea, w_h,
                                                              st_h), 25)
     log(f"{tag} synray at [T={T}, N={N}, R={Rh}, C={C}], event density "
         f"{float(nz.mean()):.4f}: const_addr form {ms:.4f} ms, general form "
         f"{general_ms:.4f} ms, torch.bmm (mask resolved) {lib_ms:.4f} ms; "
         f"const / bmm = {ms / lib_ms:.2f}; const == general bit for bit")
-    return dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+    return _row("synray", work, call,
+                max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms, ms=ms,
                 plain_ms=time_ms(lambda: synaptic_current_ref(
                     ev, ea, w_h, st_h), 5))
@@ -559,14 +615,18 @@ def corr_row(ops, kw, tag):
     n_pre = float((pre != 0).sum())
     n_post = float((post != 0).sum())
     n_ops = 3 * (n_post * R + n_pre * C)
-    n_bytes = (T * N * (R + C) + 2 * N * (R + C) + 4 * N * R * C) * 4
-    b_ms, b_by = bound_ms(n_bytes, n_ops)
-    ms = time_ms(lambda: corr_ops.correlation_window(*ops, **kw), 25)
+    work = corr_ops.work(T, N, R, C)
+    b_ms, b_by = bound_ms(work.bytes, n_ops)
+
+    def call():
+        return corr_ops.correlation_window(*ops, **kw)
+    ms = time_ms(call, 25)
     log(f"{tag} corr at [T={T}, N={N}, R={R}, C={C}], spike density pre "
         f"{n_pre / pre.numel():.4f} post {n_post / post.numel():.4f}: "
         f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.2f}x the "
         f"bound; bit-equal to the plain version")
-    return dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
+    return _row("corr", work, call,
+                max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, ms=ms,
                 plain_ms=time_ms(lambda: correlation_window_ref(*ops, **kw),
                                  3))
@@ -638,22 +698,27 @@ def _check_synray_sparse(rng, dev, N, T, R, C):
     nn = torch.arange(N, device=w.device).reshape(-1, 1, 1)
     match = st_h[nn, rows_t.long()].to(torch.int32) == addr_t.unsqueeze(-1)
     n_fma = float((match & live.unsqueeze(-1)).sum())
-    n_bytes = T * N * R * 5 + 2 * N * Rh * C + T * N * C * 4
+    work = sparse_ops.work_window(T, N, Rh, C, MAX_EVENTS, K_CAP,
+                                  ev.stride(-1))
+    n_bytes = work.bytes
     b_ms, b_by = bound_ms(n_bytes, 2 * n_fma)
     w_eff = w_h.float() * (st_h == ea[0].unsqueeze(-1)).float()
     ev_c = ev_n.contiguous()
     lib_ms = time_ms(lambda: torch.bmm(ev_c, w_eff), 25)
     ms = time_ms(lambda: sparse_ops.sparse_current_window(
         ev, ea, w_h, st_h, flag=flag, **kw), 25)
-    row = dict(
+    row = _row(
+        "synray_sparse", work, lambda: sparse_ops.sparse_current_window(
+            ev, ea, w_h, st_h, flag=flag, **kw),
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
         ms=ms, plain_ms=time_ms(lambda: sparse_window_ref(
             *events.regroup_window(ev_n, ea_n, MAX_EVENTS, K_CAP), w_h,
             st_h), 5))
     # the census: the efficacy plane once (every sector), the census out
-    c_bytes = T * N * R * 4 + 12
-    cb_ms, cb_by = bound_ms(c_bytes, T * N * Rh)
-    census_row = dict(
+    c_work = census_ops.work(T, N, Rh, ev.stride(-1))
+    cb_ms, cb_by = bound_ms(c_work.bytes, c_work.flops)
+    census_row = _row(
+        "census", c_work, lambda: census_ops.census(ev, MAX_EVENTS, K_CAP),
         max_abs_err=0.0, bound_ms=cb_ms, bound_by=cb_by, library_ms=None,
         ms=time_ms(lambda: census_ops.census(ev, MAX_EVENTS, K_CAP), 25),
         plain_ms=time_ms(lambda: census_ref(ev, MAX_EVENTS, K_CAP), 25))
@@ -728,9 +793,13 @@ def stp_row(rng, dev, N, T, R):
     r0, sp, scale = main
     check(torch.zeros_like(r0), sp, -scale.abs(), "r0 = 0, negative scale")
     check(torch.ones_like(r0), sp, scale, "r0 = 1")
-    n_bytes = 2 * T * N * R * 4 + 3 * N * R * 4
-    b_ms, b_by = bound_ms(n_bytes, 14 * T * N * R)
-    ms = time_ms(lambda: stp_ops.stp_scan(r0, sp, scale, **kw), 25)
+    work = stp_ops.work(T, N, R)
+    n_bytes = work.bytes
+    b_ms, b_by = bound_ms(n_bytes, work.flops)
+
+    def call():
+        return stp_ops.stp_scan(r0, sp, scale, **kw)
+    ms = time_ms(call, 25)
     small = operands(256, (), 32)
     small_ms = time_ms(lambda: stp_ops.stp_scan(*small, **kw), 25)
     plain_ms = time_ms(lambda: stp_scan_ref(r0, sp, scale, **kw), 3)
@@ -739,8 +808,8 @@ def stp_row(rng, dev, N, T, R):
         f"{plain_ms:.4f} ms; at [T=256, 32] {small_ms:.4f} ms; bit-equal to "
         f"the plain version there and with r0 = 0 and a negative scale "
         f"(-0.0 efficacies) and r0 = 1")
-    return dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, ms=ms, plain_ms=plain_ms)
+    return _row("stp_scan", work, call, max_abs_err=0.0, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, ms=ms, plain_ms=plain_ms)
 
 
 def _check_ppu_update(rng, dev, N, R, C):
@@ -765,9 +834,10 @@ def _check_ppu_update(rng, dev, N, R, C):
         if not torch.equal(a, b):
             raise AssertionError(f"ppu_update: {name} differ from the plain "
                                  f"version")
-    n_syn = N * R * C
-    b_ms, b_by = bound_ms(18 * n_syn + 3 * 4 * N * C, 15 * n_syn)
-    row = dict(
+    work = ppu_ops.work(N, R, C)
+    b_ms, b_by = bound_ms(work.bytes, work.flops)
+    row = _row(
+        "ppu_update", work, lambda: ppu_ops.rstdp_update(*args, eta=4.0),
         max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         ms=time_ms(lambda: ppu_ops.rstdp_update(*args, eta=4.0), 25),
         plain_ms=time_ms(lambda: rstdp_update_ref(*args, eta=4.0), 5))
@@ -1664,10 +1734,11 @@ def phase_ppuvm_kernel(ppu_update_ms):
         w, args = both(words, o, f"{name} at [16, 256, 512]")
         n_planes = 2 + (o["noise"] is not None)        # int32 planes in
         n_mod = o["mod"].shape[0]
-        n_bytes = (lanes * (1 + 4 * (n_planes + 1 + 8))
-                   + N * C * 4 * (1 + n_mod) + 4 * len(words))
-        b_ms, b_by = bound_ms(n_bytes, len(words) * lanes)
-        rows[name] = dict(
+        work = vm_ops.work(N, R, C, len(words), n_planes, n_mod, 1)
+        n_bytes = work.bytes
+        b_ms, b_by = bound_ms(n_bytes, work.flops)
+        rows[name] = _row(
+            "ppuvm_exec", work, lambda: vm_ops.run_program(w, *args),
             max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by, library_ms=None,
             ms=time_ms(lambda: vm_ops.run_program(w, *args), 25),
             plain_ms=time_ms(lambda: run_program_ref(w, *args), 5),
@@ -3698,7 +3769,7 @@ def _path_h_launchers():
 def phase_path_h():
     """Path H, LM training at full smollm-360m width (see the module
     docstring, phase 15). Returns the launch counts of the training run
-    (all 0) and prints the ``train_path_h`` record."""
+    (all 0) and the ``train_path_h`` record, which it prints."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -3806,7 +3877,7 @@ def phase_path_h():
     rec["phase_s"] = time.time() - t_phase
     log(f"[15] path H wall time {rec['phase_s']:.1f} s")
     print("train_path_h " + json.dumps(rec), flush=True)
-    return launches
+    return launches, rec
 
 
 # path I: the LM on a device mesh (DTensor placement by the logical-axis
@@ -3998,6 +4069,209 @@ def phase_path_i():
     return launches
 
 
+# path J: launch and analysis. The BSS-2 fleet cell for the four shapes on
+# both production meshes, on the card; the LM dry run on a fake world in
+# a child (these cells on 16 x 16, under the time limit); the
+# roofline of what phases 14 and 15 ran
+PATH_J_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+PATH_J_KERNELS = ("stp_scan", "census", "synray", "synray_sparse",
+                  "neuron_scan", "corr")
+PATH_J_DRYRUN = (("qwen1.5-0.5b", "train_4k"), ("qwen1.5-0.5b", "decode_32k"),
+                 ("moonshot-v1-16b-a3b", "decode_32k"))
+PATH_J_DRYRUN_TIMEOUT, PATH_J_PAIRS = 600, 5
+
+
+def _report_line(rep):
+    return (f"{rep.flops_per_dev / 1e9:.4f} GFLOP, "
+            f"{rep.hbm_bytes_per_dev / 1e6:.3f} MB HBM, "
+            f"{rep.transcendentals / 1e6:.4f} M transcendentals, "
+            f"collectives {json.dumps(rep.coll)}; t_compute "
+            f"{rep.t_compute * 1e3:.6f} ms, t_memory "
+            f"{rep.t_memory * 1e3:.6f} ms, t_collective "
+            f"{rep.t_collective * 1e3:.6f} ms -> {rep.bottleneck}, step "
+            f"{rep.step_time * 1e3:.6f} ms; arg {rep.arg_bytes / 1e6:.3f} MB, "
+            f"temp {rep.temp_bytes / 1e6:.3f} MB, out "
+            f"{rep.out_bytes / 1e6:.3f} MB")
+
+
+def _same_counts(a, b):
+    """The recorded work of two recorders (the card's and the CPU's)."""
+    keys = ("flops", "transcendentals", "total_write", "kernels", "coll")
+    return {k: getattr(a, k) for k in keys} == {k: getattr(b, k)
+                                                for k in keys} \
+        and dict(a.by_kind) == dict(b.by_kind)
+
+
+def _path_j_time(shape, mesh_cfg):
+    """The local fleet's trial as a ``TrialGraph`` replay and eager, in
+    turns (replay, eager, eager, replay, ...), CUDA-event timed; returns
+    the two medians and the times."""
+    import numpy as np
+    import torch
+    from repro_torch.core.hybrid import (TrialGraph, TrialLoop,
+                                         bss2_cell_experiment)
+    init, trial, _, draws, _ = bss2_cell_experiment(shape, mesh_cfg, "cuda")
+    stim = torch.tensor(1, dtype=torch.int32, device="cuda")
+    state, _ = trial(init(), stim, draws.events[0], draws.xi[0])
+    loop = TrialLoop(trial, state, [1, 1], draws)
+    graph = TrialGraph(loop)
+    times = {"replay": [], "eager": []}
+    for i in range(PATH_J_PAIRS):
+        for kind in (("replay", "eager") if i % 2 == 0
+                     else ("eager", "replay")):
+            loop.reset()
+            a, b = _events()
+            a.record()
+            if kind == "replay":
+                graph.replay()
+            else:
+                trial(state, stim, draws.events[1], draws.xi[1])
+            b.record()
+            b.synchronize()
+            times[kind].append(a.elapsed_time(b))
+    del graph, loop
+    torch.cuda.empty_cache()
+    return {k: float(np.median(v)) for k, v in times.items()}, times
+
+
+def _path_j_dryrun():
+    """The LM cells of ``PATH_J_DRYRUN`` through ``python -m
+    repro_torch.launch.dryrun`` in a child (a fake process group is the
+    process's own), under the time limit. Returns their records."""
+    out = REPO / "build" / "path_j_dryrun.json"
+    out.unlink(missing_ok=True)
+    t0 = time.time()
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    for arch, shape in PATH_J_DRYRUN:
+        left = PATH_J_DRYRUN_TIMEOUT - (time.time() - t0)
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out", str(out)],
+            cwd=REPO, env=env, capture_output=True, text=True,
+            timeout=max(left, 1))
+        for line in proc.stdout.splitlines():
+            if line.startswith(("[OK]", "[FAIL]", "      memory")):
+                log(f"[17] dryrun {line.strip()}")
+        if proc.returncode != 0:
+            raise AssertionError(f"dryrun {arch}/{shape}: exit "
+                                 f"{proc.returncode}\n{proc.stdout[-2000:]}"
+                                 f"\n{proc.stderr[-3000:]}")
+    recs = json.loads(out.read_text())
+    log(f"[17] dryrun of {len(PATH_J_DRYRUN)} cells on a fake 256-rank "
+        f"world: {time.time() - t0:.1f} s")
+    return recs
+
+
+def phase_path_j(rows, rec_g, rec_h):
+    """Path J, launch and analysis (see the module docstring, phase 17).
+    Returns the launch counts of the BSS-2 cells and prints the
+    ``roofline_path_j`` record."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.config import HW, SHAPES, MeshConfig, ShapeConfig
+    from repro_torch.core.hybrid import trace_bss2_cell
+    from repro_torch.launch import dryrun
+    t_phase = time.time()
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"[17] the card's memory {total} bytes ({total / 1e9:.3f} GB); "
+        f"HW.hbm_bytes {HW.hbm_bytes} (data sheet)")
+    rec = dict(total_memory=total, hbm_bytes=HW.hbm_bytes, bss2={})
+    kernels.reset_launches()
+    traced = {}
+    for multi in (False, True):
+        for s in PATH_J_SHAPES:
+            traced[s, multi] = trace_bss2_cell(SHAPES[s], MeshConfig(multi),
+                                               "cuda")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    missing = [k for k in PATH_J_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"path J launched no {missing}: {launches}")
+    log(f"[17] the BSS-2 cell on 4 shapes x 2 meshes (a warm-up and a "
+        f"recorded trial each): launches {launches}")
+
+    # the card's count against the CPU's (the plain versions), 16 x 16
+    rep_g, rec_gpu, n16 = traced["train_4k", False]
+    rep_c, rec_cpu, _ = trace_bss2_cell(SHAPES["train_4k"], MeshConfig(False),
+                                        "cpu")
+    if not _same_counts(rec_gpu, rec_cpu):
+        diff = {k: (rec_gpu.by_kind.get(k), rec_cpu.by_kind.get(k))
+                for k in set(rec_gpu.by_kind) | set(rec_cpu.by_kind)
+                if rec_gpu.by_kind.get(k) != rec_cpu.by_kind.get(k)}
+        raise AssertionError(
+            f"path J: the card counts {rec_gpu.summary()}, the CPU "
+            f"{rec_cpu.summary()}; by kind (card, CPU) {diff}")
+    log(f"[17] bss2/train_4k/16x16, {n16} instances: the card's count "
+        f"equals the CPU's: {rec_gpu.flops:.0f} FLOP, {rec_gpu.hbm_rw:.0f} "
+        f"HBM bytes, {rec_gpu.transcendentals:.0f} transcendentals, "
+        f"{len(rec_gpu.kernels)} kernels ({len(rec_gpu.ops)} ops on the card, "
+        f"{len(rec_cpu.ops)} on the CPU)")
+    # each kernel's bytes a call: the bytes its phase-2 bound divides (the
+    # cell's 16 instances are phase 2's shapes)
+    for name, k in rec_gpu.kernels.items():
+        per_call = k["bytes"] / k["count"]
+        if per_call != rows[name]["bytes"]:
+            raise AssertionError(f"path J: {name} counts {per_call} bytes a "
+                                 f"call, its phase-2 bound divides "
+                                 f"{rows[name]['bytes']}")
+    log("[17] counted bytes a call equal to the phase-2 bound's: "
+        + ", ".join(f"{n} {k['bytes'] / k['count']:.0f}"
+                    for n, k in rec_gpu.kernels.items()))
+
+    for (s, multi), (rep, r, n_local) in traced.items():
+        mesh_cfg = MeshConfig(multi)
+        med, times = _path_j_time(SHAPES[s], mesh_cfg)
+        ratio = med["replay"] / (rep.step_time * 1e3)
+        key = f"bss2/{s}/{rep.mesh}"
+        rec["bss2"][key] = dict(
+            n_local=n_local, report=rep.to_dict(), kernels=r.kernels,
+            replay_ms=med["replay"], eager_ms=med["eager"], times=times,
+            measured_over_roofline=ratio)
+        log(f"[17] {key} ({n_local} local instances): {_report_line(rep)}; "
+            f"kernels " + ", ".join(f"{n} x{k['count']}"
+                                    for n, k in r.kernels.items())
+            + f"; replay {med['replay']:.4f} ms, eager {med['eager']:.4f} "
+            f"ms a trial (in turns); replay / roofline = {ratio:.2f} "
+            f"({rep.bottleneck}-bound)")
+
+    rec["dryrun"] = _path_j_dryrun()
+    for key, r in rec["dryrun"].items():
+        if r["status"] != "OK":
+            raise AssertionError(f"dryrun {key}: {r.get('error')}")
+        log(f"[17] dryrun {key}: t_compute {r['t_compute'] * 1e3:.4f} ms, "
+            f"t_memory {r['t_memory'] * 1e3:.4f} ms, t_collective "
+            f"{r['t_collective'] * 1e3:.4f} ms -> {r['bottleneck']}, "
+            f"useful {r['useful_flops_ratio']:.4f}, MFU@roofline "
+            f"{r['mfu']:.4%}, fits {HW.hbm_bytes / 1e9:.0f} GB: "
+            f"{r['fits_hbm']}")
+
+    # the roofline of what the card ran, on a world of one
+    mine = {}
+    shape_h = ShapeConfig(*PATH_H_SHAPE)
+    shape_g = ShapeConfig("path_g_decode",
+                          PATH_G_PROMPT[PATH_G_ARCH] + PATH_G_NEW, PATH_G_B,
+                          "decode")
+    for label, arch, shape, measured in (
+            ("path H step", PATH_H_ARCH, shape_h, rec_h["step_ms"]),
+            ("path G decode step", PATH_G_ARCH, shape_g,
+             rec_g["main"]["decode_ms_per_token"])):
+        rep, _ = dryrun.trace_cell(arch, shape, False,
+                                   compute_dtype=torch.float32,
+                                   world_of_one=True)
+        ratio = measured / (rep.step_time * 1e3)
+        mine[label] = dict(report=rep.to_dict(), measured_ms=measured,
+                           measured_over_roofline=ratio)
+        log(f"[17] {label} ({arch}, {shape.global_batch} x "
+            f"{shape.seq_len}, f32, one card): roofline {_report_line(rep)}; "
+            f"measured {measured:.4f} ms, {ratio:.2f}x the roofline step")
+    rec["one_card"] = mine
+    rec["launches"] = launches
+    rec["phase_s"] = time.time() - t_phase
+    log(f"[17] path J wall time {rec['phase_s']:.1f} s")
+    print("roofline_path_j " + json.dumps(rec), flush=True)
+    return launches
+
+
 def main() -> int:
     if sys.argv[1:] == ["--crash-restart"]:
         return crash_restart_child()
@@ -4012,6 +4286,9 @@ def main() -> int:
     sys.path.insert(0, str(REPO / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.config import HW
+    global MEM_BW, FP32_PEAK
+    MEM_BW, FP32_PEAK = HW.hbm_bw, HW.peak_flops_fp32
 
     smi = phase_build()
     rows = phase_kernels()
@@ -4026,9 +4303,10 @@ def main() -> int:
     phase_path_d(counts, graph_a)
     counts_e, _, _ = phase_path_e()
     counts_f = phase_path_f()
-    phase_path_g()
-    counts_h = phase_path_h()
+    rec_g = phase_path_g()
+    counts_h, rec_h = phase_path_h()
     counts_i = phase_path_i()
+    counts_j = phase_path_j(rows, rec_g, rec_h)
 
     kernels = []
     for name, (source, replaces) in SRC.items():
@@ -4046,6 +4324,7 @@ def main() -> int:
             launches_path_f=counts_f[name],
             launches_path_h=counts_h.get(name, 0),
             launches_path_i=counts_i.get(name, 0),
+            launches_path_j=counts_j[name],
             **{k: r[k] for k in ("chain_floor_ms",) if k in r}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

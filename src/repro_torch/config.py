@@ -8,9 +8,9 @@ Three config families:
   * ``MeshConfig``  — logical mesh + sharding-rule selection.
 
 Configs are plain frozen dataclasses, hashable and comparable field for
-field with the reference's (``tests/test_torch_lm_config.py``). The
-reference's ``HardwareConfig`` / ``HW`` (a TPU v5e roofline model) is not
-copied: the port states no TPU number (``ROADMAP.md``).
+field with the reference's (``tests/test_torch_lm_config.py``).
+``HardwareConfig`` / ``HW`` is the port's own: an NVIDIA H100, not the
+reference's TPU v5e model.
 """
 from __future__ import annotations
 
@@ -290,6 +290,32 @@ class MeshConfig:
         """Mesh axes carrying the batch dimension."""
         return ("pod", "data") if self.multi_pod else ("data",)
 
+
+# H100 hardware model used by the roofline analysis.
+@dataclass(frozen=True)
+class HardwareConfig:
+    """One NVIDIA H100 SXM5 80 GB at 700 W, from NVIDIA's data sheet.
+
+    ``peak_flops_bf16`` is the dense tensor-core rate, half of the sheet's
+    1,979 TFLOP/s, which is quoted with sparsity; ``RooflineReport
+    .t_compute`` divides every FLOP by it, as the reference divides by its
+    chip's bf16 peak. ``peak_flops_fp32`` is float32 outside the tensor
+    cores (what the hand-written kernels' bounds use).
+
+    The collective model is NVLink 4 within a node: ``links`` links of
+    ``link_bw`` bytes/s a direction (18 x 25 GB/s, 900 GB/s both ways).
+    Across nodes a GPU has one 400 Gb/s NIC, 50 GB/s, so on the 16 x 16
+    mesh over 32 nodes of eight cards ``t_collective`` is a lower bound.
+    """
+    peak_flops_bf16: float = 989e12     # per card, dense
+    peak_flops_fp32: float = 67e12      # per card, outside the tensor cores
+    hbm_bw: float = 3.35e12             # bytes/s per card
+    link_bw: float = 25e9               # bytes/s per NVLink a direction
+    links: int = 18                     # NVLink 4 links per card
+    hbm_bytes: int = 80 * 10**9         # 80 GB
+
+
+HW = HardwareConfig()
 
 # ---------------------------------------------------------------------------
 # Registry

@@ -784,3 +784,86 @@ def host_loop_trial(trial, state: ExperimentState, stim, events, xi):
     state = _rebuild(state, [x.cpu().to(dev) for x in _leaves(state)])
     new, m = trial(state, stim, events, xi)
     return new, {k: v.cpu() for k, v in m.items()}
+
+
+# ---------------------------------------------------------------------------
+# Dry-run cell for --arch bss2: a fleet of full-size chips learning in
+# parallel (``repro/core/hybrid.py:627-706``)
+# ---------------------------------------------------------------------------
+
+def bss2_cell_fleet(shape, mesh_cfg) -> Tuple[int, int]:
+    """``(n_inst, n_local)``: the fleet, ``max(global_batch, 16)`` full
+    chips, and what one rank runs of it: the fleet split over the data
+    axes by the ``Ax.INSTANCE`` rule, or the whole fleet where the data
+    axes do not divide it (the rule's demotion,
+    ``ShardingCtx.instance_pspec``)."""
+    from repro_torch.parallel.sharding import MeshShape, ShardingCtx
+    n_inst = max(shape.global_batch, 16)
+    ctx = ShardingCtx(mesh=MeshShape(mesh_cfg.shape, mesh_cfg.axes),
+                      mesh_cfg=mesh_cfg)
+    spec = ctx.instance_pspec((n_inst, BSS2.n_rows, BSS2.n_cols))
+    return n_inst, (n_inst // ctx.dp_size if spec[0] is not None
+                    else n_inst)
+
+
+def bss2_cell_experiment(shape, mesh_cfg, device, seed: int = 0):
+    """One rank's part of the cell: ``make_experiment`` on its local
+    fleet (``bss2_cell_fleet``) of full ``BSS2`` chips with the
+    reference's ``RSTDPConfig(128, 512, pattern_size=24,
+    trial_steps=128)``, and two trials' draws of stimulus A from a CPU
+    generator seeded with ``seed + 1`` (the same numbers on every
+    device). Returns ``(init, trial, meta, draws, n_local)``.
+
+    The backend is "blocked", what "auto" picks on the card, pinned so
+    that the CPU runs the same kernel wrappers (their plain versions)
+    and counts the same work."""
+    _, n_local = bss2_cell_fleet(shape, mesh_cfg)
+    cfg = BSS2
+    ecfg = RSTDPConfig(n_inputs=cfg.n_rows // 2, n_neurons=cfg.n_cols,
+                       pattern_size=24, trial_steps=128)
+    init, trial, meta = make_experiment(
+        cfg=cfg, ecfg=ecfg, generator=torch.Generator().manual_seed(seed),
+        prefix=(n_local,), backend="blocked", device=device)
+    draws = meta["draw"](torch.Generator().manual_seed(seed + 1), [1, 1])
+    return init, trial, meta, draws, n_local
+
+
+def trace_bss2_cell(shape, mesh_cfg, device, seed: int = 0):
+    """The cell's per-device roofline (``lower_bss2_cell``'s counterpart):
+    one eager trial of the rank's local fleet, after a warm-up trial,
+    under a ``cost`` recorder on ``device`` (the kernels on the card,
+    their plain versions on the CPU: the same counts). Returns
+    ``(report, recorder, n_local)``.
+
+    Each rank runs its whole local fleet; no collective is needed, since
+    the instances are independent. The reference also splits the synapse
+    columns over ``model``; the port keeps each chip's columns whole on
+    every rank of a ``model`` group (its trial couples the columns
+    through the reward, and its kernels take whole chips), so its
+    per-device FLOPs are up to 16x the reference's share and
+    ``useful_flops_ratio`` is that much smaller (``ROADMAP.md``)."""
+    from repro_torch.analysis import cost
+    from repro_torch.analysis.roofline import build_report
+    device = resolve_device(device)
+    init, trial, meta, draws, n_local = bss2_cell_experiment(
+        shape, mesh_cfg, device, seed)
+    stim = torch.tensor(1, dtype=torch.int32, device=device)
+    state, _ = trial(init(), stim, draws.events[0], draws.xi[0])
+    args = (state, stim, draws.events[1], draws.xi[1])
+    with cost.recording() as rec:
+        rec.begin(args)
+        out = trial(*args)
+        rec.end(out)
+    del out
+    # MODEL_FLOPS, the reference's formula (repro/core/hybrid.py:688-
+    # 691): the event matmul, the neuron and sensor updates and the
+    # correlation outer product, a step and instance
+    cfg = BSS2
+    flops = (2 * cfg.n_rows * cfg.n_cols + 40 * cfg.n_cols
+             + 4 * cfg.n_rows * cfg.n_cols) * 128 * max(shape.global_batch,
+                                                        16)
+    rep = build_report(
+        "bss2", shape, "2x16x16" if mesh_cfg.multi_pod else "16x16",
+        mesh_cfg.n_devices, rec, model_flops_global=flops,
+        step_kind="train")
+    return rep, rec, n_local

@@ -13,8 +13,11 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import math
+
 import torch
 
+from repro_torch.analysis import cost
 from repro_torch.core import events
 
 WMAX = 63  # 6-bit
@@ -56,43 +59,68 @@ SPARSE_THRESHOLD_CONST_ADDR = 0.02
 SPARSE_MIN_DENSE_WORK = 2 * 1024 * 1024
 
 
-def _dense_window(weights, addresses, row_events_t, event_addr_t, gain,
+def _dense_window(weights, addresses, row_events_t, event_addr_t,
                   const_addr):
-    """The dense whole-window path: the synray kernel on a CUDA device (in
-    its const-address form with ``const_addr``); on the CPU, with
-    ``const_addr``, the once-resolved matmul of the reference's ``ref``
-    branch, else the kernel's plain version."""
-    if weights.device.type == "cpu" and const_addr:
-        match = (addresses == event_addr_t[0].unsqueeze(-1)
-                 ).to(torch.float32)
-        w_eff = weights.to(torch.float32) * match
-        ev = row_events_t.to(torch.float32)
-        if weights.ndim == 2:     # no instance prefix: plain matmul
-            i = ev @ w_eff
-        else:
-            i = torch.einsum("t...r,...rc->t...c", ev, w_eff)
-        return i * gain
+    """The dense whole-window path (currents before the gain): the synray
+    kernel on a CUDA device (in its const-address form with
+    ``const_addr``); on the CPU, with ``const_addr``, the once-resolved
+    matmul of the reference's ``ref`` branch, else the kernel's plain
+    version. A cost recorder counts the CPU's resolved matmul as the
+    card's const-address kernel."""
     from repro_torch.kernels.synray import ops as synray_ops
+    if weights.device.type == "cpu" and const_addr:
+        if cost.ACTIVE is None:
+            return _resolved_matmul(weights, addresses, row_events_t,
+                                    event_addr_t)
+        R, C = weights.shape[-2:]
+        return cost.kernel_call(
+            "synray", synray_ops.work(row_events_t.shape[0],
+                                      math.prod(weights.shape[:-2]), R, C),
+            _resolved_matmul, weights, addresses, row_events_t, event_addr_t)
     # on the card const_addr selects the kernel's const-address form (the
     # match of step 0 folded into the weights), bit-equal to its general
     # form on constant addresses
     return synray_ops.synaptic_current(
         row_events_t.to(torch.float32), event_addr_t, weights,
-        addresses, const_addr=const_addr) * gain
+        addresses, const_addr=const_addr)
 
 
-def _sparse_window(weights, addresses, row_events_t, event_addr_t, gain,
+def _resolved_matmul(weights, addresses, row_events_t, event_addr_t):
+    """The reference's ``ref`` branch with ``const_addr``: the step-0
+    address match resolved once into the weights, then one product."""
+    match = (addresses == event_addr_t[0].unsqueeze(-1)).to(torch.float32)
+    w_eff = weights.to(torch.float32) * match
+    ev = row_events_t.to(torch.float32)
+    if weights.ndim == 2:     # no instance prefix: plain matmul
+        return ev @ w_eff
+    return torch.einsum("t...r,...rc->t...c", ev, w_eff)
+
+
+def _sparse_window(weights, addresses, row_events_t, event_addr_t,
                    max_events, k_cap):
-    """The event-sparse whole-window path: gather-accumulate only the
-    fired rows (``synray_sparse``; on the card one launch that reads the
-    window in place, on the CPU the records of ``events.regroup_window``
-    and the plain version). Equal to the dense kernel bit for bit on the
-    card as long as the window fits the capacities; overflow drops
-    records."""
+    """The event-sparse whole-window path (currents before the gain):
+    gather-accumulate only the fired rows (``synray_sparse``; on the card
+    one launch that reads the window in place, on the CPU the records of
+    ``events.regroup_window`` and the plain version). Equal to the dense
+    kernel bit for bit on the card as long as the window fits the
+    capacities; overflow drops records."""
     from repro_torch.kernels.synray_sparse import ops as sparse_ops
     return sparse_ops.sparse_current_window(
         row_events_t.to(torch.float32), event_addr_t, weights, addresses,
-        max_events=max_events, k_cap=k_cap) * gain
+        max_events=max_events, k_cap=k_cap)
+
+
+def _route_works(weights, row_events_t, const_addr, max_events, k_cap):
+    """The gated pair's two routes' work (``cost.gate_call``), from the
+    window's shapes alone."""
+    from repro_torch.kernels.synray import ops as synray_ops
+    from repro_torch.kernels.synray_sparse import ops as sparse_ops
+    T = row_events_t.shape[0]
+    R, C = weights.shape[-2:]
+    N = math.prod(weights.shape[:-2])
+    return {"synray_sparse": sparse_ops.work_window(
+                T, N, R, C, max_events, k_cap, row_events_t.stride(-1)),
+            "synray": synray_ops.work(T, N, R, C, const_addr)}
 
 
 def _gated_window(weights, addresses, row_events_t, event_addr_t, gain,
@@ -104,20 +132,30 @@ def _gated_window(weights, addresses, row_events_t, event_addr_t, gain,
     and the dense kernel where it does not, into one buffer. With
     ``telemetry`` the decision is counted from the census kernel's own
     output (``(fits, n_events, k_max)``, read on the device) and the
-    return value is ``(currents, telemetry)``."""
+    return value is ``(currents, telemetry)``. A cost recorder counts
+    the two route kernels as one entry, the larger route's
+    (``cost.gate_call``), as it counts the CPU's gate."""
     from repro_torch.kernels.census import ops as census_ops
     from repro_torch.kernels.synray import ops as synray_ops
     from repro_torch.kernels.synray_sparse import ops as sparse_ops
     ev = row_events_t.to(torch.float32)
     flag = census_ops.census(ev, max_events, k_cap,
                              routes=route_counts(ev.device))
-    out = torch.empty((*ev.shape[:-1], weights.shape[-1]),
-                      dtype=torch.float32, device=ev.device)
-    sparse_ops.sparse_current_window(
-        ev, event_addr_t, weights, addresses, max_events=max_events,
-        k_cap=k_cap, flag=flag, out=out)
-    synray_ops.synaptic_current(ev, event_addr_t, weights, addresses,
-                                const_addr=const_addr, flag=flag, out=out)
+
+    def both_routes():
+        out = torch.empty((*ev.shape[:-1], weights.shape[-1]),
+                          dtype=torch.float32, device=ev.device)
+        sparse_ops.sparse_current_window(
+            ev, event_addr_t, weights, addresses, max_events=max_events,
+            k_cap=k_cap, flag=flag, out=out)
+        return synray_ops.synaptic_current(
+            ev, event_addr_t, weights, addresses, const_addr=const_addr,
+            flag=flag, out=out)
+    if cost.ACTIVE is None:
+        out = both_routes()
+    else:
+        out = cost.gate_call(_route_works(weights, ev, const_addr,
+                                          max_events, k_cap), both_routes)
     if telemetry is None:
         return out * gain
     from repro_torch.obs import trace as obs_trace
@@ -226,23 +264,32 @@ def synaptic_current_window(weights, addresses, row_events_t, event_addr_t,
     if route == "gate":
         return _gated_window(weights, addresses, row_events_t, event_addr_t,
                              gain, const_addr, max_events, k_cap, telemetry)
+    T, R, C = row_events_t.shape[0], row_events_t.shape[-1], weights.shape[-1]
+    gated = sparse == "auto" and T * R * C >= SPARSE_MIN_DENSE_WORK
     if route == "sparse":
-        i = _sparse_window(weights, addresses, row_events_t, event_addr_t,
-                           gain, max_events, k_cap)
+        fn, args = _sparse_window, (max_events, k_cap)
     else:
-        i = _dense_window(weights, addresses, row_events_t, event_addr_t,
-                          gain, const_addr)
+        fn, args = _dense_window, (const_addr,)
+    args = (weights, addresses, row_events_t, event_addr_t, *args)
+    if gated and cost.ACTIVE is not None:
+        # the CPU's gate, counted as the card's: the larger route
+        i = cost.gate_call(_route_works(weights, row_events_t, const_addr,
+                                        max_events, k_cap), fn, *args)
+    else:
+        i = fn(*args)
+    i = i * gain
     if telemetry is None:
         return i
     from repro_torch.obs import trace as obs_trace
-    T, R, C = row_events_t.shape[0], row_events_t.shape[-1], weights.shape[-1]
-    if sparse != "auto" or T * R * C < SPARSE_MIN_DENSE_WORK:
+    if not gated:
         return i, obs_trace.count_route(telemetry, route == "sparse")
     # the CPU's gate decided on the host from the plain census: the same
-    # census again for the counters (no route counted twice)
+    # census again for the counters (no route counted twice, nor the
+    # census by a cost recorder)
     from repro_torch.kernels.census import ops as census_ops
-    census = census_ops.census(row_events_t.to(torch.float32), max_events,
-                               k_cap)
+    with cost.paused():
+        census = census_ops.census(row_events_t.to(torch.float32),
+                                   max_events, k_cap)
     return i, obs_trace.count_gate(telemetry, census[0], census[1],
                                    census[2])
 

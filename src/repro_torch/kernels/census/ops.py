@@ -19,6 +19,7 @@ import math
 import torch
 
 from repro_torch import kernels
+from repro_torch.analysis import cost
 from repro_torch.kernels.census.ref import census_ref
 
 # one ticket per device: the kernel's last block finds itself by it and
@@ -26,9 +27,23 @@ from repro_torch.kernels.census.ref import census_ref
 _TICKETS = {}
 
 
+def work(T: int, N: int, R: int, row_stride: int = 1) -> cost.Work:
+    """One census's work over a [T, N, R] window read with a row stride
+    of ``row_stride`` (a Dale half in place: 2): every 32-byte sector of
+    the efficacy plane it spans, the census out; one test an event."""
+    return cost.Work(flops=float(T * N * R),
+                     bytes=float(T * N * R * row_stride * 4 + 12))
+
+
 def census(row_events_t, max_events: int, k_cap: int, routes=None):
     """row_events_t [T, ..., R] float32 -> int32 [3] (fits, n_events,
     k_max); adds the decision to ``routes`` [dense, sparse] if given."""
+    if cost.ACTIVE is not None:
+        return cost.kernel_call(
+            "census", work(row_events_t.shape[0],
+                           math.prod(row_events_t.shape[1:-1]),
+                           row_events_t.shape[-1], row_events_t.stride(-1)),
+            census, row_events_t, max_events, k_cap, routes)
     if row_events_t.device.type == "cpu":
         out = census_ref(row_events_t, max_events, k_cap)
         if routes is not None:

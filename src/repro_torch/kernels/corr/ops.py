@@ -15,12 +15,30 @@ import math
 import torch
 
 from repro_torch import kernels
+from repro_torch.analysis import cost
 from repro_torch.kernels.corr.ref import correlation_window_ref
+
+
+def work(T: int, N: int, R: int, C: int) -> cost.Work:
+    """One window's work at [T, N, R, C]: the spike windows and the traces
+    read, the two accumulators read and written; a step's two trace
+    updates and, for every synapse, a multiply, an add and a min on each
+    accumulator (the plain version's arithmetic; the kernel skips the
+    steps no spike touches)."""
+    return cost.Work(flops=float(T * N * (2 * (R + C) + 6 * R * C)),
+                     bytes=float((T * N * (R + C) + 2 * N * (R + C)
+                                  + 4 * N * R * C) * 4))
 
 
 def correlation_window(pre_t, post_t, tp0, tq0, ac0, aa0, *, lam: float,
                        sat: float = 1023.0):
     """Returns (a_causal, a_acausal, tp, tq)."""
+    if cost.ACTIVE is not None:
+        R, C = ac0.shape[-2:]
+        return cost.kernel_call(
+            "corr", work(pre_t.shape[0], math.prod(ac0.shape[:-2]), R, C),
+            correlation_window, pre_t, post_t, tp0, tq0, ac0, aa0, lam=lam,
+            sat=sat)
     if ac0.device.type == "cpu":
         return correlation_window_ref(pre_t, post_t, tp0, tq0, ac0, aa0,
                                       lam=lam, sat=sat)

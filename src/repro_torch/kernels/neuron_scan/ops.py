@@ -20,6 +20,7 @@ import math
 import torch
 
 from repro_torch import kernels
+from repro_torch.analysis import cost
 from repro_torch.core import adex
 from repro_torch.kernels import fold_instance
 from repro_torch.kernels.neuron_scan.ref import neuron_window_ref
@@ -37,6 +38,17 @@ def pack_params(params, decays, cshape):
                        dim=len(cshape) - 1)
 
 
+def work(T: int, N: int, C: int, record_v: bool = False) -> cost.Work:
+    """One window's work at [T, N, C]: both current windows read, the six
+    state planes and the 12 parameter rows read, the spikes (and with
+    ``record_v`` the membrane) and the six planes written; about 30
+    operations and one exp a step and neuron."""
+    n_bytes = (2 * T * N * C + 6 * N * C + 12 * N * C + T * N * C
+               + 6 * N * C + (T * N * C if record_v else 0)) * 4
+    return cost.Work(flops=30.0 * T * N * C, bytes=float(n_bytes),
+                     transcendentals=float(T * N * C))
+
+
 def neuron_window(state: adex.NeuronState, rate_counters, ie_t, ii_t,
                   params, *, dt: float, use_adex: bool, decays=None,
                   record_v: bool = False, packed_params=None):
@@ -46,6 +58,13 @@ def neuron_window(state: adex.NeuronState, rate_counters, ie_t, ii_t,
 
     ``packed_params`` may pass ``pack_params(...)`` precomputed (the
     parameters are constant across windows)."""
+    if cost.ACTIVE is not None:
+        return cost.kernel_call(
+            "neuron_scan", work(ie_t.shape[0], math.prod(ie_t.shape[1:-1]),
+                                ie_t.shape[-1], record_v), neuron_window,
+            state, rate_counters, ie_t, ii_t, params, dt=dt,
+            use_adex=use_adex, decays=decays, record_v=record_v,
+            packed_params=packed_params)
     if decays is None:
         decays = adex.decay_factors(params, dt)
     if ie_t.device.type == "cpu":

@@ -15,7 +15,18 @@ import math
 import torch
 
 from repro_torch import kernels
+from repro_torch.analysis import cost
 from repro_torch.kernels.ppu_update.ref import reciprocal, rstdp_update_ref
+
+
+def work(N: int, R: int, C: int) -> cost.Work:
+    """One update's work at [N, R, C]: the int8 weights, the two
+    accumulators and xi read, the int8 weights and the float32
+    eligibility written (18 bytes a synapse), three [N, C] columns read;
+    about 15 operations a synapse."""
+    n_syn = N * R * C
+    return cost.Work(flops=15.0 * n_syn,
+                     bytes=float(18 * n_syn + 3 * 4 * N * C))
 
 
 def rstdp_update(weights, a_causal, a_acausal, cadc_offset, cadc_gain, mod,
@@ -26,6 +37,13 @@ def rstdp_update(weights, a_causal, a_acausal, cadc_offset, cadc_gain, mod,
     prefix); ``cadc_map``: ``None`` or the CADC faults' float32 ``(a, lo,
     hi)`` [..., C] (see ``ref.py``). Returns (new weights int8,
     eligibility float32)."""
+    if cost.ACTIVE is not None:
+        R, C = weights.shape[-2:]
+        return cost.kernel_call(
+            "ppu_update", work(math.prod(weights.shape[:-2]), R, C),
+            rstdp_update, weights, a_causal, a_acausal, cadc_offset,
+            cadc_gain, mod, xi, eta=eta, cadc_scale=cadc_scale, wmax=wmax,
+            cadc_max=cadc_max, cadc_map=cadc_map)
     if weights.device.type == "cpu":
         return rstdp_update_ref(weights, a_causal, a_acausal, cadc_offset,
                                 cadc_gain, mod, xi, eta=eta,

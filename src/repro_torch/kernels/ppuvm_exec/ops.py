@@ -24,16 +24,37 @@ import math
 import torch
 
 from repro_torch import kernels
+from repro_torch.analysis import cost
 from repro_torch.kernels.ppuvm_exec.ref import run_program_ref
 from repro_torch.ppuvm import isa
 
 MAX_WORDS = 12288     # csrc/ppuvm_exec.cu: words decoded at a time (48 KB)
 
 
+def work(N: int, R: int, C: int, n_words: int, n_planes: int, n_mod: int,
+         w_bytes: int = 1) -> cost.Work:
+    """One program's work at [N, R, C]: each lane's weight (``w_bytes``)
+    and its ``n_planes`` int32 planes read, the int32 weight and the 8
+    registers written, the rates and the ``n_mod`` modulator slots
+    ([N, C] each) and the words read; one instruction a word and lane."""
+    lanes = N * R * C
+    return cost.Work(flops=float(n_words * lanes),
+                     bytes=float(lanes * (w_bytes + 4 * (n_planes + 1 + 8))
+                                 + N * C * 4 * (1 + n_mod) + 4 * n_words))
+
+
 def run_program(words, weights, qc, qa, rates, mod=None, noise=None):
     """words [P] int32; weights [..., R, C] integer; qc/qa/noise
     broadcastable to it; rates [..., C] float; mod [n_mod, ..., C] Q8.8.
     Returns (weights_out int32 [..., R, C], regs int32 [8, ..., R, C])."""
+    if cost.ACTIVE is not None:
+        R, C = weights.shape[-2:]
+        return cost.kernel_call(
+            "ppuvm_exec", work(math.prod(weights.shape[:-2]), R, C,
+                               len(words), 3 if noise is not None else 2,
+                               1 if mod is None else mod.shape[0],
+                               weights.element_size()),
+            run_program, words, weights, qc, qa, rates, mod, noise)
     if weights.device.type == "cpu":
         return run_program_ref(words, weights, qc, qa, rates, mod, noise)
     from repro_torch.kernels import _build

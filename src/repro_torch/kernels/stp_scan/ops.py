@@ -17,10 +17,19 @@ import math
 import torch
 
 from repro_torch import kernels
+from repro_torch.analysis import cost
 from repro_torch.kernels.stp_scan.ref import stp_scan_ref
 
 EFF_MAX = 1.5     # stp.efficacy's clamp
 R_MAX = 1.0       # stp.update's clamp
+
+
+def work(T: int, N: int, R: int) -> cost.Work:
+    """One window's work at [T, N, R]: the spikes read and the efficacies
+    written (4 bytes each), r0, the scale and r_T; 14 operations a step
+    and lane."""
+    return cost.Work(flops=14.0 * T * N * R,
+                     bytes=float(2 * T * N * R * 4 + 3 * N * R * 4))
 
 
 def stp_scan(r0, spikes_t, scale, *, u: float, recovery: float):
@@ -28,6 +37,11 @@ def stp_scan(r0, spikes_t, scale, *, u: float, recovery: float):
     float32 broadcastable to [*prefix, R]. ``u`` and ``recovery`` are
     Python floats (float32 values, as the plain version takes them).
     Returns (eff_t [T, *prefix, R], r_T [*prefix, R])."""
+    if cost.ACTIVE is not None:
+        return cost.kernel_call(
+            "stp_scan", work(spikes_t.shape[0], math.prod(r0.shape[:-1]),
+                             r0.shape[-1]), stp_scan, r0, spikes_t, scale,
+            u=u, recovery=recovery)
     if r0.device.type == "cpu":
         return stp_scan_ref(r0, spikes_t, scale, u=u, recovery=recovery)
     from repro_torch.kernels import _build

@@ -26,6 +26,7 @@ import math
 import torch
 
 from repro_torch import kernels
+from repro_torch.analysis import cost
 from repro_torch.kernels.synray.ref import synaptic_current_ref
 
 
@@ -34,12 +35,31 @@ def _check(cond, msg):
         raise ValueError(f"synray: {msg}")
 
 
+def work(T: int, N: int, R: int, C: int, const_addr: bool = True
+         ) -> cost.Work:
+    """One window's work at [T, N, R, C]: the event values, the addresses
+    (step 0's in the const-address form, every step's otherwise), the two
+    int8 stores and the output; an FMA per step, row and column (the
+    plain version's product; the kernel skips rows with no event)."""
+    n_addr = N * R if const_addr else T * N * R
+    return cost.Work(flops=2.0 * T * N * R * C,
+                     bytes=float(T * N * R * 4 + n_addr + 2 * N * R * C
+                                 + T * N * C * 4))
+
+
 def synaptic_current(events_t, event_addr_t, weights, addresses, *,
                      const_addr: bool = False, flag=None, out=None):
     """i[t, ..., c] = sum_r ev[t, ..., r] * w[..., r, c]
     * (addr[..., r, c] == ea[t, ..., r]); with ``const_addr`` the card
     reads ``ea[0, ..., r]`` for every step. With ``flag``, nothing is
     computed where ``flag[0] != 0`` (``out`` is returned as it is)."""
+    if cost.ACTIVE is not None:
+        R, C = weights.shape[-2:]
+        return cost.kernel_call(
+            "synray", work(events_t.shape[0], math.prod(weights.shape[:-2]),
+                           R, C, const_addr), synaptic_current, events_t,
+            event_addr_t, weights, addresses, const_addr=const_addr,
+            flag=flag, out=out)
     if events_t.device.type == "cpu":
         if flag is not None and int(flag[0]) != 0:
             return out

@@ -36,6 +36,7 @@ import math
 import torch
 
 from repro_torch import kernels
+from repro_torch.analysis import cost
 from repro_torch.core import events
 from repro_torch.kernels.synray_sparse.ref import sparse_window_ref
 
@@ -61,6 +62,29 @@ def _check_flag(flag, dev):
     return None if flag is None else flag.data_ptr()
 
 
+def work_window(T: int, N: int, R: int, C: int, max_events: int,
+                k_cap: int, row_stride: int = 1) -> cost.Work:
+    """The window form's work at [T, N, R, C] with rows read at a stride
+    of ``row_stride`` (a Dale half in place: 2): the efficacy and address
+    planes as strided reads (every 32-byte sector they span, 5 bytes a
+    row), the two int8 stores, the output; an FMA per column for each
+    record the capacities keep (at most ``min(max_events, T * k_cap)``
+    an instance)."""
+    n_rec = min(max_events, T * k_cap)
+    return cost.Work(flops=2.0 * N * n_rec * C,
+                     bytes=float(T * N * R * row_stride * 5 + 2 * N * R * C
+                                 + T * N * C * 4))
+
+
+def work_records(N: int, T: int, K: int, R: int, C: int) -> cost.Work:
+    """The record form's work: the [N, T, K] rows, addresses and
+    efficacies read, the two int8 [N, R, C] stores, the [N, T, C]
+    output; an FMA per record and column."""
+    return cost.Work(flops=2.0 * N * T * K * C,
+                     bytes=float(N * T * K * 12 + 2 * N * R * C
+                                 + N * T * C * 4))
+
+
 def sparse_window(rows_tk, addr_tk, eff_tk, weights, addresses, *,
                   flag=None, out=None):
     """out[n, t, c] = sum_k eff[n, t, k] * w[n, rows[n, t, k], c]
@@ -71,6 +95,12 @@ def sparse_window(rows_tk, addr_tk, eff_tk, weights, addresses, *,
     ``flag`` (int32, 1 where the window fits) gates the launch and
     ``out`` ([N, T, C] float32, a view of a contiguous [T, N, C] buffer)
     is written in place."""
+    if cost.ACTIVE is not None:
+        N, T, K = rows_tk.shape
+        return cost.kernel_call(
+            "synray_sparse", work_records(N, T, K, *weights.shape[-2:]),
+            sparse_window, rows_tk, addr_tk, eff_tk, weights, addresses,
+            flag=flag, out=out)
     if eff_tk.device.type == "cpu":
         _check(flag is None and out is None, "flag and out are card-only")
         return sparse_window_ref(rows_tk, addr_tk, eff_tk, weights,
@@ -121,6 +151,15 @@ def sparse_current_window(events_t, event_addr_t, weights, addresses, *,
     on this window at these capacities) lets it compute only where
     ``flag[0] != 0``, that is where no record is dropped, into ``out`` (a
     contiguous float32 [T, ..., C] tensor) when given."""
+    if cost.ACTIVE is not None:
+        R, C = weights.shape[-2:]
+        return cost.kernel_call(
+            "synray_sparse", work_window(
+                events_t.shape[0], math.prod(weights.shape[:-2]), R, C,
+                max_events, k_cap, events_t.stride(-1)),
+            sparse_current_window, events_t, event_addr_t, weights,
+            addresses, max_events=max_events, k_cap=k_cap, flag=flag,
+            out=out)
     from repro_torch.kernels import (fold_instance, fold_instance_time,
                                      unfold_instance_time)
     T = events_t.shape[0]

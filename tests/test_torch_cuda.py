@@ -1654,3 +1654,24 @@ def test_lm_mesh_on_nccl(cuda, tmp_path):
     _lm_mesh_ranks(tmp_path, world, "all")
     if world == 4:
         _lm_mesh_ranks(tmp_path, 2, "reshard2")
+
+
+def test_bss2_cell_counts_on_card_equal_cpu(cuda):
+    """The BSS-2 fleet cell's recorded trial (``trace_bss2_cell``,
+    prefill_32k on 16 x 16: 2 full instances) counts on the card, with the
+    kernels, what it counts on the CPU with the plain versions: FLOPs,
+    HBM bytes, transcendentals and each kernel's entries."""
+    from repro_torch.config import SHAPES, MeshConfig
+    kernels.reset_launches()
+    rep_g, rec_g, n = th.trace_bss2_cell(SHAPES["prefill_32k"],
+                                         MeshConfig(False), "cuda")
+    assert n == 2
+    assert all(kernels.LAUNCHES[k] for k in ("stp_scan", "census", "synray",
+                                             "synray_sparse", "neuron_scan",
+                                             "corr"))
+    rep_c, rec_c, _ = th.trace_bss2_cell(SHAPES["prefill_32k"],
+                                         MeshConfig(False), "cpu")
+    for k in ("flops", "transcendentals", "total_write", "kernels", "coll"):
+        assert getattr(rec_g, k) == getattr(rec_c, k), k
+    assert dict(rec_g.by_kind) == dict(rec_c.by_kind)
+    assert rep_g.step_time == rep_c.step_time

@@ -1,0 +1,137 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) on a fake world,
+in one subprocess of ``tests/_torch_dryrun.py`` (the fake process group
+is global state): the BSS-2 cell at train_4k on 16 x 16, a reduced dense
+arch for each step kind and the reduced MoE's decode, and every
+parameter and AdamW leaf's local bytes on both production meshes against
+the bytes the reference's ``tree_pspecs`` specs give on the same mesh
+sizes. The fleet split of the BSS-2 cell (``bss2_cell_fleet``) is checked
+here directly."""
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+from repro import config as rc
+from repro.models.transformer import build_model as ref_build
+from repro.parallel import sharding as rs
+from repro.train.optimizer import adamw_init_decls as ref_adamw_decls
+from repro_torch import config as pc
+from repro_torch.core import hybrid
+from repro_torch.kernels.synray import ops as synray_ops
+
+HELPER = Path(__file__).resolve().parent / "_torch_dryrun.py"
+
+
+@pytest.fixture(scope="module")
+def probes(tmp_path_factory):
+    out = tmp_path_factory.mktemp("dryrun") / "probes.json"
+    subprocess.run([sys.executable, str(HELPER), str(out), "bss2", "dense",
+                    "moe_decode", "leaves"], check=True, timeout=600,
+                   capture_output=True)
+    return json.loads(out.read_text())
+
+
+@pytest.mark.parametrize("multi_pod,want", [
+    (False, {"train_4k": 16, "prefill_32k": 2, "decode_32k": 8,
+             "long_500k": 1}),
+    (True, {"train_4k": 8, "prefill_32k": 1, "decode_32k": 4,
+            "long_500k": 16})])
+def test_bss2_fleet_split_by_the_instance_rule(multi_pod, want):
+    """n_inst / dp instances a rank on the data axes, the whole fleet
+    where they do not divide it (16 on 2 x 16 x 16's 32 data ranks)."""
+    got = {s: hybrid.bss2_cell_fleet(pc.SHAPES[s], pc.MeshConfig(multi_pod))
+           for s in want}
+    assert {s: n for s, (_, n) in got.items()} == want
+    assert {s: n for s, (n, _) in got.items()} == {
+        "train_4k": 256, "prefill_32k": 32, "decode_32k": 128,
+        "long_500k": 16}
+
+
+def test_bss2_train_4k_cell(probes):
+    r = probes["bss2"]
+    assert (r["arch"], r["shape"], r["mesh"], r["n_devices"],
+            r["step_kind"]) == ("bss2", "train_4k", "16x16", 256, "train")
+    # the reference's MODEL_FLOPS (repro/core/hybrid.py:688-691)
+    assert r["model_flops_global"] == (
+        2 * 256 * 512 + 40 * 512 + 4 * 256 * 512) * 128 * 256
+    k = r["kernels"]
+    assert set(k) == {"stp_scan", "census", "synray", "neuron_scan", "corr"}
+    assert {n: v["count"] for n, v in k.items()} == dict(
+        stp_scan=1, census=2, synray=2, neuron_scan=1, corr=1)
+    # the gated pair counts its larger route at the local fleet's shapes
+    # (16 instances, a Dale half of 128 rows)
+    assert k["synray"]["bytes"] == 2 * synray_ops.work(128, 16, 128,
+                                                        512).bytes
+    assert r["coll"] == {} and r["t_collective"] == 0
+    assert r["bottleneck"] == "memory"
+    assert r["hbm_bytes_per_dev"] > sum(v["bytes"] for v in k.values())
+    assert r["arg_bytes"] > 0 and r["temp_bytes"] > 0 and r["out_bytes"] > 0
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_reduced_dense_cell_on_16x16(probes, kind):
+    r = probes["dense"][kind]
+    arch = pc.get_arch("smollm-360m").reduced()
+    shape = pc.SHAPES[{"train": "train_4k", "prefill": "prefill_32k",
+                       "decode": "decode_32k"}[kind]].reduced()
+    from repro_torch.analysis.roofline import model_flops_for
+    assert r["step_kind"] == kind and r["n_devices"] == 256
+    assert r["model_flops_global"] == model_flops_for(arch, shape)
+    assert r["flops_per_dev"] > 0 and r["hbm_bytes_per_dev"] > 0
+    assert r["kernels"] == {}
+    assert all(math.isfinite(r[t]) for t in ("t_compute", "t_memory",
+                                             "t_collective", "mfu"))
+    # parameters are sharded over data and model: the weights' local
+    # shards are gathered and the gradients reduced
+    assert r["coll"]["all-gather"]["count"] > 0
+    if kind == "train":
+        assert r["coll"]["reduce-scatter"]["count"] > 0
+    assert r["arg_bytes"] > 0 and r["temp_bytes"] > 0 and r["out_bytes"] > 0
+
+
+def test_reduced_moe_decode_on_16x16(probes):
+    """Expert parallelism (``moe_ffn_ep``, the default under a mesh) over
+    the 16 ``model`` ranks: the partial outputs summed by an all-reduce,
+    the reference's psum."""
+    r = probes["moe_decode"]
+    assert r["step_kind"] == "decode" and r["flops_per_dev"] > 0
+    assert r["coll"]["all-reduce"]["count"] > 0
+
+
+def _ref_local_bytes(name, multi_pod):
+    cfg = rc.MeshConfig(multi_pod)
+    sizes = dict(zip(cfg.axes, cfg.shape))
+    ctx = rs.ShardingCtx(mesh=SimpleNamespace(
+        axis_names=cfg.axes, devices=np.empty(cfg.shape)), mesh_cfg=cfg)
+    decls = ref_build(rc.get_arch(name), ctx).decls
+    out = {}
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{prefix}/{k}")
+            return
+        spec = tuple(ctx.param_pspec(tree.axes, tree.shape))
+        n = 1
+        for i, d in enumerate(tree.shape):
+            e = spec[i] if i < len(spec) else None
+            e = () if e is None else ((e,) if isinstance(e, str) else e)
+            n *= d // math.prod(sizes[a] for a in e)
+        out[prefix] = n * np.dtype(tree.dtype).itemsize
+    walk(decls, "params")
+    walk(ref_adamw_decls(decls), "opt")
+    return out
+
+
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
+@pytest.mark.parametrize("name", ["qwen1.5-0.5b", "moonshot-v1-16b-a3b",
+                                  "hymba-1.5b"])
+def test_leaf_local_bytes_equal_reference_specs(probes, name, mesh):
+    got = probes["leaves"][f"{name}/{mesh}"]
+    want = _ref_local_bytes(name, mesh == "2x16x16")
+    assert got == want

@@ -60,8 +60,20 @@ def test_mesh_config(multi_pod):
 
 
 def test_no_tpu_hardware_model():
-    """The reference's TPU v5e roofline constants are not copied."""
-    assert not hasattr(pc, "HW") and not hasattr(pc, "HardwareConfig")
+    """The port's hardware model is the H100 SXM5 80 GB of NVIDIA's data
+    sheet (bf16 dense peak, fp32, HBM3, NVLink 4), and none of the
+    reference's TPU v5e numbers (197e12 FLOP/s, 819e9 B/s, 50e9 B/s a
+    link) is in it."""
+    hw = pc.HW
+    assert isinstance(hw, pc.HardwareConfig)
+    assert hw.peak_flops_bf16 == 989e12      # dense: the sheet quotes 1,979 sparse
+    assert hw.peak_flops_fp32 == 67e12
+    assert hw.hbm_bw == 3.35e12
+    assert hw.hbm_bytes == 80e9
+    assert (hw.link_bw, hw.links) == (25e9, 18)
+    assert 2 * hw.link_bw * hw.links == 900e9
+    values = set(dataclasses.astuple(hw))
+    assert not values & {197e12, 819e9, 50e9, 16 * 2**30}
 
 
 def test_full_width_serving_sizes():
