@@ -3,11 +3,13 @@
     python3 benchmarks/torch_kernel_variants.py [--json FILE] [--kernel K]
 
 A variant is a kernel source of ``src/repro_torch/csrc`` with some of its
-``constexpr int`` constants changed (block shape, chunk length). Each is
-built with the port's own nvcc flags into a library of its own under
-``build/variants/``, run through the port's wrapper on the main path's
-shapes, held against the plain version (bit for bit; ``synray_sparse``,
-which sums in another order, within 1e-4) and timed as
+``constexpr int`` constants changed (block shape, chunk length) or one of
+the edits of ``EDITS`` made (``stp_scan``'s index type and clamp body).
+Each is built with the port's own nvcc flags into a library of its own
+under ``build/variants/``, run through the port's wrapper on the main
+path's shapes, held against the plain version (bit for bit;
+``synray_sparse``, which sums in another order, within 1e-4; a timing aid
+of ``AIDS``, which is not the kernel's function, is not held) and timed as
 ``chip_smoke.py`` times a kernel (median of CUDA-event timings behind a
 device-side sleep). The first variant of each kernel is the source as it
 is. Compare variants only within one run: the card's clocks and power
@@ -33,24 +35,45 @@ VARIANTS = {
                    {"TX": 64, "TY": 2}, {"K": 8}],
     "synray_sparse": [{}, {"CW": 1}, {"CW": 1, "NW": 8, "UPW": 16},
                       {"NW": 8, "UPW": 16}, {"UPW": 4}],
-    "stp_scan": [{}, {"CHUNK": 8}, {"CHUNK": 32}, {"THREADS": 32},
-                 {"THREADS": 128}],
+    "stp_scan": [{}, {"NS": 2}, {"NS": 3}, {"MAX_THREADS": 128},
+                 {"MAX_THREADS": 64}, {"Idx": "int"}, {"clamp": "select"},
+                 {"clamp": "no_nan_rule"}, {"clamp": "no_clamp"}],
 }
+# edits other than a constexpr int: key -> (pattern whose group 1 is
+# kept, the text that replaces the rest for a value); the clamp bodies
+# are PyTorch's NaN rule as a select (the earlier form), the clamp
+# without the NaN rule and no clamp at all
+CLAMP_BODIES = {"select": "isnan(v) ? v : fminf(fmaxf(v, lo), hi);",
+                "no_nan_rule": "fminf(fmaxf(v, lo), hi);",
+                "no_clamp": "v;"}
+EDITS = {
+    "Idx": (r"()using Idx = [\w ]+;", lambda v: f"using Idx = {v};"),
+    "clamp": (r"(float clamp_like_torch\(float v, float lo,\s*"
+              r"float hi\) \{\n)\s*return [^;]*;",
+              lambda v: "  return " + CLAMP_BODIES[v]),
+}
+# timing aids: variants that are not the kernel's function
+AIDS = ({"clamp": "no_nan_rule"}, {"clamp": "no_clamp"})
 LAUNCHERS = {"neuron_scan": ("neuron_scan_launch",
                              "neuron_scan_floor_launch"),
              "ppuvm_exec": ("ppuvm_exec_launch",),
              "synray_sparse": ("synray_sparse_window_launch",),
-             "stp_scan": ("stp_scan_launch",)}
+             "stp_scan": ("stp_scan_launch", "stp_scan_floor_launch")}
 
 
 def variant_source(name: str, consts: dict) -> str:
     from repro_torch.kernels import _build
     text = (_build.CSRC / f"{name}.cu").read_text()
     for const, value in consts.items():
-        text, n = re.subn(rf"constexpr int {const} = \d+;",
-                          f"constexpr int {const} = {value};", text)
+        if const in EDITS:
+            pattern, edit = EDITS[const]
+            text, n = re.subn(pattern,
+                              lambda m: m.group(1) + edit(value), text)
+        else:
+            text, n = re.subn(rf"constexpr int {const} = \d+;",
+                              f"constexpr int {const} = {value};", text)
         if n != 1:
-            raise ValueError(f"{name}.cu has no constexpr int {const}")
+            raise ValueError(f"{name}.cu has no {const} to change")
     return text
 
 
@@ -190,16 +213,20 @@ def sparse_cases():
 
 def stp_cases():
     """Phase 2's stp_scan windows: the main path's [T=128, 16, 256] and the
-    closed loop's [T=256, 32], at the §5 background rate."""
+    closed loop's [T=256, 32], at the §5 background rate; at the main
+    shape also the census form (both Dale halves' censuses at the
+    const_addr capacities of 512 columns), and the chain floor of each
+    (with the scan's block: ``MAX_THREADS`` does not change it)."""
     import numpy as np
     import torch
     import chip_smoke
-    from repro_torch.core import stp
+    from repro_torch.core import stp, synapse
     from repro_torch.kernels.stp_scan import ops
-    from repro_torch.kernels.stp_scan.ref import stp_scan_ref
+    from repro_torch.kernels.stp_scan.ref import (stp_scan_census_ref,
+                                                  stp_scan_ref)
     rng = np.random.default_rng(0)
     kw = dict(u=0.2, recovery=stp.recovery_factor(20.0, 0.2))
-    cases = {}
+    cases, extra = {}, {}
     for name, shape in (("main", (128, 16, 256)), ("loop", (256, 32))):
         sp = torch.from_numpy((rng.random(shape) < chip_smoke.BG_PROB
                                ).astype(np.float32)).cuda()
@@ -214,7 +241,22 @@ def stp_cases():
         def check(got, want=want):
             return all(torch.equal(a, b) for a, b in zip(got, want))
         cases[name] = (run, check)
-    return cases, {}
+        extra[f"{name}_floor"] = (lambda r0=r0, sp=sp, sc=sc:
+                                  ops.chain_floor_probe(r0, sp, sc, **kw))
+        if name != "main":
+            continue
+        R = shape[-1]
+        caps = tuple(synapse.route_plan(shape[0], len(range(h, R, 2)), 512,
+                                        const_addr=True)[1:] for h in (0, 1))
+        want_c = stp_scan_census_ref(r0, sp, sc, caps=caps, **kw)
+
+        def run_c(r0=r0, sp=sp, sc=sc):
+            return ops.stp_scan(r0, sp, sc, caps=caps, **kw)
+
+        def check_c(got):
+            return all(torch.equal(a, b) for a, b in zip(got, want_c))
+        cases["main_census"] = (run_c, check_c)
+    return cases, extra
 
 
 def main() -> int:
@@ -244,7 +286,7 @@ def main() -> int:
             _build._lib = build_variant(name, consts)
             row = dict(kernel=name, consts=consts)
             for case, (run, check) in cases.items():
-                if not check(run()):
+                if consts not in AIDS and not check(run()):
                     raise AssertionError(f"{name} {consts} {case}: differs "
                                          "from the plain version")
                 row[f"{case}_ms"] = chip_smoke.time_ms(run, 25)

@@ -53,7 +53,15 @@ Phases, each reported on its own line:
    draws as replays of one captured trial graph (``TrialGraph``): the
    histories, final state and device route counts equal the eager run's
    bit for bit, one replay launches what one eager trial launched; eager
-   and graph trials timed in turns. ``torch.profiler`` traces (kept in
+   and graph trials timed in turns. The same 6 trials through the
+   composition the census form replaced (the scan without the census,
+   then the census kernel on each half), eager and replayed: histories,
+   final state, device route counts and every window's census equal to
+   the census form's bit for bit; the two graphs' replays timed in turns.
+   A standalone window (one Dale half through
+   ``synapse.synaptic_current_window``, not out of the scan) launches
+   ``census``, ``synray_sparse`` and ``synray`` once each: the kernels
+   line's ``census`` launches. ``torch.profiler`` traces (kept in
    ``build/profile/``) of 3 eager trials and of 3 replays, each after 3
    more in the profiler's warm-up step: the device's busy share, kernel
    time by name, kernels a trial and the longest idle gaps (a trace
@@ -87,7 +95,8 @@ Phases, each reported on its own line:
    the same R-STDP update as a yardstick.
 7. Path C, the vm rule at full width: path A's configuration with
    ``rule_impl="vm"``, 3 trials (A, B, none): exactly 3 ``ppuvm_exec``
-   launches, the routes dense, dense, sparse; the first trial rerun on the CPU (as in phase 3, weight codes
+   launches and no ``census``, the routes dense, dense, sparse; the first
+   trial rerun on the CPU (as in phase 3, weight codes
    equal where no spike flipped) and its VM update rerun on the CPU from
    the card's window state (registers, so dw, bit for bit); the same
    trial with the python rule within 0.15 on the signed weights; the 3
@@ -134,8 +143,8 @@ Phases, each reported on its own line:
    experiment: all2all, relay broadcast, 8,192 routes on 16 links,
    ``link_mode="auto"``, ``backend="blocked"``): 6 trials eager with the
    launch counts set to 0 before and read after (every kernel of the path
-   launched), trial 0 again on the CPU, the trials as graph replays
-   bit-equal to the eager ones and timed in turns with them, a
+   launched, ``census`` none), trial 0 again on the CPU, the trials as
+   graph replays bit-equal to the eager ones and timed in turns with them, a
    ``torch.profiler`` trace of the replays and of the router's own
    kernels, the link counters; chip-count parity (K = 1, one 256 x 2048
    chip, 2 and 4: the same global weights, rewards and per-chip routed
@@ -153,7 +162,8 @@ Phases, each reported on its own line:
    the instance drawn at spec shapes from one ``torch.Generator``, 6
    windows of T = 128 (Poisson inputs, p = 0.05) through
    ``build_runtime(...).run`` with the launch counts set to 0 before and
-   read after (every kernel of the path launched; ``launches_path_f``);
+   read after (every kernel of the path launched, ``census`` none;
+   ``launches_path_f``);
    one window under ``set_sync_debug_mode("error")``; the same at K = 2
    (490 x 1024) and K = 1 (968 x 2048), spec-order spikes bit for bit
    (on a failure each K's routes by window and the first divergence are
@@ -256,8 +266,8 @@ Phases, each reported on its own line:
    16 / 2 / 8 / 1 instances for train_4k / prefill_32k / decode_32k /
    long_500k on 16 x 16, 8 / 1 / 4 / 16 on 2 x 16 x 16) for the four
    shapes on both meshes on the card, launch counts zeroed before and
-   read after (``launches_path_j``: stp_scan, census, synray,
-   synray_sparse, neuron_scan and corr must launch). Each cell's
+   read after (``launches_path_j``: stp_scan, synray, synray_sparse,
+   neuron_scan and corr must launch, census not). Each cell's
    recorded trial prints its per-device FLOPs, HBM bytes and kernel
    entries; train_4k on 16 x 16 is traced on the CPU too (the plain
    versions), and the counts must be equal; each kernel entry's bytes a
@@ -755,18 +765,30 @@ def _check_synray_sparse(rng, dev, N, T, R, C):
 
 
 def stp_row(rng, dev, N, T, R):
-    """stp_scan bit-equal to its plain version (the sign of zero included)
-    at the main path's [T=128, 16, 256] and the closed loop's [T=256, 32],
-    on spikes at the §5 rates (background and pattern bursts), with
-    resources at 0 and 1 and negative scales (-0.0 efficacies). Timed at
-    the main-path shape beside its plain loop; the bound counts the spikes
-    read and the efficacies written (4 bytes each), r0, the scale and r_T,
-    and 14 operations a step and lane."""
+    """stp_scan in its census form (the main path's: both Dale halves'
+    censuses at the gate's capacities of 512 columns) and without it,
+    bit-equal to its plain version (eff and r_T, the sign of zero
+    included; both censuses equal, and equal to the census kernel's on
+    each half) at the main path's [T=128, 16, 256] and the closed loop's
+    [T=256, 32], on spikes at the §5 rates (background and pattern
+    bursts), with resources at 0 and 1 and negative scales (-0.0
+    efficacies). Timed at the main-path shape: the census form in turns
+    with the composition it replaced (the scan without the census, then
+    the census kernel on each Dale half), the form without the census and
+    the chain floor (``chain_floor_probe``: the recurrence with its spikes
+    in registers, at the scan's block and at the earlier kernel's 64
+    threads), beside its plain version; at [T=256, 32] the form without
+    the census (the closed loop's, below the census floor) and its floor.
+    The bound counts the spikes read and the efficacies written (4 bytes
+    each), r0, the scale and r_T and the two censuses, and 15 operations a
+    step and lane (a test an element for the census)."""
     import numpy as np
     import torch
-    from repro_torch.core import stp
+    from repro_torch.core import stp, synapse
+    from repro_torch.kernels.census import ops as census_ops
     from repro_torch.kernels.stp_scan import ops as stp_ops
-    from repro_torch.kernels.stp_scan.ref import stp_scan_ref
+    from repro_torch.kernels.stp_scan.ref import (stp_scan_census_ref,
+                                                  stp_scan_ref)
     kw = dict(u=0.2, recovery=stp.recovery_factor(20.0, 0.2))
 
     def operands(T_, prefix, R_):
@@ -779,37 +801,90 @@ def stp_row(rng, dev, N, T, R):
         scale = rng.normal(1.0, 0.25, (*prefix, R_)).astype(np.float32)
         return dev(r0), dev(sp.astype(np.float32)), dev(scale)
 
+    def caps_of(T_, R_):
+        return tuple(synapse.route_plan(T_, len(range(h, R_, 2)), 512,
+                                        const_addr=True, sparse="always")[1:]
+                     for h in (0, 1))
+
+    def bits(x):
+        return x.contiguous().view(torch.int32)
+
     def check(r0, sp, scale, label):
-        got = stp_ops.stp_scan(r0, sp, scale, **kw)
-        want = stp_scan_ref(r0, sp, scale, **kw)
+        caps = caps_of(sp.shape[0], sp.shape[-1])
+        got = stp_ops.stp_scan(r0, sp, scale, caps=caps, **kw)
+        plain = stp_ops.stp_scan(r0, sp, scale, **kw)
+        want = stp_scan_census_ref(r0, sp, scale, caps=caps, **kw)
+        comp = [census_ops.census(got[0][..., h::2], *caps[h])
+                for h in (0, 1)]
         torch.cuda.synchronize()
         for name, a, b in zip(("eff", "r_T"), got, want):
-            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            if not (torch.equal(bits(a), bits(b))
+                    and torch.equal(bits(a), bits(plain[name == "r_T"]))):
                 raise AssertionError(f"stp_scan {label}: {name} differs from "
                                      f"the plain version")
+        for h in (0, 1):
+            if not (torch.equal(got[2 + h], want[2 + h])
+                    and torch.equal(got[2 + h], comp[h])):
+                raise AssertionError(
+                    f"stp_scan {label}: half {h}'s census "
+                    f"{got[2 + h].tolist()}, plain {want[2 + h].tolist()}, "
+                    f"census kernel {comp[h].tolist()}")
+        return [c.tolist() for c in got[2:]]
     main = operands(T, (N,), R)
-    check(*main, f"[T={T}, {N}, {R}]")
-    check(*operands(256, (), 32), "[T=256, 32]")
+    cens = check(*main, f"[T={T}, {N}, {R}]")
+    small = operands(256, (), 32)
+    check(*small, "[T=256, 32]")
     r0, sp, scale = main
     check(torch.zeros_like(r0), sp, -scale.abs(), "r0 = 0, negative scale")
     check(torch.ones_like(r0), sp, scale, "r0 = 1")
-    work = stp_ops.work(T, N, R)
+    caps = caps_of(T, R)
+    work = stp_ops.work(T, N, R, census=True)
     n_bytes = work.bytes
     b_ms, b_by = bound_ms(n_bytes, work.flops)
 
-    def call():
-        return stp_ops.stp_scan(r0, sp, scale, **kw)
-    ms = time_ms(call, 25)
-    small = operands(256, (), 32)
+    def fused():
+        return stp_ops.stp_scan(r0, sp, scale, caps=caps, **kw)
+
+    def composed():
+        eff, _ = stp_ops.stp_scan(r0, sp, scale, **kw)
+        for h in (0, 1):
+            census_ops.census(eff[..., h::2], *caps[h])
+    turns = {"fused": [], "composed": []}
+    for i in range(4):
+        for k in (("fused", "composed") if i % 2 == 0
+                  else ("composed", "fused")):
+            turns[k].append(time_ms(fused if k == "fused" else composed, 25))
+    ms = float(np.median(turns["fused"]))
+    comp_ms = float(np.median(turns["composed"]))
+    plain_form_ms = time_ms(lambda: stp_ops.stp_scan(r0, sp, scale, **kw),
+                            25)
+    floor_ms = time_ms(lambda: stp_ops.chain_floor_probe(r0, sp, scale,
+                                                         **kw), 25)
+    floor64_ms = time_ms(lambda: stp_ops.chain_floor_probe(
+        r0, sp, scale, threads=64, **kw), 25)
     small_ms = time_ms(lambda: stp_ops.stp_scan(*small, **kw), 25)
-    plain_ms = time_ms(lambda: stp_scan_ref(r0, sp, scale, **kw), 3)
-    log(f"[2] stp_scan at [T={T}, N={N}, R={R}]: {ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.2f} MB), plain loop "
-        f"{plain_ms:.4f} ms; at [T=256, 32] {small_ms:.4f} ms; bit-equal to "
-        f"the plain version there and with r0 = 0 and a negative scale "
-        f"(-0.0 efficacies) and r0 = 1")
-    return _row("stp_scan", work, call, max_abs_err=0.0, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None, ms=ms, plain_ms=plain_ms)
+    small_floor_ms = time_ms(lambda: stp_ops.chain_floor_probe(*small, **kw),
+                             25)
+    plain_ms = time_ms(lambda: stp_scan_census_ref(r0, sp, scale, caps=caps,
+                                                   **kw), 3)
+    log(f"[2] stp_scan at [T={T}, N={N}, R={R}], census form (censuses "
+        f"{cens} at capacities {caps}): {ms:.4f} ms "
+        f"[{', '.join(f'{t:.4f}' for t in turns['fused'])}], in turns with "
+        f"the composition it replaced (the scan without the census + the "
+        f"census kernel on each half) {comp_ms:.4f} ms "
+        f"[{', '.join(f'{t:.4f}' for t in turns['composed'])}]; without the "
+        f"census {plain_form_ms:.4f} ms; chain floor (spikes in registers) "
+        f"{floor_ms:.4f} ms at the scan's block, {floor64_ms:.4f} ms at 64 "
+        f"threads a block; bound {b_ms:.4f} ms ({b_by}: "
+        f"{n_bytes / 1e6:.2f} MB); plain version {plain_ms:.4f} ms. At "
+        f"[T=256, 32] without the census {small_ms:.4f} ms, chain floor "
+        f"{small_floor_ms:.4f} ms. Both forms bit-equal to the plain "
+        f"version there and with r0 = 0 and a negative scale (-0.0 "
+        f"efficacies) and r0 = 1, the censuses equal to census_ref's and the "
+        f"census kernel's")
+    return _row("stp_scan", work, fused, max_abs_err=0.0, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, ms=ms, plain_ms=plain_ms,
+                chain_floor_ms=floor_ms, composed_ms=comp_ms)
 
 
 def _check_ppu_update(rng, dev, N, R, C):
@@ -891,14 +966,18 @@ def _full_width(**kw):
 
 
 def _route_spy(log_to):
-    """Wrap ``synapse.window_route`` to keep each window's gate input and
-    decision (the census is computed from them after the timed run)."""
+    """Wrap ``synapse.window_route`` to keep each window's gate input,
+    decision and the census it was given (a device copy: the STP scan's
+    census of the half; the census is also computed from the input after
+    the timed run)."""
     from repro_torch.core import synapse
     real = synapse.window_route
 
     def spy(row_events_t, C, **kw):
         out = real(row_events_t, C, **kw)
-        log_to.append((row_events_t, out))
+        census = kw.get("census")
+        log_to.append((row_events_t, out,
+                       None if census is None else census.clone()))
         return out
     synapse.window_route = spy
     return lambda: setattr(synapse, "window_route", real)
@@ -953,9 +1032,10 @@ def phase_main_path():
     finally:
         restore()
     counts = dict(kernels.LAUNCHES)
-    # every window is gated on the device: the census and both route
-    # kernels launch, and the flag lets one of the two compute
-    want = {"synray": 12, "synray_sparse": 12, "census": 12,
+    # every window is gated on the device: the STP scan takes both Dale
+    # halves' censuses (no census kernel), both route kernels launch, and
+    # the flag lets one of the two compute
+    want = {"synray": 12, "synray_sparse": 12, "census": 0,
             "neuron_scan": 6, "corr": 6, "ppu_update": 0, "ppuvm_exec": 0,
             "stp_scan": 6}
     if counts != want:
@@ -967,14 +1047,21 @@ def phase_main_path():
     log(f"[3] routes on the device after the 6 trials (dense, sparse): "
         f"{routes_dev.tolist()}")
     for i, stim in enumerate(stims):
-        for h, (ev, (route, me, kc)) in enumerate(gate_log[2 * i:2 * i + 2]):
+        for h, (ev, (route, me, kc), cen) in enumerate(
+                gate_log[2 * i:2 * i + 2]):
             n_ev, k_max = (int(x) for x in events.window_stats(ev))
             log(f"[3] trial {i} (stim {stim}) {('exc', 'inh')[h]} half: "
                 f"census n_events={n_ev} k_max={k_max} vs capacities "
-                f"({me}, {kc}) -> {route}: {routes[i]} on the device")
+                f"({me}, {kc}) -> {route}: {routes[i]} on the device; the "
+                f"STP scan's census {cen.tolist()}")
             if route != "gate":
                 raise AssertionError(f"trial {i}: the window was routed "
                                      f"{route} on the host")
+            fits = int(n_ev <= me and k_max <= kc)
+            if cen.tolist() != [fits, n_ev, k_max]:
+                raise AssertionError(f"trial {i} half {h}: the scan's "
+                                     f"census {cen.tolist()}, the window's "
+                                     f"{[fits, n_ev, k_max]}")
         expect = "sparse" if stim == 0 else "dense"
         if routes[i] != expect:
             raise AssertionError(f"trial {i} (stim {stim}) took {routes[i]}")
@@ -1005,6 +1092,8 @@ def phase_main_path():
                           f"trial {i}")
     graph_a = graph_vs_eager(trial, state0, stims, draws, states[-1],
                              metrics, snaps[-1].tolist(), counts, "[3]")
+    old_composition_same(trial, state0, stims, draws, states[-1], metrics,
+                         snaps[-1].tolist(), [c for _, _, c in gate_log])
     phase_profile(trial, meta, state0, stims, draws)
     i0 = stims.index(0)
     gate_cost(draws.events[i0])
@@ -1013,6 +1102,164 @@ def phase_main_path():
                      "trial 0 (stim 1)")
     return (counts, states[-1], draws, meta, sorted(times)[len(times) // 2],
             graph_a)
+
+
+def _old_composition():
+    """Turn the STP scan's census form into the composition it replaced:
+    the scan without the census, then the census kernel on each Dale half
+    (which counts the routes). Returns the undo."""
+    from repro_torch.kernels.census import ops as census_ops
+    from repro_torch.kernels.stp_scan import ops as stp_ops
+    real = stp_ops.stp_scan
+
+    def composed(r0, spikes_t, scale, *, caps=None, routes=None, **kw):
+        eff, r_T = real(r0, spikes_t, scale, **kw)
+        if caps is None:
+            return eff, r_T
+        return (eff, r_T, *(census_ops.census(eff[..., h::2], me, kc,
+                                              routes=routes)
+                            for h, (me, kc) in enumerate(caps)))
+    stp_ops.stp_scan = composed
+    return lambda: setattr(stp_ops, "stp_scan", real)
+
+
+def old_composition_same(trial, state0, stims, draws, state_e, metrics_e,
+                         routes_e, census_e):
+    """Path A's trials through the composition the census form replaced
+    (``_old_composition``), eager and as replays of one captured trial
+    graph, from the same state and draws: the histories, the final state,
+    the device route counts and every window's census equal the census
+    form's eager run bit for bit (12 census launches in place of none).
+    Then a graph of each composition, their replays timed in turns."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import hybrid as th
+    from repro_torch.core import synapse
+
+    def same(hist_or_metrics, state, what):
+        for k in metrics_e[0]:
+            want = torch.stack([m[k] for m in metrics_e])
+            got = (hist_or_metrics[k] if isinstance(hist_or_metrics, dict)
+                   else torch.stack([m[k] for m in hist_or_metrics]))
+            if not torch.equal(got, want):
+                raise AssertionError(f"[3] {what}: {k} differs from the "
+                                     "census form's")
+        for a, b in zip(_flatten(state), _flatten(state_e)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"[3] {what}: the final state differs "
+                                     "from the census form's")
+    routes = synapse.route_counts("cuda")
+    gate_log = []
+    undo = _old_composition()
+    try:
+        restore = _route_spy(gate_log)
+        try:
+            synapse.reset_route_counts()
+            kernels.reset_launches()
+            st, hist = state0, []
+            for i, stim in enumerate(stims):
+                st, m = trial(st, stim, draws.events[i], draws.xi[i])
+                hist.append(m)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        n_old = dict(kernels.LAUNCHES)
+        if n_old["census"] != 2 * len(stims) or routes.tolist() != routes_e:
+            raise AssertionError(f"[3] the old composition launched "
+                                 f"{n_old}, routes {routes.tolist()}")
+        same(hist, st, "the old composition, eager")
+        census_old = [c for _, _, c in gate_log]
+        if [c.tolist() for c in census_old] != [c.tolist()
+                                                for c in census_e]:
+            raise AssertionError("[3] the old composition's censuses "
+                                 f"{[c.tolist() for c in census_old]}, the "
+                                 f"scan's {[c.tolist() for c in census_e]}")
+        old_graph = th.TrialGraph(th.TrialLoop(trial, state0, stims, draws))
+    finally:
+        undo()
+    synapse.reset_route_counts()
+    for _ in stims:
+        old_graph.replay()
+    torch.cuda.synchronize()
+    if routes.tolist() != routes_e:
+        raise AssertionError(f"[3] the old composition's replays routed "
+                             f"{routes.tolist()}, eager {routes_e}")
+    same(old_graph.loop.history(), old_graph.loop.state,
+         "the old composition, replayed")
+    # each graph replays its trials once more, in turns (a replay reads
+    # its trial at the loop's counter: reset, never past the last trial)
+    old_graph.loop.reset()
+    new_graph = th.TrialGraph(th.TrialLoop(trial, state0, stims, draws))
+    times = {"census form": [], "old composition": []}
+    graphs = {"census form": new_graph, "old composition": old_graph}
+    for i in range(len(stims)):
+        order = list(graphs) if i % 2 == 0 else list(graphs)[::-1]
+        for k in order:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            graphs[k].replay()
+            b.record()
+            b.synchronize()
+            times[k].append(a.elapsed_time(b))
+    log(f"[3] the {len(stims)} trials through the old composition (the scan "
+        f"without the census, then the census kernel on each half; "
+        f"launches {n_old}), eager and replayed: histories, final state, "
+        f"device routes {routes_e} and the 12 windows' censuses equal to the "
+        f"census form's bit for bit. Replays in turns (kernels a replay: "
+        f"census form {sum(new_graph.launches.values())}, old "
+        f"{sum(old_graph.launches.values())} of the port's): " + "; ".join(
+            f"{k} median {np.median(v):.4f} ms ["
+            + ", ".join(f"{t:.4f}" for t in v) + "]"
+            for k, v in times.items()))
+
+
+def standalone_window():
+    """A window that did not come out of the STP scan, through the entry
+    point a user calls for one (``synapse.synaptic_current_window`` with
+    ``sparse="auto"``): one Dale half of a no-stimulus full-width window,
+    the launch counts set to 0 before and read after. On the card the gate
+    launches the census kernel and both route kernels; the currents equal
+    those of the route its census picks. Returns the counts."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import synapse
+    rng = np.random.default_rng(5)
+    T, N, R, C = 128, 16, 256, 512
+    cuda = torch.device("cuda")
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+    ev = dev((rng.random((T, N, R)) < BG_PROB).astype(np.float32)
+             * rng.uniform(0.2, 1.2, (T, N, R)).astype(np.float32))[..., 0::2]
+    ea = dev(np.broadcast_to(rng.integers(0, 4, (N, R), dtype=np.int8),
+                             (T, N, R)))[..., 0::2]
+    w = dev(rng.integers(0, 64, (N, R, C), dtype=np.int8))[:, 0::2]
+    a = dev(rng.integers(0, 4, (N, R, C), dtype=np.int8))[:, 0::2]
+    gain = dev(rng.uniform(0.8, 1.2, (N, C)).astype(np.float32))
+    routes = synapse.route_counts(cuda)
+    synapse.reset_route_counts()
+    kernels.reset_launches()
+    got = synapse.synaptic_current_window(w, a, ev, ea, gain,
+                                          const_addr=True)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    if (counts["census"], counts["synray_sparse"], counts["synray"]) != \
+            (1, 1, 1) or routes.tolist() != [0, 1]:
+        raise AssertionError(f"[3] the standalone window launched {counts}, "
+                             f"routes {routes.tolist()}")
+    want = synapse.synaptic_current_window(w, a, ev, ea, gain,
+                                           const_addr=True, sparse="always")
+    if not torch.equal(got, want):
+        raise AssertionError("[3] the standalone gated window differs from "
+                             "its sparse route")
+    log(f"[3] a standalone window (one no-stimulus Dale half through "
+        f"synaptic_current_window, sparse=\"auto\"): launches {counts}, "
+        f"routed sparse on the census kernel's flag, equal to the sparse "
+        f"route bit for bit")
+    return counts
 
 
 def _keep(x):
@@ -1152,7 +1399,7 @@ def check_against_cpu(meta, kw, state_before, stim, events_t, xi, s_g, m_g,
                            xi.cpu())
     finally:
         restore()
-    routes_c = [out[0] for _, out in gate_c]
+    routes_c = [out[0] for _, out, _ in gate_c]
     if routes_c != [route_g, route_g]:
         raise AssertionError(f"{label}: CPU routes {routes_c}, card "
                              f"{route_g}")
@@ -1788,7 +2035,7 @@ def phase_path_c(trial_ms_a):
         states.append(state)
         metrics.append(m)
     counts = dict(kernels.LAUNCHES)
-    want = {"synray": 6, "synray_sparse": 6, "census": 6, "neuron_scan": 3,
+    want = {"synray": 6, "synray_sparse": 6, "census": 0, "neuron_scan": 3,
             "corr": 3, "ppu_update": 0, "ppuvm_exec": 3, "stp_scan": 3}
     if counts != want:
         raise AssertionError(f"path C launch counts {counts}, expected "
@@ -2184,9 +2431,10 @@ def phase_path_d(counts_a, graph_a):
 # path E: the wafer (phase 12)
 WAFER_LINK_COUNTERS = ("routed_events", "link_overflows", "link_events_max",
                        "link_reroutes")
-# kernels path E launches (the census gate's three, the STP scan, the
-# neuron and correlation windows)
-PATH_E_KERNELS = ("synray", "synray_sparse", "census", "neuron_scan", "corr",
+# kernels path E launches (the STP scan with both halves' censuses, the
+# gate's two route kernels, the neuron and correlation windows); the
+# census kernel launches on none of the emulation's windows
+PATH_E_KERNELS = ("synray", "synray_sparse", "neuron_scan", "corr",
                   "stp_scan")
 
 
@@ -2542,8 +2790,9 @@ def phase_path_e():
     torch.cuda.synchronize()
     counts = dict(kernels.LAUNCHES)
     missing = [k for k in PATH_E_KERNELS if not counts[k]]
-    if missing:
-        raise AssertionError(f"[12] path E launched no {missing}: {counts}")
+    if missing or counts["census"]:
+        raise AssertionError(f"[12] path E launched no {missing} or a "
+                             f"census kernel: {counts}")
     routes = _device_routes(snaps, len(stims))
     for x in _flatten(state):
         if x.is_floating_point() and not bool(torch.isfinite(x).all()):
@@ -2605,8 +2854,10 @@ def phase_path_e():
 
 
 # path F: the network mapper (phase 13)
-PATH_F_KERNELS = ("stp_scan", "census", "synray", "synray_sparse",
-                  "neuron_scan", "corr")
+# (the census kernel launches on none of its windows: the STP scan takes
+# both halves' censuses)
+PATH_F_KERNELS = ("stp_scan", "synray", "synray_sparse", "neuron_scan",
+                  "corr")
 PATH_F_W, PATH_F_T = 6, 128
 
 
@@ -2664,7 +2915,8 @@ def _kernel_parity(name, args, kw):
     from repro_torch.kernels.neuron_scan import ops as neuron_ops
     from repro_torch.kernels.neuron_scan.ref import neuron_window_ref
     from repro_torch.kernels.stp_scan import ops as stp_ops
-    from repro_torch.kernels.stp_scan.ref import stp_scan_ref
+    from repro_torch.kernels.stp_scan.ref import (stp_scan_census_ref,
+                                                  stp_scan_ref)
     from repro_torch.kernels.synray import ops as synray_ops
     from repro_torch.kernels.synray.ref import synaptic_current_ref
     from repro_torch.kernels.synray_sparse import ops as sparse_ops
@@ -2680,8 +2932,13 @@ def _kernel_parity(name, args, kw):
                                      "the plain version")
         return 0.0
     if name == "stp_scan":
+        kw = {k: v for k, v in kw.items() if k != "routes"}
+        if kw.get("caps") is None:
+            return same(zip(stp_ops.stp_scan(*args, **kw),
+                            stp_scan_ref(*args, **kw)), "eff / r_T")
         return same(zip(stp_ops.stp_scan(*args, **kw),
-                        stp_scan_ref(*args, **kw)), "eff / r_T")
+                        stp_scan_census_ref(*args, **kw)),
+                    "eff / r_T / the censuses")
     if name == "census":
         ev, me, kc = args[:3]
         return same([(census_ops.census(ev, me, kc),
@@ -2880,8 +3137,9 @@ def phase_path_f():
     torch.cuda.synchronize()
     counts = dict(kernels.LAUNCHES)
     missing = [k for k in PATH_F_KERNELS if not counts[k]]
-    if missing:
-        raise AssertionError(f"[13] path F launched no {missing}: {counts}")
+    if missing or counts["census"]:
+        raise AssertionError(f"[13] path F launched no {missing} or a "
+                             f"census kernel: {counts}")
     spk = out["spikes"]
     if tuple(spk.shape) != (PATH_F_W, PATH_F_T, spec.n_neurons) or \
             not float(spk.sum()) > 0 or not float(out["routed"].sum()) > 0:
@@ -4074,8 +4332,8 @@ def phase_path_i():
 # a child (these cells on 16 x 16, under the time limit); the
 # roofline of what phases 14 and 15 ran
 PATH_J_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
-PATH_J_KERNELS = ("stp_scan", "census", "synray", "synray_sparse",
-                  "neuron_scan", "corr")
+PATH_J_KERNELS = ("stp_scan", "synray", "synray_sparse", "neuron_scan",
+                  "corr")
 PATH_J_DRYRUN = (("qwen1.5-0.5b", "train_4k"), ("qwen1.5-0.5b", "decode_32k"),
                  ("moonshot-v1-16b-a3b", "decode_32k"))
 PATH_J_DRYRUN_TIMEOUT, PATH_J_PAIRS = 600, 5
@@ -4185,8 +4443,9 @@ def phase_path_j(rows, rec_g, rec_h):
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     missing = [k for k in PATH_J_KERNELS if not launches[k]]
-    if missing:
-        raise AssertionError(f"path J launched no {missing}: {launches}")
+    if missing or launches["census"]:
+        raise AssertionError(f"path J launched no {missing} or a census "
+                             f"kernel: {launches}")
     log(f"[17] the BSS-2 cell on 4 shapes x 2 meshes (a warm-up and a "
         f"recorded trial each): launches {launches}")
 
@@ -4293,6 +4552,7 @@ def main() -> int:
     smi = phase_build()
     rows = phase_kernels()
     counts, state, draws, meta, trial_ms_a, graph_a = phase_main_path()
+    counts_w = standalone_window()
     counts_b = phase_path_b(state, draws, meta)
     phase_closed_loop()
     rows["ppuvm_exec"] = phase_ppuvm_kernel(rows["ppu_update"]["ms"])
@@ -4312,20 +4572,24 @@ def main() -> int:
     for name, (source, replaces) in SRC.items():
         r = rows[name]
         # each kernel's launches from the path that runs it: ppu_update
-        # from path B, ppuvm_exec from path C, the others from path A
-        n = {"ppu_update": counts_b, "ppuvm_exec": counts_c}.get(
-            name, counts)[name]
+        # from path B, ppuvm_exec from path C, census from the standalone
+        # window (the STP scan takes the emulation's censuses), the others
+        # from path A
+        n = {"ppu_update": counts_b, "ppuvm_exec": counts_c,
+             "census": counts_w}.get(name, counts)[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
+            launches_path_a=counts[name],
             launches_path_e=counts_e[name],
             launches_path_f=counts_f[name],
             launches_path_h=counts_h.get(name, 0),
             launches_path_i=counts_i.get(name, 0),
             launches_path_j=counts_j[name],
-            **{k: r[k] for k in ("chain_floor_ms",) if k in r}))
+            **{k: r[k] for k in ("chain_floor_ms", "composed_ms")
+               if k in r}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

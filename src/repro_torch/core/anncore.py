@@ -14,7 +14,8 @@ Backends (``repro/core/anncore.py`` has the same three):
 
 ``fused`` (the ``auto`` pick on the CPU)
     STP efficacy trajectory first (it depends only on the input events;
-    ``stp_scan``),
+    ``stp_scan``, which also takes both Dale halves' censuses where the
+    sparse route's gate decides them),
     then the whole window's synaptic currents as one time-batched product
     per Dale half (``synray``), a neuron-only dt loop, and the
     correlation-sensor window replayed once (``corr``).
@@ -231,29 +232,43 @@ class AnnCore:
         trajectory (``stp_scan``: one launch on the card, the step loop on
         the CPU) and the window's synaptic currents, one product per Dale
         half on strided row views of the weights as the crossbar reads
-        them (the store, or the ``weights`` hook's copy of it). Returns
-        ``(stp_state, i_exc_t, i_inh_t, telemetry)``."""
+        them (the store, or the ``weights`` hook's copy of it). Both
+        halves' routes are planned from the shapes first
+        (``synapse.route_plan``); where both are the census gate, the scan
+        takes each half's census as it writes the efficacies and counts
+        both decisions (no census kernel), and each half's window routes
+        on its census. Returns ``(stp_state, i_exc_t, i_inh_t,
+        telemetry)``."""
         from repro_torch.kernels.stp_scan import ops as stp_ops
         cfg = self.cfg
-        eff_t, r_t = stp_ops.stp_scan(
-            state.stp.r, row_spikes_t.to(torch.float32), self.stp_scale,
-            u=cfg.stp_u, recovery=self.stp_recovery)
-        s = stp.STPState(r=r_t)
-
         syn = state.syn
         gain = self.inst["weight_gain"]
         w = finject.weights(self.faults, syn.weights)
         kw = dict(const_addr=self.const_addr, sparse=self.sparse_mode)
+        T, R = row_spikes_t.shape[0], row_spikes_t.shape[-1]
+        plans = [synapse.route_plan(T, len(range(h, R, 2)), w.shape[-1],
+                                    **kw) for h in (0, 1)]
+        caps = routes = None
+        if all(route == "gate" for route, _, _ in plans):
+            caps = tuple(p[1:] for p in plans)
+            routes = synapse.route_counts(row_spikes_t.device)
+        eff_t, r_t, *census = stp_ops.stp_scan(
+            state.stp.r, row_spikes_t.to(torch.float32), self.stp_scale,
+            u=cfg.stp_u, recovery=self.stp_recovery, caps=caps,
+            routes=routes)
+        census = census or (None, None)
+        s = stp.STPState(r=r_t)
+
         i_exc_t = synapse.synaptic_current_window(
             w[..., 0::2, :], syn.addresses[..., 0::2, :],
             eff_t[..., 0::2], row_addr_t[..., 0::2], gain,
-            telemetry=telemetry, **kw)
+            telemetry=telemetry, census=census[0], **kw)
         if telemetry is not None:
             i_exc_t, telemetry = i_exc_t
         i_inh_t = synapse.synaptic_current_window(
             w[..., 1::2, :], syn.addresses[..., 1::2, :],
             eff_t[..., 1::2], row_addr_t[..., 1::2], gain,
-            telemetry=telemetry, **kw)
+            telemetry=telemetry, census=census[1], **kw)
         if telemetry is not None:
             i_inh_t, telemetry = i_inh_t
         return s, i_exc_t * 60.0, i_inh_t * 60.0, telemetry

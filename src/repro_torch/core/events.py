@@ -47,9 +47,15 @@ def census_fits(n_events, k_max, max_events: int, k_cap: int):
 def window_stats(row_events_t) -> Tuple[torch.Tensor, torch.Tensor]:
     """(worst per-instance event count, worst per-instance-step count) of
     a [T, .., R] window, as int32 device scalars: the census the sparse
-    gate decides on, for the worst instance of the prefix."""
+    gate decides on, for the worst instance of the prefix. A window of no
+    step (T = 0) has the census (0, 0)."""
     fired = (row_events_t != 0.0).to(_I32)
     per_step = fired.sum(-1, dtype=_I32)                 # [T, ..]
+    if per_step.numel() == 0:
+        # a window of no step: no event (0 is where both maxima of counts
+        # start)
+        z = per_step.new_zeros(())
+        return z, z.clone()
     return per_step.sum(0, dtype=_I32).max(), per_step.max()
 
 

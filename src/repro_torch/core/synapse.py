@@ -6,8 +6,10 @@ stored address matches. The hot operation — events x weights -> per-column
 currents — is the masked product of ``repro_torch.kernels.synray``, or
 at low event density its event-sparse twin ``repro_torch.kernels.
 synray_sparse`` over the window's fired rows (the records of
-``core.events``), the route chosen by the window's census
-(``repro_torch.kernels.census``).
+``core.events``), the route chosen by the window's census: the one
+``AnnCore``'s STP scan takes of each Dale half as it writes the
+efficacies (``repro_torch.kernels.stp_scan``), or for any other window
+the census kernel's (``repro_torch.kernels.census``).
 """
 from __future__ import annotations
 
@@ -124,14 +126,16 @@ def _route_works(weights, row_events_t, const_addr, max_events, k_cap):
 
 
 def _gated_window(weights, addresses, row_events_t, event_addr_t, gain,
-                  const_addr, max_events, k_cap, telemetry=None):
+                  const_addr, max_events, k_cap, telemetry=None,
+                  census=None):
     """Both routes under the device's census, the reference's ``lax.cond``
     (``repro/core/synapse.py:250-257``) with no read back to the host:
-    the census kernel writes the flag and counts the route
-    (``route_counts``), then the sparse kernel runs where the window fits
-    and the dense kernel where it does not, into one buffer. With
-    ``telemetry`` the decision is counted from the census kernel's own
-    output (``(fits, n_events, k_max)``, read on the device) and the
+    the census (``census``, the STP scan's for this half, which counted
+    the route already; else the census kernel's, which writes the flag and
+    counts the route in ``route_counts``) decides, then the sparse kernel
+    runs where the window fits and the dense kernel where it does not,
+    into one buffer. With ``telemetry`` the decision is counted from that
+    census (``(fits, n_events, k_max)``, read on the device) and the
     return value is ``(currents, telemetry)``. A cost recorder counts
     the two route kernels as one entry, the larger route's
     (``cost.gate_call``), as it counts the CPU's gate."""
@@ -139,8 +143,10 @@ def _gated_window(weights, addresses, row_events_t, event_addr_t, gain,
     from repro_torch.kernels.synray import ops as synray_ops
     from repro_torch.kernels.synray_sparse import ops as sparse_ops
     ev = row_events_t.to(torch.float32)
-    flag = census_ops.census(ev, max_events, k_cap,
-                             routes=route_counts(ev.device))
+    flag = census
+    if flag is None:
+        flag = census_ops.census(ev, max_events, k_cap,
+                                 routes=route_counts(ev.device))
 
     def both_routes():
         out = torch.empty((*ev.shape[:-1], weights.shape[-1]),
@@ -184,29 +190,21 @@ def reset_route_counts() -> None:
         c.zero_()
 
 
-def window_route(row_events_t, C: int, *, const_addr: bool = False,
-                 sparse: str = "auto", max_events: int = None,
-                 k_cap: int = None):
-    """The route of one window: ``(route, max_events, k_cap)`` with route
-    "dense", "sparse" or "gate", by the reference's rules
+def route_plan(T: int, R: int, C: int, *, const_addr: bool = False,
+               sparse: str = "auto", max_events: int = None,
+               k_cap: int = None):
+    """The route of a [T, ..., R] window onto C columns from its shapes
+    alone: ``(route, max_events, k_cap)`` with route "dense", "sparse" or
+    "gate" (the census decides), by the reference's rules
     (``repro/core/synapse.py:223-258``).
 
     "never" is dense; "auto" below ``SPARSE_MIN_DENSE_WORK`` is dense
-    without a census; "always" is sparse. Otherwise the window's census
-    decides (``kernels.census``: ``events.window_stats`` over the worst
-    instance of the prefix, one decision for the whole call, and
-    ``events.census_fits``): sparse when the window fits the capacities,
-    else dense. On the card the decision stays on the device, as the
-    reference's ``lax.cond`` keeps it: the route is "gate", and
-    ``synaptic_current_window`` launches the census and both route
-    kernels, each of which runs only on its side of the flag. On the CPU
-    the census's plain version is read back and the host branches (the
-    plain version of the gate). Either way the decision is added to
-    ``route_counts``."""
+    without a census; "always" is sparse; "auto" above the floor is the
+    gate, with the capacities sized by the density threshold unless
+    given. ``AnnCore`` plans both Dale halves this way before its STP
+    scan, which takes the gated halves' censuses as it writes them."""
     if sparse not in ("auto", "never", "always"):
         raise ValueError(f"unknown sparse mode {sparse!r}")
-    T = row_events_t.shape[0]
-    R = row_events_t.shape[-1]
     if sparse == "auto" and T * R * C < SPARSE_MIN_DENSE_WORK:
         sparse = "never"
     if sparse == "never":
@@ -216,21 +214,44 @@ def window_route(row_events_t, C: int, *, const_addr: bool = False,
         max_events = events.default_max_events(T, R, thr)
     if k_cap is None:
         k_cap = events.default_k_cap(R, thr)
-    if sparse == "auto":
-        if row_events_t.device.type != "cpu":
-            return "gate", max_events, k_cap
+    return ("gate" if sparse == "auto" else "sparse"), max_events, k_cap
+
+
+def window_route(row_events_t, C: int, *, const_addr: bool = False,
+                 sparse: str = "auto", max_events: int = None,
+                 k_cap: int = None, census=None):
+    """The route of one window: ``(route, max_events, k_cap)`` with route
+    "dense", "sparse" or "gate", by ``route_plan`` from the window's
+    shapes, and where that is the gate, by the window's census
+    (``events.window_stats`` over the worst instance of the prefix, one
+    decision for the whole call, and ``events.census_fits``): sparse
+    when the window fits the capacities, else dense. On the card the
+    decision stays on the device, as the reference's ``lax.cond`` keeps
+    it: the route is "gate", and ``synaptic_current_window`` launches
+    both route kernels, each of which runs only on its side of the flag.
+    On the CPU the census's plain version is read back and the host
+    branches (the plain version of the gate). ``census`` is the window's
+    census as the STP scan gave it (int32 ``(fits, n_events, k_max)``,
+    its decision counted there); without it the census kernel computes
+    it and adds the decision to ``route_counts``."""
+    T, R = row_events_t.shape[0], row_events_t.shape[-1]
+    route, max_events, k_cap = route_plan(
+        T, R, C, const_addr=const_addr, sparse=sparse,
+        max_events=max_events, k_cap=k_cap)
+    if route != "gate" or row_events_t.device.type != "cpu":
+        return route, max_events, k_cap
+    if census is None:
         from repro_torch.kernels.census import ops as census_ops
-        fits = census_ops.census(row_events_t.to(torch.float32), max_events,
-                                 k_cap, routes=route_counts("cpu"))[0]
-        if not bool(fits):
-            return "dense", max_events, k_cap
-    return "sparse", max_events, k_cap
+        census = census_ops.census(row_events_t.to(torch.float32),
+                                   max_events, k_cap,
+                                   routes=route_counts("cpu"))
+    return ("sparse" if bool(census[0]) else "dense"), max_events, k_cap
 
 
 def synaptic_current_window(weights, addresses, row_events_t, event_addr_t,
                             gain, const_addr: bool = False,
                             sparse: str = "auto", max_events: int = None,
-                            k_cap: int = None, telemetry=None):
+                            k_cap: int = None, telemetry=None, census=None):
     """Whole-window synaptic currents: [T, ..., R] events -> [T, ..., C].
 
     Weights and addresses are constant between PPU writes, so the per-step
@@ -242,8 +263,8 @@ def synaptic_current_window(weights, addresses, row_events_t, event_addr_t,
     ``sparse`` selects the event-sparse route (``window_route``): "auto"
     (default) takes it when the window's census fits the capacities and
     goes dense otherwise, so overflow never drops records (on the card
-    the census, the sparse and the dense kernel are all launched, and
-    the flag decides which one computes);
+    the sparse and the dense kernel are both launched behind the
+    census's flag, which decides which one computes);
     "never" is dense; "always" forces sparse, where overflow drops
     records. The density threshold ``SPARSE_THRESHOLD``, or
     ``SPARSE_THRESHOLD_CONST_ADDR`` with ``const_addr``, sizes the default
@@ -254,16 +275,23 @@ def synaptic_current_window(weights, addresses, row_events_t, event_addr_t,
     counts the routing decision (``repro/core/synapse.py:155-262``): a
     static route with ``count_route``, a census-gated one with
     ``count_gate`` on the census the gate took (on the card the census
-    kernel's own output tensor, read on the device). With telemetry the
+    tensor itself, read on the device). With telemetry the
     return value is ``(currents, telemetry)``; the currents are the same
     bits either way.
+
+    ``census`` is this window's census as ``AnnCore``'s STP scan took it
+    (``kernels.stp_scan`` with capacities: the int32 ``(fits, n_events,
+    k_max)`` of this Dale half, its decision already in ``route_counts``);
+    where the route is the gate, it decides in place of the census
+    kernel, on the card and on the CPU, and telemetry counts it.
     """
     route, max_events, k_cap = window_route(
         row_events_t, weights.shape[-1], const_addr=const_addr,
-        sparse=sparse, max_events=max_events, k_cap=k_cap)
+        sparse=sparse, max_events=max_events, k_cap=k_cap, census=census)
     if route == "gate":
         return _gated_window(weights, addresses, row_events_t, event_addr_t,
-                             gain, const_addr, max_events, k_cap, telemetry)
+                             gain, const_addr, max_events, k_cap, telemetry,
+                             census)
     T, R, C = row_events_t.shape[0], row_events_t.shape[-1], weights.shape[-1]
     gated = sparse == "auto" and T * R * C >= SPARSE_MIN_DENSE_WORK
     if route == "sparse":
@@ -283,13 +311,14 @@ def synaptic_current_window(weights, addresses, row_events_t, event_addr_t,
     from repro_torch.obs import trace as obs_trace
     if not gated:
         return i, obs_trace.count_route(telemetry, route == "sparse")
-    # the CPU's gate decided on the host from the plain census: the same
-    # census again for the counters (no route counted twice, nor the
-    # census by a cost recorder)
-    from repro_torch.kernels.census import ops as census_ops
-    with cost.paused():
-        census = census_ops.census(row_events_t.to(torch.float32),
-                                   max_events, k_cap)
+    # the CPU's gate decided on the host from the plain census: the
+    # scan's, or the same census again for the counters (no route counted
+    # twice, nor the census by a cost recorder)
+    if census is None:
+        from repro_torch.kernels.census import ops as census_ops
+        with cost.paused():
+            census = census_ops.census(row_events_t.to(torch.float32),
+                                       max_events, k_cap)
     return i, obs_trace.count_gate(telemetry, census[0], census[1],
                                    census[2])
 

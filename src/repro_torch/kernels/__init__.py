@@ -18,7 +18,8 @@ through the kernels.
   census         the sparse route's gate: the window census and its
                  no-drop predicate as a device flag that the two route
                  kernels read (no TPU kernel: the reference's
-                 ``lax.cond`` predicate)
+                 ``lax.cond`` predicate), for a window that did not come
+                 out of ``stp_scan``
   neuron_scan    T-step AdEx window with the state in registers
                  (replaces ``repro/kernels/neuron_scan``)
   corr           T-step correlation-sensor window with per-step saturation
@@ -31,7 +32,9 @@ through the kernels.
                  (replaces ``repro/kernels/ppuvm_exec``)
   stp_scan       the STP efficacy trajectory of a window, one thread per
                  driver row (no TPU kernel: the reference's ``lax.scan``
-                 of ``stp.efficacy`` and ``stp.update``)
+                 of ``stp.efficacy`` and ``stp.update``); in its census
+                 form also both Dale halves' censuses and flags, the gate
+                 of ``AnnCore``'s two synaptic windows
 
 Instance prefix: a fleet of independent chips is folded into one leading
 N axis with the helpers below, as in the reference.

@@ -82,8 +82,15 @@ ARGTYPES = {
     "ppuvm_exec_launch": [_VP, _I, _VP, _I] + [_VP] * 4 + [_I]
                          + [_VP] * 3 + [_I] * 3 + [_VP],
     # r0, spikes, scale, eff, r_out, T, N, R, spike strides (t, n, r),
-    # scale strides (n, r), u, recovery, eff_max, r_max, stream
-    "stp_scan_launch": [_VP] * 5 + [_I] * 3 + [_LL] * 5 + [_F] * 4 + [_VP],
+    # scale strides (n, r), u, recovery, eff_max, r_max, census (or null),
+    # max_events and k_cap of each Dale half, part, counts, ticket, routes,
+    # stream
+    "stp_scan_launch": [_VP] * 5 + [_I] * 3 + [_LL] * 5 + [_F] * 4 + [_VP]
+                       + [_I] * 4 + [_VP] * 5,
+    # the chain-floor probe: r0, spikes, scale, eff, r_out, T, N, R, spike
+    # strides, scale strides, u, recovery, eff_max, r_max, threads, stream
+    "stp_scan_floor_launch": [_VP] * 5 + [_I] * 3 + [_LL] * 5 + [_F] * 4
+                             + [_I, _VP],
 }
 
 _lock = threading.Lock()

@@ -10,7 +10,10 @@ kernels repeat the plain versions' operations in order, built without
 multiply-add contraction; ``corr`` also on the edges of its spike-driven
 skip: accumulators above sat, -0.0 entries, all-zero and dense windows,
 non-binary spikes); ``stp_scan`` bit-equal, the sign of zero included
-(resources at 0 and 1, negative scales, strided and broadcast operands);
+(resources at 0 and 1, negative scales, strided and broadcast operands),
+in both forms, its census form's two Dale-half censuses equal to
+``census_ref`` on the halves (densities, capacity edges, odd R, prefixes,
+T = 0 and 1) and the gated trial launching no ``census``;
 ``ppuvm_exec`` bit-equal (integer only: weights
 and registers), on the PPU-VM fuzz corpus, a prefixed multi-block shape
 and the main path's [16, 256, 512], and the vm rule's trial on the card
@@ -69,7 +72,8 @@ from repro_torch.kernels.ppu_update.ref import rstdp_update_ref
 from repro_torch.kernels.ppuvm_exec import ops as vm_ops
 from repro_torch.kernels.ppuvm_exec.ref import run_program_ref
 from repro_torch.kernels.stp_scan import ops as stp_ops
-from repro_torch.kernels.stp_scan.ref import stp_scan_ref
+from repro_torch.kernels.stp_scan.ref import (stp_scan_census_ref,
+                                              stp_scan_ref)
 from repro_torch.obs import report as obs_report
 from repro_torch.obs import trace as obs_trace
 from repro_torch.ppuvm import isa, programs
@@ -392,7 +396,8 @@ def test_ppu_update_bit_equal(cuda, prefix):
 def test_census_gate_routes_on_card(cuda):
     """Above the floor with the defaults: a no-stimulus trial goes sparse,
     a pattern trial dense, as the device's route counter records (every
-    gated window launches the census and both route kernels)."""
+    gated window launches both route kernels; the STP scan takes both
+    halves' censuses, so no census kernel runs)."""
     ecfg = th.RSTDPConfig(n_inputs=64, n_neurons=256, pattern_size=16,
                           trial_steps=128)
     cfg = dataclasses.replace(BSS2, n_rows=128, n_cols=256)
@@ -408,9 +413,9 @@ def test_census_gate_routes_on_card(cuda):
     assert routes.tolist() == [0, 2]
     st, _ = trial(st, 1, draws.events[1], draws.xi[1])
     assert routes.tolist() == [2, 2]
-    assert {k: kernels.LAUNCHES[k] for k in ("census", "synray_sparse",
-                                             "synray")} == \
-        {"census": 4, "synray_sparse": 4, "synray": 4}
+    assert {k: kernels.LAUNCHES[k] for k in ("census", "stp_scan",
+                                             "synray_sparse", "synray")} == \
+        {"census": 0, "stp_scan": 2, "synray_sparse": 4, "synray": 4}
 
 
 def test_no_host_read_in_the_trial(cuda):
@@ -679,7 +684,7 @@ def test_playback_golden_on_card(cuda, rule):
 
 
 STP_CASES = ("random", "r0_zero", "r0_one", "negative_scale", "dale_half",
-             "shared_scale", "non_binary")
+             "offset_rows", "shared_scale", "non_binary", "nan")
 
 
 @pytest.mark.parametrize("case", STP_CASES)
@@ -690,16 +695,22 @@ def test_stp_scan_bit_equal(cuda, T, prefix, R, case):
     """stp_scan against its plain version on the card, bit for bit (the
     sign of zero included): the main path's [T=128, 16, 256], the closed
     loop's [T=256, 32], ragged shapes, resources at 0 and 1, negative
-    scales (-0.0 efficacies), a Dale half read in place, a scale shared
-    by the prefix and non-binary spikes."""
+    scales (-0.0 efficacies), a Dale half read in place, contiguous rows
+    that start one float past a 16-byte boundary, a scale shared
+    by the prefix, non-binary spikes, and NaN resources, scales and
+    spikes (the clamps pass a NaN through, with PyTorch's bits)."""
     rng = np.random.default_rng(T + R)
-    full = 2 * R if case == "dale_half" else R
+    full = {"dale_half": 2 * R, "offset_rows": R + 1}.get(case, R)
     sp = (rng.random((T, *prefix, full)) < 0.3).astype(np.float32)
     if case == "non_binary":
         sp *= rng.uniform(-0.5, 2.0, sp.shape).astype(np.float32)
+    if case == "nan":
+        sp[rng.random(sp.shape) < 0.01] = np.nan
     sp = t(sp).to(cuda)
     if case == "dale_half":
         sp = sp[..., 1::2]
+    if case == "offset_rows":
+        sp = sp[..., 1:]
     r0 = rng.random((*prefix, R)).astype(np.float32)
     if case == "r0_zero":
         r0[:] = 0
@@ -709,6 +720,9 @@ def test_stp_scan_bit_equal(cuda, T, prefix, R, case):
     if case == "negative_scale":
         scale = -np.abs(scale)
         r0[..., ::2] = 0
+    if case == "nan":                 # NaN resources, scales and spikes
+        r0[..., ::7] = np.nan
+        scale[..., 3::11] = np.nan
     r0, scale = t(r0).to(cuda), t(scale).to(cuda)
     if case == "shared_scale":
         scale = scale.reshape(-1)[:R]
@@ -722,6 +736,126 @@ def test_stp_scan_bit_equal(cuda, T, prefix, R, case):
         assert a.shape == b.shape
         assert torch.equal(a.contiguous().view(torch.int32),
                            b.contiguous().view(torch.int32))
+
+
+STP_DENSITIES = ("background", "bursts", "none", "all")
+
+
+def _stp_census_operands(T, prefix, R, density, seed=3):
+    """The CPU tests' census operands (``tests/test_torch_stp_scan.py``):
+    the §5 background, pattern bursts, no spike, every row firing; a
+    positive scale."""
+    rng = np.random.default_rng(seed + T + R + 11 * len(prefix))
+    shape = (T, *prefix, R)
+    p = {"background": 0.008, "bursts": 0.008, "none": 0.0, "all": 1.0}
+    sp = rng.random(shape) < p[density]
+    if density == "bursts":
+        k = max(1, R // 6)
+        sp[::16, ..., :k] |= rng.random(sp[::16, ..., :k].shape) < 0.8
+    r0 = rng.random((*prefix, R)).astype(np.float32)
+    scale = (np.abs(rng.normal(1.0, 0.25, (*prefix, R))) + 0.05
+             ).astype(np.float32)
+    return r0, sp.astype(np.float32), scale
+
+
+def _stp_census_check(cuda, r0, sp, scale, caps):
+    """The census form on the card against its plain version on the card
+    (eff and r_T bit for bit, both censuses equal), the decisions counted
+    on the device, one launch; the form without the census bit-equal too.
+    Returns the two censuses."""
+    r0, sp, scale = (t(x).to(cuda) for x in (r0, sp, scale))
+    kw = dict(u=0.2, recovery=float(1.0 - math.exp(-0.2 / 20.0)))
+    routes = torch.zeros(2, dtype=torch.int64, device=cuda)
+    n0 = kernels.LAUNCHES["stp_scan"]
+    got = stp_ops.stp_scan(r0, sp, scale, caps=caps, routes=routes, **kw)
+    plain = stp_ops.stp_scan(r0, sp, scale, **kw)
+    want = stp_scan_census_ref(r0, sp, scale, caps=caps, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["stp_scan"] == n0 + 2
+    for a, b in zip(got[:2], want[:2]):
+        assert a.shape == b.shape
+        assert torch.equal(a.contiguous().view(torch.int32),
+                           b.contiguous().view(torch.int32))
+    for a, b in zip(plain, want[:2]):
+        assert torch.equal(a.contiguous().view(torch.int32),
+                           b.contiguous().view(torch.int32))
+    for h in (0, 1):
+        assert torch.equal(got[2 + h], want[2 + h])
+        assert torch.equal(want[2 + h],
+                           census_ref(want[0][..., h::2], *caps[h]))
+    fits = int(want[2][0]) + int(want[3][0])
+    assert routes.tolist() == [2 - fits, fits]
+    return [c.tolist() for c in want[2:]]
+
+
+@pytest.mark.parametrize("density", STP_DENSITIES)
+@pytest.mark.parametrize("T,prefix,R", [(128, (16,), 256), (256, (), 32),
+                                        (128, (2,), 37), (1, (2, 3), 33),
+                                        (0, (2,), 9), (200, (2, 3), 45),
+                                        (3, (2,), 1100), (128, (2,), 490),
+                                        (128, (), 968)])
+def test_stp_scan_census_form_bit_equal(cuda, T, prefix, R, density):
+    """The census form at the main shape, the closed loop's, odd R
+    (uneven halves), the prefixes (), (2,) and (2, 3), T = 0 and 1, a
+    window longer than its staged stages (a ring), and instances of more
+    rows than a block takes (path F's K = 2 and K = 1 chips: their step
+    counts summed across blocks), at the gate's default capacities."""
+    caps = tuple(synapse.route_plan(T, len(range(h, R, 2)), 512,
+                                    const_addr=True, sparse="always")[1:]
+                 for h in (0, 1))
+    got = _stp_census_check(cuda, *_stp_census_operands(T, prefix, R,
+                                                        density), caps)
+    if T == 0 or density == "none":
+        assert got == [[1, 0, 0], [1, 0, 0]]
+
+
+@pytest.mark.parametrize("T,prefix,R", [(25000, (2,), 256),
+                                        (30000, (2,), 256),
+                                        (30000, (), 968)])
+def test_stp_scan_census_long_window(cuda, T, prefix, R):
+    """Windows at and past the step count whose counts once had to fit in
+    shared memory (about 25k steps at 256 rows), in one block an instance
+    and across blocks: eff and r_T bit-equal to the form without the
+    census (itself held to the plain version above), both censuses equal
+    to census_ref's on each half, twice in a row (the scratch the kernel
+    leaves at 0 is reused)."""
+    r0, sp, scale = (t(x).to(cuda) for x in _stp_census_operands(
+        T, prefix, R, "bursts"))
+    kw = dict(u=0.2, recovery=float(1.0 - math.exp(-0.2 / 20.0)))
+    caps = tuple(synapse.route_plan(T, len(range(h, R, 2)), 512,
+                                    const_addr=True, sparse="always")[1:]
+                 for h in (0, 1))
+    plain = stp_ops.stp_scan(r0, sp, scale, **kw)
+    for _ in range(2):
+        got = stp_ops.stp_scan(r0, sp, scale, caps=caps, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(got[:2], plain):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for h in (0, 1):
+            assert torch.equal(got[2 + h],
+                               census_ref(plain[0][..., h::2], *caps[h]))
+
+
+@pytest.mark.parametrize("half", [0, 1])
+@pytest.mark.parametrize("edge", ["n_events_equal", "n_events_over",
+                                  "k_max_equal", "k_max_over"])
+def test_stp_scan_census_capacity_edges(cuda, edge, half):
+    """Each capacity met exactly (fits) and one over (does not), per half,
+    on 64 steps of pattern bursts over two instances of 37 rows; and
+    resources at 0 under a negative scale (-0.0 efficacies: no event)."""
+    r0, sp, scale = _stp_census_operands(64, (2,), 37, "bursts")
+    kw = dict(u=0.2, recovery=float(1.0 - math.exp(-0.2 / 20.0)))
+    eff, _ = stp_scan_ref(t(r0), t(sp), t(scale), **kw)
+    _, n, k = census_ref(eff[..., half::2], 0, 0).tolist()
+    big = 10 ** 6
+    caps = [(big, big), (big, big)]
+    caps[half] = {"n_events_equal": (n, big), "n_events_over": (n - 1, big),
+                  "k_max_equal": (big, k), "k_max_over": (big, k - 1)}[edge]
+    got = _stp_census_check(cuda, r0, sp, scale, tuple(caps))
+    assert got[half] == [int(edge.endswith("equal")), n, k]
+    r0[:] = 0
+    got = _stp_census_check(cuda, r0, sp, -scale, tuple(caps))
+    assert [c[1:] for c in got] == [[0, 0], [0, 0]]
 
 
 def _full_width(cuda, rule_impl):
@@ -1257,9 +1391,11 @@ def test_path_f_chip_count_parity_on_card(cuda):
         kernels.reset_launches()
         spikes[K] = rt.run(ev_in)[1]["spikes"]
         if K == 4:
-            for k in ("stp_scan", "census", "synray", "synray_sparse",
-                      "neuron_scan", "corr"):
+            for k in ("stp_scan", "synray", "synray_sparse", "neuron_scan",
+                      "corr"):
                 assert kernels.LAUNCHES[k] > 0, k
+            # every window's halves are gated: the scan takes the censuses
+            assert kernels.LAUNCHES["census"] == 0
     assert spikes[1].sum() > 0
     assert torch.equal(spikes[4], spikes[1])
     assert torch.equal(spikes[2], spikes[1])
@@ -1289,6 +1425,12 @@ def test_path_f_kernels_at_mapped_geometries(cuda, N, R, C):
     skw = dict(u=0.2, recovery=stp.recovery_factor(20.0, 0.2))
     for a, b in zip(stp_ops.stp_scan(r0, sp, scale, **skw),
                     stp_scan_ref(r0, sp, scale, **skw)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    caps = tuple((events.default_max_events(T, len(range(h, R, 2)), 0.02),
+                  events.default_k_cap(len(range(h, R, 2)), 0.02))
+                 for h in (0, 1))
+    for a, b in zip(stp_ops.stp_scan(r0, sp, scale, caps=caps, **skw),
+                    stp_scan_census_ref(r0, sp, scale, caps=caps, **skw)):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
     w = dev(rng.integers(0, 64, (N, R, C), dtype=np.int8))
@@ -1666,9 +1808,10 @@ def test_bss2_cell_counts_on_card_equal_cpu(cuda):
     rep_g, rec_g, n = th.trace_bss2_cell(SHAPES["prefill_32k"],
                                          MeshConfig(False), "cuda")
     assert n == 2
-    assert all(kernels.LAUNCHES[k] for k in ("stp_scan", "census", "synray",
+    assert all(kernels.LAUNCHES[k] for k in ("stp_scan", "synray",
                                              "synray_sparse", "neuron_scan",
                                              "corr"))
+    assert kernels.LAUNCHES["census"] == 0
     rep_c, rec_c, _ = th.trace_bss2_cell(SHAPES["prefill_32k"],
                                          MeshConfig(False), "cpu")
     for k in ("flops", "transcendentals", "total_write", "kernels", "coll"):

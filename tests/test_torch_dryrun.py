@@ -22,6 +22,7 @@ from repro.parallel import sharding as rs
 from repro.train.optimizer import adamw_init_decls as ref_adamw_decls
 from repro_torch import config as pc
 from repro_torch.core import hybrid
+from repro_torch.kernels.stp_scan import ops as stp_ops
 from repro_torch.kernels.synray import ops as synray_ops
 
 HELPER = Path(__file__).resolve().parent / "_torch_dryrun.py"
@@ -60,9 +61,13 @@ def test_bss2_train_4k_cell(probes):
     assert r["model_flops_global"] == (
         2 * 256 * 512 + 40 * 512 + 4 * 256 * 512) * 128 * 256
     k = r["kernels"]
-    assert set(k) == {"stp_scan", "census", "synray", "neuron_scan", "corr"}
+    # both Dale halves are gated: the STP scan takes their censuses (no
+    # census kernel) and carries the census's bytes
+    assert set(k) == {"stp_scan", "synray", "neuron_scan", "corr"}
     assert {n: v["count"] for n, v in k.items()} == dict(
-        stp_scan=1, census=2, synray=2, neuron_scan=1, corr=1)
+        stp_scan=1, synray=2, neuron_scan=1, corr=1)
+    assert k["stp_scan"]["bytes"] == stp_ops.work(128, 16, 256,
+                                                  census=True).bytes
     # the gated pair counts its larger route at the local fleet's shapes
     # (16 instances, a Dale half of 128 rows)
     assert k["synray"]["bytes"] == 2 * synray_ops.work(128, 16, 128,

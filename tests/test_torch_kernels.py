@@ -262,7 +262,8 @@ def test_launchers_match_argtypes():
 
 def test_kernel_variants_name_real_constants():
     """``benchmarks/torch_kernel_variants.py`` changes only constants the
-    kernel sources define, and loads only launchers they export."""
+    kernel sources define (or makes an edit of its ``EDITS`` that the
+    source has room for), and loads only launchers they export."""
     from benchmarks import torch_kernel_variants as tv
     from repro_torch.kernels import _build
     for name, variants in tv.VARIANTS.items():
@@ -270,7 +271,10 @@ def test_kernel_variants_name_real_constants():
         for consts in variants:
             text = tv.variant_source(name, consts)
             for const, value in consts.items():
-                assert f"constexpr int {const} = {value};" in text
+                if const in tv.EDITS:
+                    assert tv.EDITS[const][1](value) in text
+                else:
+                    assert f"constexpr int {const} = {value};" in text
         assert set(tv.LAUNCHERS[name]) <= set(_build.ARGTYPES)
 
 

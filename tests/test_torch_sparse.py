@@ -16,7 +16,11 @@
   ``window_stats`` / ``census_fits``, its decisions counted in
   ``route_counts``; the device's composition (census, then both route
   kernels under its flag) run with the plain versions.
-- ``AnnCore``: sparse against dense within the port.
+- ``AnnCore``: sparse against dense within the port; the windowed core's
+  census gate, taken inside the STP scan (no census kernel), against the
+  reference's core: currents, STP state, route counts and the telemetry
+  gate counters, with both halves fitting, both overflowing and one of
+  each.
 - A teacher-forced §5 trial above the floor against the reference's
   ``make_experiment``, with the reference's instance and draws: same
   route for every window, same outputs.
@@ -42,6 +46,7 @@ from repro.core.anncore import AnnCore as JAnnCore
 from repro.kernels.synray_sparse import ops as j_sparse_ops
 from repro.kernels.synray_sparse.ref import sparse_window_ref as j_ref
 from repro.obs import trace as obs_trace
+from repro.verif.mismatch import sample_instance as j_sample_instance
 from repro_torch import convert
 from repro_torch.configs.bss2 import BSS2
 from repro_torch.core import events as t_events
@@ -49,8 +54,10 @@ from repro_torch.core import hybrid as th
 from repro_torch.core import synapse as t_syn
 from repro_torch.core.anncore import AnnCore
 from repro_torch.kernels.census import ops as t_census_ops
+from repro_torch.kernels.stp_scan import ops as t_stp_ops
 from repro_torch.kernels.synray_sparse import ops as t_sparse_ops
 from repro_torch.kernels.synray_sparse.ref import sparse_window_ref
+from repro_torch.obs import trace as t_trace
 from repro_torch.verif.mismatch import sample_instance
 
 
@@ -358,6 +365,67 @@ def test_anncore_sparse_matches_dense(backend):
     for x, y in zip(convert.to_numpy(s1), convert.to_numpy(s2)):
         for a, b in zip(jax.tree.leaves(x), jax.tree.leaves(y)):
             close(a, b)
+
+
+@pytest.mark.parametrize("const_addr", [False, True])
+@pytest.mark.parametrize("backend", ["fused", "blocked"])
+@pytest.mark.parametrize("density", ["fits", "overflows", "exc_overflows"])
+def test_anncore_gate_in_the_scan_matches_reference(monkeypatch, density,
+                                                    backend, const_addr):
+    """A windowed core above the census floor (two instances of 128 rows
+    x 256 columns, T = 128: both Dale halves gated): the STP scan takes
+    both censuses (the census kernel's wrapper is not called) and each
+    half routes on its own. Against the reference's ``_window_currents``
+    with telemetry on the same instance, state and events: the currents
+    within the house tolerance, the STP state, the decisions added to
+    ``route_counts`` and every telemetry counter equal."""
+    T, R, C, prefix = 128, 128, 256, (2,)
+    cfg_j = dataclasses.replace(J_BSS2, n_rows=R, n_cols=C)
+    cfg_t = dataclasses.replace(BSS2, n_rows=R, n_cols=C)
+    inst = jax.tree.map(np.asarray, j_sample_instance(
+        cfg_j, jax.random.PRNGKey(8), prefix))
+    j_core = JAnnCore(cfg_j, inst, backend="fused", const_addr=const_addr)
+    core = AnnCore(cfg_t, convert.instance(inst, "cpu"), backend=backend,
+                   const_addr=const_addr)
+    rng = np.random.default_rng(21)
+    state_j = j_core.init_state(prefix)
+    state_j = state_j._replace(syn=state_j.syn._replace(
+        weights=rng.integers(0, 64, (*prefix, R, C)).astype(np.int8)))
+    state_t = convert.core_state(jax.tree.map(np.asarray, state_j), "cpu")
+    p = {"fits": (0.008, 0.008), "overflows": (0.1, 0.1),
+         "exc_overflows": (0.1, 0.008)}[density]
+    ev = np.zeros((T, *prefix, R), np.float32)
+    for h in (0, 1):
+        ev[..., h::2] = rng.random((T, *prefix, R // 2)) < p[h]
+    ad = np.zeros(ev.shape, np.int8)
+
+    census_calls, caps = [], []
+    real_census, real_scan = t_census_ops.census, t_stp_ops.stp_scan
+
+    def scan_spy(*args, **kw):
+        caps.append(kw.get("caps"))
+        return real_scan(*args, **kw)
+    monkeypatch.setattr(t_census_ops, "census",
+                        lambda *a, **k: census_calls.append(1)
+                        or real_census(*a, **k))
+    monkeypatch.setattr(t_stp_ops, "stp_scan", scan_spy)
+    counts = t_syn.route_counts("cpu")
+    before = counts.clone()
+    s_t, ie_t, ii_t, tele_t = core._window_currents(
+        state_t, t(ev), t(ad), telemetry=t_trace.init_telemetry("cpu"))
+    s_j, ie_j, ii_j, tele_j = j_core._window_currents(
+        state_j, ev, ad, unroll=1, telemetry=obs_trace.init_telemetry())
+    assert census_calls == [] and caps[0] is not None
+    close(ie_t, ie_j)
+    close(ii_t, ii_j)
+    close(s_t.r, s_j.r)
+    want = obs_trace.summary(tele_j)
+    assert t_trace.summary(tele_t) == want
+    assert want["gated_windows"] == 2
+    assert want["sparse_windows"] == {"fits": 2, "overflows": 0,
+                                      "exc_overflows": 1}[density]
+    assert (counts - before).tolist() == [want["dense_windows"],
+                                          want["sparse_windows"]]
 
 
 def test_teacher_forced_trials_above_floor(monkeypatch):
