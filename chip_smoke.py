@@ -262,21 +262,28 @@ Phases, each reported on its own line:
 
 17. Path J, launch and analysis (``repro_torch.analysis``,
    ``launch.dryrun``): the BSS-2 fleet cell (``core.hybrid
-   .trace_bss2_cell``: each rank's local fleet of full 256 x 512 chips,
-   16 / 2 / 8 / 1 instances for train_4k / prefill_32k / decode_32k /
-   long_500k on 16 x 16, 8 / 1 / 4 / 16 on 2 x 16 x 16) for the four
-   shapes on both meshes on the card, launch counts zeroed before and
-   read after (``launches_path_j``: stp_scan, synray, synray_sparse,
-   neuron_scan and corr must launch, census not). Each cell's
-   recorded trial prints its per-device FLOPs, HBM bytes and kernel
-   entries; train_4k on 16 x 16 is traced on the CPU too (the plain
-   versions), and the counts must be equal; each kernel entry's bytes a
-   call must equal the bytes its phase-2 bound divides (phase 2 checks
-   the same for all eight kernels on one call each). The local fleet's
-   trial is timed as a ``TrialGraph`` replay in turns with eager (medians
-   of CUDA-event timings) and set beside the roofline's step time and
-   bottleneck. Then ``python -m repro_torch.launch.dryrun`` in a child
-   under a time limit: qwen1.5-0.5b train_4k and decode_32k and
+   .trace_bss2_cell``: each rank's part, its local fleet of 256 x 512
+   chips, 16 / 2 / 8 / 1 instances for train_4k / prefill_32k /
+   decode_32k / long_500k on 16 x 16, 8 / 1 / 4 / 16 on 2 x 16 x 16,
+   and 32 of each chip's 512 columns, the 16 ``model`` ranks' split,
+   routed as the whole chip plans) for the four shapes on both meshes on
+   the card, launch counts zeroed before and read after
+   (``launches_path_j``: stp_scan, synray, synray_sparse, neuron_scan
+   and corr must launch, census not). Each cell's recorded trial prints
+   its per-device FLOPs, HBM bytes and kernel entries; train_4k on 16 x
+   16 is traced on the CPU too (the plain versions), and the counts must
+   be equal; each kernel entry's bytes a call must equal its ``work`` at
+   the cell's own shapes (phase 2 checks each of the eight kernels'
+   counted bytes against its bound's on one call each). The 16 column
+   parts of train_4k's local fleet run in turn and, concatenated, must
+   equal the whole chips' two trials bit for bit (spikes, metrics,
+   6-bit weights, ``w_signed``, mean reward, the state's planes, route
+   counts). Each cell's part is timed as a ``TrialGraph`` replay and
+   eager, and the whole chips' trial as a replay, in turns (medians of
+   CUDA-event timings, printed with the card's name and power limit),
+   and set beside the roofline's step time and bottleneck. Then
+   ``python -m repro_torch.launch.dryrun`` in a child under a time
+   limit: qwen1.5-0.5b train_4k and decode_32k and
    moonshot-v1-16b-a3b decode_32k on a fake 256-rank 16 x 16 world, each
    report's terms printed. Last, the roofline of what the card ran: path
    H's training step (smollm-360m, 8 x 512, f32) and path G's decode step
@@ -4361,35 +4368,130 @@ def _same_counts(a, b):
 
 
 def _path_j_time(shape, mesh_cfg):
-    """The local fleet's trial as a ``TrialGraph`` replay and eager, in
-    turns (replay, eager, eager, replay, ...), CUDA-event timed; returns
-    the two medians and the times."""
+    """The rank's part of the cell (the local fleet x the rank's columns)
+    as a ``TrialGraph`` replay and eager, and the whole chips' trial (the
+    local fleet's full 512 columns) as a replay, in turns (the order
+    rotated each round), CUDA-event timed; returns the medians and the
+    times."""
     import numpy as np
     import torch
     from repro_torch.core.hybrid import (TrialGraph, TrialLoop,
                                          bss2_cell_experiment)
-    init, trial, _, draws, _ = bss2_cell_experiment(shape, mesh_cfg, "cuda")
     stim = torch.tensor(1, dtype=torch.int32, device="cuda")
-    state, _ = trial(init(), stim, draws.events[0], draws.xi[0])
-    loop = TrialLoop(trial, state, [1, 1], draws)
-    graph = TrialGraph(loop)
-    times = {"replay": [], "eager": []}
+
+    def graph_of(**kw):
+        init, trial, _, draws, _ = bss2_cell_experiment(shape, mesh_cfg,
+                                                        "cuda", **kw)
+        state, _ = trial(init(), stim, draws.events[0], draws.xi[0])
+        loop = TrialLoop(trial, state, [1, 1], draws)
+        return loop, TrialGraph(loop), trial, state, draws
+    part, whole = graph_of(), graph_of(whole=True)
+    runs = {"replay": part[1].replay,
+            "eager": lambda: part[2](part[3], stim, part[4].events[1],
+                                     part[4].xi[1]),
+            "whole_replay": whole[1].replay}
+    kinds = list(runs)
+    times = {k: [] for k in kinds}
     for i in range(PATH_J_PAIRS):
-        for kind in (("replay", "eager") if i % 2 == 0
-                     else ("eager", "replay")):
-            loop.reset()
+        for kind in kinds[i % 3:] + kinds[:i % 3]:
+            part[0].reset()
+            whole[0].reset()
             a, b = _events()
             a.record()
-            if kind == "replay":
-                graph.replay()
-            else:
-                trial(state, stim, draws.events[1], draws.xi[1])
+            runs[kind]()
             b.record()
             b.synchronize()
             times[kind].append(a.elapsed_time(b))
-    del graph, loop
+    del part, whole, runs
     torch.cuda.empty_cache()
     return {k: float(np.median(v)) for k, v in times.items()}, times
+
+
+def _cell_work(shape, mesh_cfg):
+    """Each kernel's bytes a call in the cell's recorded trial, from its
+    ``work`` at the cell's own shapes: the local fleet, 256 rows (a Dale
+    half of 128, read in place at a stride of 2), the rank's columns, T =
+    128; the gated pair as the larger of its two routes
+    (``cost.larger``, what ``cost.gate_call`` counts), at the capacities
+    the whole chip plans."""
+    from repro_torch.analysis import cost
+    from repro_torch.configs.bss2 import BSS2
+    from repro_torch.core import synapse
+    from repro_torch.core.hybrid import bss2_cell_fleet
+    from repro_torch.kernels.corr import ops as corr_ops
+    from repro_torch.kernels.neuron_scan import ops as neuron_ops
+    from repro_torch.kernels.stp_scan import ops as stp_ops
+    from repro_torch.kernels.synray import ops as synray_ops
+    from repro_torch.kernels.synray_sparse import ops as sparse_ops
+    _, n, c = bss2_cell_fleet(shape, mesh_cfg)
+    T, R, H = 128, BSS2.n_rows, BSS2.n_rows // 2
+    _, me, kc = synapse.route_plan(T, H, BSS2.n_cols, const_addr=True)
+    pair = {"synray_sparse": sparse_ops.work_window(T, n, H, c, me, kc, 2),
+            "synray": synray_ops.work(T, n, H, c)}
+    gated = cost.larger(pair)
+    return {"stp_scan": stp_ops.work(T, n, R, census=True).bytes,
+            gated: pair[gated].bytes,
+            "neuron_scan": neuron_ops.work(T, n, c).bytes,
+            "corr": corr_ops.work(T, n, R, c).bytes}
+
+
+def _path_j_parts(shape, mesh_cfg):
+    """The local fleet's column parts (``bss2_cell_experiment(part=p)``)
+    run in turn on the card, two trials each, against the whole chips'
+    trials (``whole=True``): each output that holds columns (spikes, the
+    metrics: reward, mean reward, rates, eligibility, ``w_signed``; the
+    state: 6-bit weights, ``w_signed``, the neuron, sensor and counter
+    planes) concatenated over the parts in column order, bit for bit;
+    each that holds rows (the STP resources, the sensors' pre traces)
+    and the route counts equal on every part. Returns ``(parts, outputs
+    compared, route counts)``."""
+    import torch
+    from repro_torch.core import synapse
+    from repro_torch.core.hybrid import (_leaves, bss2_cell_experiment,
+                                         bss2_cell_fleet)
+    _, _, c = bss2_cell_fleet(shape, mesh_cfg)
+    stim = torch.tensor(1, dtype=torch.int32, device="cuda")
+
+    def run(**kw):
+        init, trial, meta, draws, _ = bss2_cell_experiment(
+            shape, mesh_cfg, "cuda", **kw)
+        core, core_run = meta["core"], meta["core"].run
+        spikes = []
+
+        def spy(*args, **kwargs):
+            cs, out = core_run(*args, **kwargs)
+            spikes.append(out["spikes"])
+            return cs, out
+        core.run = spy
+        synapse.reset_route_counts()
+        state, outs = init(), []
+        for i in range(2):
+            state, m = trial(state, stim, draws.events[i], draws.xi[i])
+            outs += [(f"{k}[{i}]", m[k]) for k in sorted(m)]
+        outs += [(f"spikes[{i}]", x) for i, x in enumerate(spikes)]
+        outs += [(f"state.{i}", x) for i, x in enumerate(_leaves(state))]
+        return outs, synapse.route_counts("cuda").tolist()
+
+    whole, routes = run(whole=True)
+    parts = [run(part=p) for p in range(512 // c)]
+    torch.cuda.synchronize()
+    compared = 0
+    for j, (name, w) in enumerate(whole):
+        got = [outs[j][1] for outs, _ in parts]
+        if got[0].shape == w.shape:
+            same = all(torch.equal(x, w) for x in got)
+        else:
+            same = torch.equal(torch.cat(got, -1), w)
+            compared += 1
+        if not same:
+            raise AssertionError(f"path J: the {len(parts)} column parts' "
+                                 f"{name} differ from the whole chips'")
+    bad = [r for _, r in parts if r != routes]
+    n_spikes = sum(float(x.sum()) for n, x in whole if n.startswith("spikes"))
+    if bad or n_spikes == 0:
+        raise AssertionError(f"path J: the parts' routes {bad} against the "
+                             f"whole chips' {routes}, or no spike")
+    return len(parts), compared, routes
 
 
 def _path_j_dryrun():
@@ -4420,14 +4522,14 @@ def _path_j_dryrun():
     return recs
 
 
-def phase_path_j(rows, rec_g, rec_h):
+def phase_path_j(smi, rec_g, rec_h):
     """Path J, launch and analysis (see the module docstring, phase 17).
     Returns the launch counts of the BSS-2 cells and prints the
     ``roofline_path_j`` record."""
     import torch
     from repro_torch import kernels
     from repro_torch.config import HW, SHAPES, MeshConfig, ShapeConfig
-    from repro_torch.core.hybrid import trace_bss2_cell
+    from repro_torch.core.hybrid import bss2_cell_fleet, trace_bss2_cell
     from repro_torch.launch import dryrun
     t_phase = time.time()
     total = torch.cuda.get_device_properties(0).total_memory
@@ -4460,22 +4562,34 @@ def phase_path_j(rows, rec_g, rec_h):
         raise AssertionError(
             f"path J: the card counts {rec_gpu.summary()}, the CPU "
             f"{rec_cpu.summary()}; by kind (card, CPU) {diff}")
-    log(f"[17] bss2/train_4k/16x16, {n16} instances: the card's count "
+    _, _, n_cols = bss2_cell_fleet(SHAPES["train_4k"], MeshConfig(False))
+    log(f"[17] bss2/train_4k/16x16, {n16} instances x {n_cols} columns (a "
+        f"rank's part): the card's count "
         f"equals the CPU's: {rec_gpu.flops:.0f} FLOP, {rec_gpu.hbm_rw:.0f} "
         f"HBM bytes, {rec_gpu.transcendentals:.0f} transcendentals, "
         f"{len(rec_gpu.kernels)} kernels ({len(rec_gpu.ops)} ops on the card, "
         f"{len(rec_cpu.ops)} on the CPU)")
-    # each kernel's bytes a call: the bytes its phase-2 bound divides (the
-    # cell's 16 instances are phase 2's shapes)
-    for name, k in rec_gpu.kernels.items():
-        per_call = k["bytes"] / k["count"]
-        if per_call != rows[name]["bytes"]:
-            raise AssertionError(f"path J: {name} counts {per_call} bytes a "
-                                 f"call, its phase-2 bound divides "
-                                 f"{rows[name]['bytes']}")
-    log("[17] counted bytes a call equal to the phase-2 bound's: "
+    # each kernel's bytes a call: its ``work`` at each cell's own shapes
+    for (s, multi), (_, r, _) in traced.items():
+        want = _cell_work(SHAPES[s], MeshConfig(multi))
+        got = {n: k["bytes"] / k["count"] for n, k in r.kernels.items()}
+        if got != want:
+            raise AssertionError(f"path J {s} (multi-pod {multi}): the "
+                                 f"kernels count {got} bytes a call, their "
+                                 f"work at the cell's shapes {want}")
+    log("[17] counted bytes a call equal to each kernel's work at the "
+        "cell's shapes (8 cells); train_4k 16 x 16: "
         + ", ".join(f"{n} {k['bytes'] / k['count']:.0f}"
                     for n, k in rec_gpu.kernels.items()))
+
+    # the local fleet's column parts in turn against the whole chips
+    n_parts, compared, routes = _path_j_parts(SHAPES["train_4k"],
+                                              MeshConfig(False))
+    log(f"[17] bss2/train_4k/16x16: the {n_parts} column parts of {n16} "
+        f"instances, run in turn, equal the whole chips' two trials bit "
+        f"for bit ({compared} outputs concatenated; routes {routes} on "
+        f"every part)")
+    rec["parts"] = dict(n_parts=n_parts, compared=compared, routes=routes)
 
     for (s, multi), (rep, r, n_local) in traced.items():
         mesh_cfg = MeshConfig(multi)
@@ -4483,15 +4597,17 @@ def phase_path_j(rows, rec_g, rec_h):
         ratio = med["replay"] / (rep.step_time * 1e3)
         key = f"bss2/{s}/{rep.mesh}"
         rec["bss2"][key] = dict(
-            n_local=n_local, report=rep.to_dict(), kernels=r.kernels,
-            replay_ms=med["replay"], eager_ms=med["eager"], times=times,
-            measured_over_roofline=ratio)
-        log(f"[17] {key} ({n_local} local instances): {_report_line(rep)}; "
-            f"kernels " + ", ".join(f"{n} x{k['count']}"
-                                    for n, k in r.kernels.items())
-            + f"; replay {med['replay']:.4f} ms, eager {med['eager']:.4f} "
-            f"ms a trial (in turns); replay / roofline = {ratio:.2f} "
-            f"({rep.bottleneck}-bound)")
+            n_local=n_local, n_cols=n_cols, report=rep.to_dict(),
+            kernels=r.kernels, replay_ms=med["replay"],
+            eager_ms=med["eager"], whole_replay_ms=med["whole_replay"],
+            times=times, measured_over_roofline=ratio)
+        log(f"[17] {key} ({n_local} local instances x {n_cols} columns): "
+            f"{_report_line(rep)}; kernels "
+            + ", ".join(f"{n} x{k['count']}" for n, k in r.kernels.items())
+            + f"; part replay {med['replay']:.4f} ms, part eager "
+            f"{med['eager']:.4f} ms, whole-chip replay "
+            f"{med['whole_replay']:.4f} ms a trial (in turns; {smi}); "
+            f"part replay / roofline = {ratio:.2f} ({rep.bottleneck}-bound)")
 
     rec["dryrun"] = _path_j_dryrun()
     for key, r in rec["dryrun"].items():
@@ -4566,7 +4682,7 @@ def main() -> int:
     rec_g = phase_path_g()
     counts_h, rec_h = phase_path_h()
     counts_i = phase_path_i()
-    counts_j = phase_path_j(rows, rec_g, rec_h)
+    counts_j = phase_path_j(smi, rec_g, rec_h)
 
     kernels = []
     for name, (source, replaces) in SRC.items():

@@ -95,6 +95,11 @@ class AnnCore:
         self.backend = backend
         self.const_addr = const_addr
         self.sparse_mode = sparse_mode
+        # the column count each window's route is planned from: the
+        # chip's own, or the whole chip's where this core runs a column
+        # part of it (``hybrid.column_part``), so that a part takes the
+        # whole chip's routes, capacities and launches
+        self.plan_cols = cfg.n_cols
         params = inst["neuron_params"]
         # loop-invariant terms, computed once per core (bit-exact hoists:
         # the op trees are the ones the per-step functions would run). The
@@ -234,11 +239,11 @@ class AnnCore:
         half on strided row views of the weights as the crossbar reads
         them (the store, or the ``weights`` hook's copy of it). Both
         halves' routes are planned from the shapes first
-        (``synapse.route_plan``); where both are the census gate, the scan
-        takes each half's census as it writes the efficacies and counts
-        both decisions (no census kernel), and each half's window routes
-        on its census. Returns ``(stp_state, i_exc_t, i_inh_t,
-        telemetry)``."""
+        (``synapse.route_plan``, over ``plan_cols`` columns); where both
+        are the census gate, the scan takes each half's census as it
+        writes the efficacies and counts both decisions (no census
+        kernel), and each half's window routes on its census. Returns
+        ``(stp_state, i_exc_t, i_inh_t, telemetry)``."""
         from repro_torch.kernels.stp_scan import ops as stp_ops
         cfg = self.cfg
         syn = state.syn
@@ -246,8 +251,9 @@ class AnnCore:
         w = finject.weights(self.faults, syn.weights)
         kw = dict(const_addr=self.const_addr, sparse=self.sparse_mode)
         T, R = row_spikes_t.shape[0], row_spikes_t.shape[-1]
-        plans = [synapse.route_plan(T, len(range(h, R, 2)), w.shape[-1],
+        plans = [synapse.route_plan(T, len(range(h, R, 2)), self.plan_cols,
                                     **kw) for h in (0, 1)]
+        kw["plan_cols"] = self.plan_cols
         caps = routes = None
         if all(route == "gate" for route, _, _ in plans):
             caps = tuple(p[1:] for p in plans)

@@ -184,6 +184,46 @@ def wafer_draws(draws: Draws, K: int) -> Draws:
                  .contiguous())
 
 
+def column_instance(inst: Dict, parts: int, part: int) -> Dict:
+    """The instance of a whole chip ([*prefix, C] column parameters,
+    [*prefix, 2I] row parameters) cut to the ``part``-th of ``parts``
+    contiguous column blocks, the prefix kept (``wafer_instance`` takes the
+    same blocks of an instance without a prefix): the column parameters
+    sliced, the row parameters (the STP drivers) whole."""
+    def cols(x):
+        c = x.shape[-1] // parts
+        return x[..., part * c:(part + 1) * c].contiguous()
+    return dict(
+        neuron_params={k: cols(v) for k, v in inst["neuron_params"].items()},
+        weight_gain=cols(inst["weight_gain"]),
+        stp_offset=inst["stp_offset"], stp_calib=inst["stp_calib"],
+        cadc_offset=cols(inst["cadc_offset"]),
+        cadc_gain=cols(inst["cadc_gain"]))
+
+
+def column_draws(draws: Draws, parts: int, part: int) -> Draws:
+    """A whole chip's draws (xi [n, *prefix, I, C]) cut to the
+    ``part``-th of ``parts`` contiguous column blocks, as ``wafer_draws``
+    splits xi: xi's columns sliced, the events (rows) whole."""
+    c = draws.xi.shape[-1] // parts
+    return Draws(events=draws.events,
+                 xi=draws.xi[..., part * c:(part + 1) * c].contiguous())
+
+
+def draw_trials(gen: torch.Generator, stims, ecfg: RSTDPConfig,
+                prefix=()) -> Draws:
+    """Every trial's events and exploration noise for ``stims`` in one
+    batch, on the generator's device: background events [n, T, *prefix,
+    I] under the stimuli's bursts (``events_from_background``), then xi
+    [n, *prefix, I, C]."""
+    n, T, I = len(stims), ecfg.trial_steps, ecfg.n_inputs
+    u = torch.rand((n, T, *prefix, I), generator=gen, device=gen.device)
+    bg = (u < ecfg.bg_prob).to(torch.float32)
+    xi = ecfg.noise * torch.randn((n, *prefix, I, ecfg.n_neurons),
+                                  generator=gen, device=gen.device)
+    return Draws(events=events_from_background(bg, stims, ecfg), xi=xi)
+
+
 def events_from_background(bg, stims, ecfg: RSTDPConfig):
     """Event grids [n, T, *prefix, 2I] from background spikes
     [n, T, *prefix, I] and stimuli [n] in {0: none, 1: A, 2: B}: bursts
@@ -490,14 +530,7 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
         """Every trial's events and exploration noise in one batch, drawn
         on the generator's device and moved to the experiment's; in wafer
         mode drawn for the whole network and placed on the chips."""
-        n = len(stims)
-        gen_prefix = () if K else prefix
-        u = torch.rand((n, T, *gen_prefix, I), generator=gen,
-                       device=gen.device)
-        bg = (u < ecfg.bg_prob).to(torch.float32)
-        xi = ecfg.noise * torch.randn((n, *gen_prefix, I, C), generator=gen,
-                                      device=gen.device)
-        d = Draws(events=events_from_background(bg, stims, ecfg), xi=xi)
+        d = draw_trials(gen, stims, ecfg, () if K else prefix)
         if K:
             d = wafer_draws(d, K)
             d = Draws(events=d.events[:, :, chips], xi=d.xi[:, chips])
@@ -542,6 +575,60 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
                 mask_a=mask_a, mask_b=mask_b, even=even, train=train,
                 draw=draw, scanned_training=scanned_training, router=router,
                 chips=chips)
+    return init, trial, meta
+
+
+def column_part(cfg: BSS2Config, ecfg: RSTDPConfig, parts: int, part: int,
+                inst: Dict = None, generator: torch.Generator = None,
+                prefix=(), backend: str = "auto", device=None):
+    """Columns ``[part c, (part + 1) c)``, ``c = C / parts``, of the
+    experiment ``ecfg`` on the chip ``cfg`` (C = ``cfg.n_cols``): one
+    rank's part of a chip whose synapse columns are split over ``parts``
+    ranks (the reference's ``lower_bss2_cell`` shards them over
+    ``model``). Returns ``(init, trial, meta)`` of ``make_experiment`` on a
+    chip of ``c`` columns, with
+
+    - the part's slice of the whole chip's instance (``inst``, or sampled
+      for the whole chip from ``generator``; ``column_instance``), the
+      row parameters whole;
+    - each window's route planned from the whole chip's columns
+      (``AnnCore.plan_cols``): a part takes the whole chip's routes,
+      capacities and kernel launches (the census, a row quantity, is the
+      same on every part);
+    - ``meta["draw"]`` drawing the whole chip's trials and returning the
+      part's columns of them (``column_draws``; injected draws are cut the
+      same way), and ``meta["cols"]`` the part's slice of the columns.
+
+    Nothing in a trial couples the columns: the STP scan, its census and
+    the events act on rows, which every part holds whole, and the neuron
+    scan, the sensors, the reward, Eq. 2's mean reward, the CADC read and
+    the rule act column by column. So the parts need no collective, and
+    the parts gathered are the whole chip's trial bit for bit. ``c`` must
+    be even: the reward's parity, as in wafer mode."""
+    C = cfg.n_cols
+    if parts < 1 or C % parts or (C // parts) % 2:
+        raise ValueError(f"{C} columns in {parts} parts: each part needs an "
+                         f"even column count (reward parity)")
+    if not 0 <= part < parts:
+        raise ValueError(f"part {part} of {parts}")
+    device = resolve_device(device)
+    prefix = tuple(prefix)
+    if inst is None:
+        if generator is None:
+            generator = torch.Generator().manual_seed(7)
+        inst = sample_instance(cfg, generator, prefix, device=device)
+    c = C // parts
+    init, trial, meta = make_experiment(
+        cfg=dataclasses.replace(cfg, n_cols=c),
+        ecfg=dataclasses.replace(ecfg, n_neurons=c),
+        inst=column_instance(inst, parts, part), prefix=prefix,
+        backend=backend, device=device)
+    meta["core"].plan_cols = C
+
+    def draw(gen: torch.Generator, stims) -> Draws:
+        d = column_draws(draw_trials(gen, stims, ecfg, prefix), parts, part)
+        return Draws(events=d.events.to(device), xi=d.xi.to(device))
+    meta.update(draw=draw, cols=slice(part * c, (part + 1) * c))
     return init, trial, meta
 
 
@@ -791,57 +878,69 @@ def host_loop_trial(trial, state: ExperimentState, stim, events, xi):
 # parallel (``repro/core/hybrid.py:627-706``)
 # ---------------------------------------------------------------------------
 
-def bss2_cell_fleet(shape, mesh_cfg) -> Tuple[int, int]:
-    """``(n_inst, n_local)``: the fleet, ``max(global_batch, 16)`` full
-    chips, and what one rank runs of it: the fleet split over the data
-    axes by the ``Ax.INSTANCE`` rule, or the whole fleet where the data
-    axes do not divide it (the rule's demotion,
-    ``ShardingCtx.instance_pspec``)."""
+def bss2_cell_fleet(shape, mesh_cfg) -> Tuple[int, int, int]:
+    """``(n_inst, n_local, n_cols)``: the fleet, ``max(global_batch, 16)``
+    full chips, what one rank runs of it and the synapse columns of each
+    of its chips, by the rule of ``ShardingCtx.instance_pspec`` (the
+    reference's ``spec_for``): the fleet over the data axes and the
+    chip's 512 columns over ``model``, each whole where those axes do not
+    divide it. A rank's column count must be even (the reward's parity,
+    ``column_part``)."""
     from repro_torch.parallel.sharding import MeshShape, ShardingCtx
-    n_inst = max(shape.global_batch, 16)
+    n_inst, C = max(shape.global_batch, 16), BSS2.n_cols
     ctx = ShardingCtx(mesh=MeshShape(mesh_cfg.shape, mesh_cfg.axes),
                       mesh_cfg=mesh_cfg)
-    spec = ctx.instance_pspec((n_inst, BSS2.n_rows, BSS2.n_cols))
-    return n_inst, (n_inst // ctx.dp_size if spec[0] is not None
-                    else n_inst)
+    spec = ctx.instance_pspec((n_inst, BSS2.n_rows, C), cols=C)
+    n_local = n_inst // ctx.dp_size if spec[0] is not None else n_inst
+    n_cols = C // ctx.model_size if spec[-1] is not None else C
+    if n_cols % 2:
+        raise ValueError(f"{C} columns over a model axis of "
+                         f"{ctx.model_size}: {n_cols} a rank, not even "
+                         f"(reward parity)")
+    return n_inst, n_local, n_cols
 
 
-def bss2_cell_experiment(shape, mesh_cfg, device, seed: int = 0):
-    """One rank's part of the cell: ``make_experiment`` on its local
-    fleet (``bss2_cell_fleet``) of full ``BSS2`` chips with the
-    reference's ``RSTDPConfig(128, 512, pattern_size=24,
-    trial_steps=128)``, and two trials' draws of stimulus A from a CPU
-    generator seeded with ``seed + 1`` (the same numbers on every
-    device). Returns ``(init, trial, meta, draws, n_local)``.
+def bss2_cell_experiment(shape, mesh_cfg, device, seed: int = 0,
+                         part: int = 0, whole: bool = False):
+    """One rank's part of the cell: its local fleet (``bss2_cell_fleet``)
+    of full ``BSS2`` chips with the reference's ``RSTDPConfig(128, 512,
+    pattern_size=24, trial_steps=128)``, its columns split over ``model``:
+    ``column_part`` of the ``model`` rank ``part``. The whole chips'
+    instance comes from a CPU generator seeded with ``seed``, two trials'
+    draws of stimulus A from one seeded with ``seed + 1``, both cut to the
+    part: the same numbers on every device and in every part. ``whole``
+    runs the whole chips instead (what the parts gathered equal). Returns
+    ``(init, trial, meta, draws, n_local)``.
 
     The backend is "blocked", what "auto" picks on the card, pinned so
     that the CPU runs the same kernel wrappers (their plain versions)
     and counts the same work."""
-    _, n_local = bss2_cell_fleet(shape, mesh_cfg)
+    _, n_local, n_cols = bss2_cell_fleet(shape, mesh_cfg)
     cfg = BSS2
     ecfg = RSTDPConfig(n_inputs=cfg.n_rows // 2, n_neurons=cfg.n_cols,
                        pattern_size=24, trial_steps=128)
-    init, trial, meta = make_experiment(
-        cfg=cfg, ecfg=ecfg, generator=torch.Generator().manual_seed(seed),
-        prefix=(n_local,), backend="blocked", device=device)
+    init, trial, meta = column_part(
+        cfg, ecfg, 1 if whole else cfg.n_cols // n_cols, part,
+        generator=torch.Generator().manual_seed(seed), prefix=(n_local,),
+        backend="blocked", device=device)
     draws = meta["draw"](torch.Generator().manual_seed(seed + 1), [1, 1])
     return init, trial, meta, draws, n_local
 
 
 def trace_bss2_cell(shape, mesh_cfg, device, seed: int = 0):
     """The cell's per-device roofline (``lower_bss2_cell``'s counterpart):
-    one eager trial of the rank's local fleet, after a warm-up trial,
-    under a ``cost`` recorder on ``device`` (the kernels on the card,
-    their plain versions on the CPU: the same counts). Returns
-    ``(report, recorder, n_local)``.
+    one eager trial of this rank's part, the local fleet x the rank's
+    columns (``bss2_cell_experiment``, the first ``model`` rank's: every
+    part counts the same), after a warm-up trial, under a ``cost``
+    recorder on ``device`` (the kernels on the card, their plain versions
+    on the CPU: the same counts). Returns ``(report, recorder,
+    n_local)``.
 
-    Each rank runs its whole local fleet; no collective is needed, since
-    the instances are independent. The reference also splits the synapse
-    columns over ``model``; the port keeps each chip's columns whole on
-    every rank of a ``model`` group (its trial couples the columns
-    through the reward, and its kernels take whole chips), so its
-    per-device FLOPs are up to 16x the reference's share and
-    ``useful_flops_ratio`` is that much smaller (``ROADMAP.md``)."""
+    No collective is recorded: the instances are independent, and
+    nothing in a trial couples the columns (``column_part``). The column
+    work (the synaptic product, the neuron scan, the sensors, the rule)
+    is the part's; the row work (the STP scan and its census, the events)
+    is the whole chip's on every rank of a ``model`` group."""
     from repro_torch.analysis import cost
     from repro_torch.analysis.roofline import build_report
     device = resolve_device(device)

@@ -251,7 +251,8 @@ def window_route(row_events_t, C: int, *, const_addr: bool = False,
 def synaptic_current_window(weights, addresses, row_events_t, event_addr_t,
                             gain, const_addr: bool = False,
                             sparse: str = "auto", max_events: int = None,
-                            k_cap: int = None, telemetry=None, census=None):
+                            k_cap: int = None, telemetry=None, census=None,
+                            plan_cols: int = None):
     """Whole-window synaptic currents: [T, ..., R] events -> [T, ..., C].
 
     Weights and addresses are constant between PPU writes, so the per-step
@@ -284,16 +285,22 @@ def synaptic_current_window(weights, addresses, row_events_t, event_addr_t,
     k_max)`` of this Dale half, its decision already in ``route_counts``);
     where the route is the gate, it decides in place of the census
     kernel, on the card and on the CPU, and telemetry counts it.
+
+    ``plan_cols`` is the column count the route is planned from
+    (``route_plan``): by default the weights', a column part's whole
+    chip's where ``AnnCore`` runs one.
     """
+    if plan_cols is None:
+        plan_cols = weights.shape[-1]
     route, max_events, k_cap = window_route(
-        row_events_t, weights.shape[-1], const_addr=const_addr,
+        row_events_t, plan_cols, const_addr=const_addr,
         sparse=sparse, max_events=max_events, k_cap=k_cap, census=census)
     if route == "gate":
         return _gated_window(weights, addresses, row_events_t, event_addr_t,
                              gain, const_addr, max_events, k_cap, telemetry,
                              census)
-    T, R, C = row_events_t.shape[0], row_events_t.shape[-1], weights.shape[-1]
-    gated = sparse == "auto" and T * R * C >= SPARSE_MIN_DENSE_WORK
+    T, R = row_events_t.shape[0], row_events_t.shape[-1]
+    gated = sparse == "auto" and T * R * plan_cols >= SPARSE_MIN_DENSE_WORK
     if route == "sparse":
         fn, args = _sparse_window, (max_events, k_cap)
     else:

@@ -37,8 +37,12 @@ MAX_ROWS = 256    # rows a block takes; an instance with more spans blocks
 _TICKETS = {}
 # per device, the [N, T] step counts the census form sums in where an
 # instance spans blocks: int32 at 0 between launches (the kernel leaves
-# them so), grown on demand
+# them so), grown on demand, at least twofold. A CUDA graph captured with
+# a launch keeps that launch's buffer address and sums into it on every
+# replay, so a grown buffer never frees the one it replaces: each stays
+# held (``_HELD``), at most twice the largest in all
 _COUNTS = {}
+_HELD = []
 
 
 def work(T: int, N: int, R: int, census: bool = False) -> cost.Work:
@@ -123,8 +127,11 @@ def stp_scan(r0, spikes_t, scale, *, u: float, recovery: float, caps=None,
         buf = torch.empty(8 + 4 * N, dtype=torch.int32, device=dev)
         counts = _COUNTS.get(dev)
         if counts is None or counts.numel() < N * T:
-            counts = _COUNTS[dev] = torch.zeros(max(N * T, 1),
-                                                dtype=torch.int32, device=dev)
+            if counts is not None:
+                _HELD.append(counts)
+            n = max(N * T, 1, 0 if counts is None else 2 * counts.numel())
+            counts = _COUNTS[dev] = torch.zeros(n, dtype=torch.int32,
+                                                device=dev)
         gate = (buf.data_ptr(), *(min(int(c), _INT_MAX)
                                   for c in (me0, kc0, me1, kc1)),
                 buf[8:].data_ptr(), counts.data_ptr(), ticket.data_ptr(),

@@ -13,7 +13,8 @@ non-binary spikes); ``stp_scan`` bit-equal, the sign of zero included
 (resources at 0 and 1, negative scales, strided and broadcast operands),
 in both forms, its census form's two Dale-half censuses equal to
 ``census_ref`` on the halves (densities, capacity edges, odd R, prefixes,
-T = 0 and 1) and the gated trial launching no ``census``;
+T = 0 and 1, and replayed from a captured graph after the step counts'
+buffer grew) and the gated trial launching no ``census``;
 ``ppuvm_exec`` bit-equal (integer only: weights
 and registers), on the PPU-VM fuzz corpus, a prefixed multi-block shape
 and the main path's [16, 256, 512], and the vm rule's trial on the card
@@ -834,6 +835,49 @@ def test_stp_scan_census_long_window(cuda, T, prefix, R):
         for h in (0, 1):
             assert torch.equal(got[2 + h],
                                census_ref(plain[0][..., h::2], *caps[h]))
+
+
+def test_stp_scan_census_counts_under_a_captured_graph(cuda):
+    """A census-form launch at (1, 968) rows (an instance over four row
+    blocks: its step counts summed in the device's global buffer), T =
+    128, captured as a CUDA graph; then an eager launch at a larger N * T
+    than that buffer holds, which grows it; then sentinels of the old
+    buffer's size. The replay sums into the buffer the capture saw: the
+    sentinels stay intact, and the replay's censuses equal
+    ``stp_scan_census_ref``'s (eff and r_T bit for bit)."""
+    kw = dict(u=0.2, recovery=float(1.0 - math.exp(-0.2 / 20.0)))
+
+    def operands(T, prefix, R):
+        ops = [t(x).to(cuda) for x in _stp_census_operands(T, prefix, R,
+                                                           "bursts")]
+        caps = tuple(synapse.route_plan(T, len(range(h, R, 2)), 512,
+                                        const_addr=True, sparse="always")[1:]
+                     for h in (0, 1))
+        return ops, caps
+
+    (r0, sp, scale), caps = operands(128, (1,), 968)
+    want = stp_scan_census_ref(r0, sp, scale, caps=caps, **kw)
+    stp_ops.stp_scan(r0, sp, scale, caps=caps, **kw)   # ticket and counts
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = stp_ops.stp_scan(r0, sp, scale, caps=caps, **kw)
+    held = stp_ops._COUNTS[r0.device].numel()
+    big, big_caps = operands(held // 4 + 1, (4,), 968)
+    stp_ops.stp_scan(*big, caps=big_caps, **kw)
+    torch.cuda.synchronize()
+    assert stp_ops._COUNTS[r0.device].numel() > held
+    mark = 0x5A5A5A5A
+    sentinels = [torch.full((held,), mark, dtype=torch.int32, device=cuda)
+                 for _ in range(8)]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(bool((s == mark).all()) for s in sentinels)
+        for a, b in zip(got[:2], want[:2]):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for h in (0, 1):
+            assert torch.equal(got[2 + h], want[2 + h])
 
 
 @pytest.mark.parametrize("half", [0, 1])
