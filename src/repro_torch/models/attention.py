@@ -10,6 +10,13 @@ Three execution paths, as in the reference:
     previous KV block).
   * ``attention_decode`` — one query token against the KV cache.
 
+Where the sequence is split over ``model`` (``ShardingCtx.seq_split``)
+a prefill is context-parallel, in two ``split_region``s: the q/k/v
+projections and RoPE on each rank's positions (the weights gathered,
+the head dims whole), then k and v gathered over ``model`` at the edge
+and each rank's queries attending to every key (``q_offset``: its first
+position), with the output projection local.
+
 Scores and softmax statistics are fp32 (the contractions run on fp32
 operands, which is what the reference's ``preferred_element_type=f32``
 computes); the p@v contraction takes p in the compute dtype. Matrix
@@ -18,6 +25,7 @@ outside any kernel too.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -75,9 +83,8 @@ def _qkv(x, p, arch: ArchConfig, ctx: ShardingCtx, positions):
     if arch.rope_theta:
         q = apply_rope(q, positions, arch.rope_theta)
         k = apply_rope(k, positions, arch.rope_theta)
-    # the reference's context-parallel sites; on a device mesh the
-    # sequence stays whole (``ShardingCtx.WHOLE``), so these keep the
-    # batch over the data axes
+    # context-parallel layout: sequence over `model` (a split sequence
+    # comes here as plain local blocks, ``_attn_split``)
     q = ctx.constrain(q, Ax.BATCH, Ax.SEQ, None, None)
     k = ctx.constrain(k, Ax.BATCH, Ax.SEQ, None, None)
     v = ctx.constrain(v, Ax.BATCH, Ax.SEQ, None, None)
@@ -95,10 +102,12 @@ def _mask(qpos, kpos, causal: bool, window: int):
 
 
 def attention_prefill(q, k, v, *, causal: bool, window: int, ctx: ShardingCtx,
-                      kv_block: int = 8192):
+                      kv_block: int = 8192, q_offset: int = 0):
     """Plain or online-softmax attention over KV blocks.
 
     q: [b, sq, h, hd]; k/v: [b, skv, kvh, hd]. Returns [b, sq, h, hd].
+    ``q_offset``: the position of q[:, 0] among the keys' (a rank's first
+    position where the queries are split over ``model``).
     """
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
@@ -108,7 +117,7 @@ def attention_prefill(q, k, v, *, causal: bool, window: int, ctx: ShardingCtx,
 
     kv_block = min(kv_block, skv)
     n_blocks = (skv + kv_block - 1) // kv_block
-    qpos = torch.arange(sq, device=q.device)
+    qpos = torch.arange(sq, device=q.device) + q_offset
 
     if n_blocks == 1:
         sc = _ein("bqkgd,btkd->bkgqt", qg, k) * scale
@@ -148,42 +157,46 @@ def attention_prefill(q, k, v, *, causal: bool, window: int, ctx: ShardingCtx,
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
-def attention_swa_blocked(q, k, v, *, window: int, ctx: ShardingCtx):
+def attention_swa_blocked(q, k, v, *, window: int, ctx: ShardingCtx,
+                          q_offset: int = 0):
     """Exact sliding-window attention via the two-block band trick.
 
-    Requires sq == skv == s, s % window == 0. Each w-block of queries
+    q: [b, sq, h, hd] at positions ``q_offset`` on; k/v: [b, s, kvh, hd]
+    from position 0 (sq == s without an offset). ``sq``, ``s`` and
+    ``q_offset`` are multiples of the window. Each w-block of queries
     attends to its own and the previous KV block (covers the full causal
-    window).
+    window); the block before a rank's first is the previous rank's.
     """
-    b, s, h, hd = q.shape
-    kvh = k.shape[2]
+    b, sq, h, hd = q.shape
+    s, kvh = k.shape[1], k.shape[2]
     g = h // kvh
     w = window
-    assert s % w == 0
-    nb = s // w
+    assert sq % w == 0 and s % w == 0 and q_offset % w == 0
+    nb, n0 = sq // w, q_offset // w
     scale = 1.0 / (hd ** 0.5)
 
     qb = q.reshape(b, nb, w, kvh, g, hd)
-    kb = k.reshape(b, nb, w, kvh, hd)
-    vb = v.reshape(b, nb, w, kvh, hd)
-    kcat = torch.cat([torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]],
-                                1), kb], 2)
-    vcat = torch.cat([torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]],
-                                1), vb], 2)
-    # kcat: [b, nb, 2w, kvh, hd]
+
+    def pairs(t):
+        """[b, nb, 2w, kvh, hd]: each q block's previous and own block
+        (zeros before position 0)."""
+        tb = t.reshape(b, s // w, w, kvh, hd)
+        tb = torch.cat([torch.zeros_like(tb[:, :1]), tb], 1)
+        return torch.cat([tb[:, n0:n0 + nb], tb[:, n0 + 1:n0 + 1 + nb]], 2)
+    kcat, vcat = pairs(k), pairs(v)
     sc = _ein("bnqkgd,bntkd->bnkgqt", qb, kcat) * scale
     sc = ctx.constrain(sc, Ax.BATCH, Ax.SEQ, None, None, None, None)
     dev = q.device
     i = torch.arange(w, device=dev)[:, None]           # q index within block
     jj = torch.arange(2 * w, device=dev)[None, :]      # k index in the window
     band = (jj <= i + w) & (jj > i)                    # causal + window
-    n = torch.arange(nb, device=dev)[:, None, None]
+    n = torch.arange(nb, device=dev)[:, None, None] + n0
     valid = ((n - 1) * w + jj[None]) >= 0     # first block has no predecessor
     mask = band[None] & valid
     sc = torch.where(mask[None, :, None, None], sc, NEG_INF)
     p = torch.softmax(sc, dim=-1)
     out = _ein("bnkgqt,bntkd->bnqkgd", p.to(q.dtype), vcat)
-    out = out.reshape(b, s, h, hd).to(q.dtype)
+    out = out.reshape(b, sq, h, hd).to(q.dtype)
     return ctx.constrain(out, Ax.BATCH, Ax.SEQ, None, None)
 
 
@@ -225,6 +238,13 @@ def attn_layer(x, p, arch: ArchConfig, layer_idx: int, ctx: ShardingCtx, *,
     window = 0
     if arch.swa_window and layer_idx not in arch.global_attn_layers:
         window = arch.swa_window
+    s = x.shape[1]
+    use_blocked = (window and s % window == 0
+                   and (s // window) >= max(ctx.model_size, 2))
+    if cache is None and ctx.seq_split(x.shape):
+        return _attn_split(x, p, arch, ctx, window=window,
+                           blocked=use_blocked, positions=positions,
+                           kv_block=kv_block, collect_kv=collect_kv)
     q, k, v = _qkv(x, p, arch, ctx, positions=positions)
     new_cache = None
     if cache is not None:
@@ -236,9 +256,6 @@ def attn_layer(x, p, arch: ArchConfig, layer_idx: int, ctx: ShardingCtx, *,
         o = attention_decode(q, ck, cv, t, window=window, ctx=ctx)
         new_cache = dict(k=ck, v=cv)
     else:
-        s = x.shape[1]
-        use_blocked = (window and s % window == 0
-                       and (s // window) >= max(ctx.model_size, 2))
         if use_blocked:
             o = attention_swa_blocked(q, k, v, window=window, ctx=ctx)
         else:
@@ -250,6 +267,51 @@ def attn_layer(x, p, arch: ArchConfig, layer_idx: int, ctx: ShardingCtx, *,
     o = o.reshape(b, sq, arch.n_heads * arch.head_dim)
     o = ctx.constrain(o, Ax.BATCH, Ax.SEQ, None)
     return o @ ctx.cast(p["wo"]), new_cache
+
+
+def _qkv_block(x, positions, *w, arch: ArchConfig, ctx: ShardingCtx):
+    """``_qkv`` on a rank's positions, the weights (and biases) whole."""
+    names = ("wq", "wk", "wv", "bq", "bk", "bv")
+    return _qkv(x, dict(zip(names, w)), arch, ctx, positions)
+
+
+def _attn_block(q, k, v, wo, *, arch: ArchConfig, ctx: ShardingCtx,
+                window: int, blocked: bool, q_offset: int, kv_block: int):
+    """A rank's queries against every key, and the output projection."""
+    if blocked:
+        o = attention_swa_blocked(q, k, v, window=window, ctx=ctx,
+                                  q_offset=q_offset)
+    else:
+        o = attention_prefill(q, k, v, causal=arch.causal, window=window,
+                              ctx=ctx, kv_block=kv_block, q_offset=q_offset)
+    b, sq = o.shape[0], o.shape[1]
+    return (o.reshape(b, sq, arch.n_heads * arch.head_dim) @ wo,)
+
+
+def _attn_split(x, p, arch: ArchConfig, ctx: ShardingCtx, *, window: int,
+                blocked: bool, positions, kv_block: int, collect_kv: bool):
+    """Context-parallel prefill of a sequence split over ``model``: q, k
+    and v on each rank's positions (``positions`` cut like the
+    sequence), k and v gathered at the second region's edge (their
+    gradients reduced back onto the split), the output left split. A
+    sliding window runs blocked where each rank holds whole w-blocks; the
+    block before a rank's first comes from the gathered k/v."""
+    b, s = x.shape[0], x.shape[1]
+    s_loc = s // ctx.model_size
+    ws = [ctx.cast(p[k]) for k in (("wq", "wk", "wv", "bq", "bk", "bv")
+                                    if arch.qkv_bias else ("wq", "wk", "wv"))]
+    q, k, v = ctx.split_region(
+        functools.partial(_qkv_block, arch=arch, ctx=ctx), x.shape,
+        ("seq", "pos") + ("whole",) * len(ws), ("seq",) * 3)(
+        x, positions, *ws)
+    (o,) = ctx.split_region(
+        functools.partial(_attn_block, arch=arch, ctx=ctx, window=window,
+                          blocked=bool(blocked) and s_loc % window == 0,
+                          q_offset=ctx.model_rank * s_loc,
+                          kv_block=kv_block), x.shape,
+        ("seq", "batch", "batch", "whole"), ("seq",))(
+        q, k, v, ctx.cast(p["wo"]))
+    return o, (dict(k=k, v=v) if collect_kv else None)
 
 
 def _write_at(cache, idx, new):

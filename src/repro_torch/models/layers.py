@@ -2,6 +2,8 @@
 cross-entropy helpers (``repro/models/layers.py``)."""
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -83,7 +85,20 @@ def mlp_decls(d: int, f: int) -> dict:
     )
 
 
+def _swiglu(x, wg, w1, w2):
+    return ((F.silu(x @ wg) * (x @ w1)) @ w2,)
+
+
 def mlp(x, p, ctx: ShardingCtx):
+    """SwiGLU. Where the sequence is split over ``model`` it runs on each
+    rank's positions with the three weights gathered, not as Megatron's
+    sequence gather, tensor-parallel product and reduce-scatter: at the
+    production shapes a layer's weights (3 d f) move less than its
+    activations would (2 (b / dp) s d each way)."""
+    if ctx.seq_split(x.shape):
+        return ctx.split_region(_swiglu, x.shape, ("seq",) + ("whole",) * 3,
+                                ("seq",))(x, *(ctx.cast(p[k]) for k in
+                                               ("wg", "w1", "w2")))[0]
     h = F.silu(x @ ctx.cast(p["wg"])) * (x @ ctx.cast(p["w1"]))
     return h @ ctx.cast(p["w2"])
 
@@ -138,44 +153,69 @@ def _nll(logits, labels):
 
 def lm_loss_chunked(x, emb_or_head, labels, ctx: ShardingCtx, *,
                     tied: bool, mask=None, max_chunk_tokens: int = 1 << 18,
-                    real_vocab: int = 0):
-    """Cross entropy with the unembed fused per batch chunk.
+                    real_vocab: int = 0, prefix: int = 0):
+    """Cross entropy with the unembed fused per batch chunk
+    (``_nll_block``).
 
-    The loop over batch chunks bounds the peak to one chunk's
+    ``x`` [b, prefix + s, d] holds ``prefix`` leading positions without
+    labels (meta tokens, image patches); ``labels`` and ``mask`` are
+    [b, s]. The loop over batch chunks bounds the peak to one chunk's
     [cb, S, V] fp32 logits: ``n_chunks`` is the largest divisor of the
     batch not above tokens / ``max_chunk_tokens`` (at least 1).
 
-    Under a device mesh each chunk's logits go into the cross entropy
-    with the vocab whole (the batch stays over the data axes): on torch
-    2.11, DTensor's gradient of a ``log`` of a sum over a vocab sharded
-    on one mesh dim, with the batch sharded on the other, is wrong
+    Under a device mesh each rank takes its own tokens' terms (its batch
+    rows, and its positions where the sequence is split over ``model``)
+    with the unembed weight gathered, in a ``split_region``, and the sum
+    and the count are summed over the mesh: the mean over the global
+    token count. The logits' vocab stays whole: on torch 2.11, DTensor's
+    gradient of a ``log`` of a sum over a vocab sharded on one mesh dim,
+    with the batch sharded on the other, is wrong
     (``tests/_torch_lm_mesh.py``, part ``ops``).
     """
-    b, s = labels.shape
-    n_chunks = max(1, (b * s) // max_chunk_tokens)
+    extra = () if mask is None else (mask,)
+    fn = functools.partial(_nll_block, tied=tied,
+                           max_chunk_tokens=max_chunk_tokens,
+                           real_vocab=real_vocab)
+    w = ctx.cast(emb_or_head)
+    if not ctx.places:
+        total, denom = fn(x[:, prefix:], w, labels, *extra, offset=0)
+        return total / torch.clamp(denom, min=1.0)
+    first = 0
+    if ctx.seq_split(x.shape):
+        first = ctx.model_rank * (x.shape[1] // ctx.model_size)
+    total, denom = ctx.split_region(
+        functools.partial(fn, offset=first - prefix), x.shape,
+        ("seq", "whole") + ("batch",) * (1 + len(extra)), ("sum", "sum"))(
+        x, w, labels, *extra)
+    whole = ctx.act_sharding((), ())
+    total, denom = (t.redistribute(ctx.mesh, whole) for t in (total, denom))
+    return total / torch.clamp(denom, min=1.0)
+
+
+def _nll_block(x, w, labels, *mask, tied: bool, offset: int,
+               max_chunk_tokens: int, real_vocab: int):
+    """The summed negative log-likelihood and label count of ``x``
+    [b, s_x, d] at positions ``offset`` on among the labels (negative
+    ones, the prefix, take none), ``labels`` (and ``mask``) [b, s], ``w``
+    the whole unembed weight."""
+    b, s_x, _ = x.shape
+    idx = torch.arange(s_x, device=x.device) + offset
+    at = idx.clamp(min=0)
+    wt = (idx >= 0).float()[None].expand(b, s_x)
+    if mask:
+        wt = wt * mask[0][:, at].float()
+    lab = labels[:, at]
+    n_chunks = max(1, (b * s_x) // max_chunk_tokens)
     while b % n_chunks:
         n_chunks -= 1
     cb = b // n_chunks
     total = torch.zeros((), dtype=torch.float32, device=x.device)
-    denom = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_chunks):
         xc = x[i * cb:(i + 1) * cb]
-        if tied:
-            logits = unembed(xc, emb_or_head, ctx, real_vocab=real_vocab)
-        else:
-            w_c = ctx.constrain(ctx.cast(emb_or_head), None, Ax.VOCAB_ACT)
-            logits = ctx.constrain(xc @ w_c, Ax.BATCH, None, Ax.VOCAB_ACT)
-            logits = mask_vocab_pad(logits, real_vocab)
-        logits = ctx.constrain(logits, Ax.BATCH, None, None)
-        nll = _nll(logits.float(), labels[i * cb:(i + 1) * cb])
-        if mask is not None:
-            mc = mask[i * cb:(i + 1) * cb]
-            total = total + torch.sum(nll * mc)
-            denom = denom + torch.sum(mc)
-        else:
-            total = total + torch.sum(nll)
-            denom = denom + nll.numel()
-    return total / torch.clamp(denom, min=1.0)
+        logits = mask_vocab_pad(xc @ (w.T if tied else w), real_vocab)
+        nll = _nll(logits.float(), lab[i * cb:(i + 1) * cb])
+        total = total + torch.sum(nll * wt[i * cb:(i + 1) * cb])
+    return total, torch.sum(wt)
 
 
 def softmax_xent(logits, labels, mask=None):

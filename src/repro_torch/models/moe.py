@@ -190,14 +190,16 @@ def moe_ffn_ep(x, p, arch: ArchConfig, ctx: ShardingCtx, *, positions=None):
     Under a device mesh it runs ``_ep_block`` through ``local_map``:
 
       * activations enter sharded over the data axes, replicated over
-        ``model``;
+        ``model`` (a sequence split over ``model`` is gathered at the
+        edge);
       * the expert weights enter ``Shard(0)`` over ``model`` (each rank
         its ``E / ep`` experts), the router replicated;
       * every rank routes all its tokens, dispatches only to its own
         experts and scatter-combines locally;
       * ``y`` leaves ``Partial()`` over ``model`` (the reference's
-        ``psum``), ``aux`` the mean of the per-rank balance terms over
-        every mesh dim (its ``pmean``);
+        ``psum``), reduce-scattered onto the sequence's split where the
+        sequence is split, ``aux`` the mean of the per-rank balance terms
+        over every mesh dim (its ``pmean``);
       * each rank's gradients are its part of the sum: ``Partial()``
         over the mesh dims an input is replicated on (its own experts'
         share over ``model``, its tokens' share over the data axes).
@@ -236,6 +238,8 @@ def moe_ffn_ep(x, p, arch: ArchConfig, ctx: ShardingCtx, *, positions=None):
     y, aux = fn(ctx.place(x, xpl), p["router"], ctx.cast(p["we_gate"]),
                 ctx.cast(p["we_up"]), ctx.cast(p["we_down"]))
     aux = aux.redistribute(ctx.mesh, rpl)
+    if ctx.seq_split(x.shape):
+        y = ctx.constrain(y, Ax.BATCH, Ax.SEQ, None)
     if m.n_shared_experts:
         y = y + mlp(x, p["shared"], ctx)
     return y, aux

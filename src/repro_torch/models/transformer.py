@@ -223,11 +223,34 @@ class ModelBundle:
 
 
 def _logits(x, params, arch: ArchConfig, ctx: ShardingCtx):
+    if ctx.seq_split(x.shape):
+        # the sequence gathered at the edge; the logits vocab-parallel
+        x = ctx.constrain(x, Ax.BATCH, None, None)
     if arch.tie_embeddings:
         return L.unembed(x, params["emb"], ctx, real_vocab=arch.vocab)
     logits = ctx.constrain(x @ ctx.cast(params["head"]), Ax.BATCH, None,
                            Ax.VOCAB_ACT)
     return L.mask_vocab_pad(logits, arch.vocab)
+
+
+def _last_block(x, *, last: bool):
+    return (torch.where(torch.tensor(last, device=x.device), x[:, -1:], 0.0),)
+
+
+def _last_position(x, ctx: ShardingCtx):
+    """``x[:, -1:]``; of a sequence split over ``model``, the last rank's
+    last position, summed over ``model`` (the other ranks give zeros)."""
+    if not ctx.seq_split(x.shape):
+        return x[:, -1:]
+    (y,) = ctx.split_region(
+        functools.partial(_last_block,
+                          last=ctx.model_rank == ctx.model_size - 1),
+        x.shape, ("seq",), ("seq_sum",))(x)
+    return ctx.constrain(y, Ax.BATCH, None, None)
+
+
+def _head_block(x, w):
+    return (x @ w,)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -295,9 +318,6 @@ def build_model(arch: ArchConfig, ctx: ShardingCtx) -> ModelBundle:
         """Mean next-token (audio: masked-unit) cross entropy over the
         label positions, plus ``AUX_LOSS_W`` times the MoE aux loss."""
         x, aux, label_mask, _ = features(params, batch)
-        pl = prefix_len(arch)
-        if pl:
-            x = x[:, pl:]
         labels = batch["labels"]
         mask = None
         if arch.family == "audio":
@@ -305,7 +325,7 @@ def build_model(arch: ArchConfig, ctx: ShardingCtx) -> ModelBundle:
         emb_or_head = params["emb"] if arch.tie_embeddings else params["head"]
         l = L.lm_loss_chunked(x, emb_or_head, labels, ctx,
                               tied=arch.tie_embeddings, mask=mask,
-                              real_vocab=arch.vocab)
+                              real_vocab=arch.vocab, prefix=prefix_len(arch))
         return l + AUX_LOSS_W * aux
 
     def prefill(params, batch):
@@ -314,10 +334,15 @@ def build_model(arch: ArchConfig, ctx: ShardingCtx) -> ModelBundle:
         x, _, _, cache = features(params, batch, collect_cache=True,
                                   use_remat=False)
         if arch.is_encoder_only:
-            logits = ctx.constrain(x @ ctx.cast(params["head"]), Ax.BATCH,
-                                   Ax.SEQ, None)
+            w = ctx.cast(params["head"])
+            if ctx.seq_split(x.shape):
+                (logits,) = ctx.split_region(
+                    _head_block, x.shape, ("seq", "whole"), ("seq",))(x, w)
+            else:
+                logits = x @ w
+            logits = ctx.constrain(logits, Ax.BATCH, Ax.SEQ, None)
             return L.mask_vocab_pad(logits, arch.vocab), {}
-        return _logits(x[:, -1:], params, arch, ctx), cache
+        return _logits(_last_position(x, ctx), params, arch, ctx), cache
 
     def make_cache_decls(batch_size: int, max_len: int):
         assert not arch.is_encoder_only, "encoder-only arch has no decode"

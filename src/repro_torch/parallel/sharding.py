@@ -6,8 +6,7 @@ two rule tables (params vs activations) map logical axes onto mesh axes:
   * params:  FSDP over ``data`` (embed dim) x tensor-parallel over
              ``model`` (ff / heads_out / vocab / expert dims).
   * acts:    batch over the data axes (incl. ``pod`` in multi-pod),
-             sequence over ``model`` (on a ``DeviceMesh`` the sequence
-             stays whole, ``ShardingCtx.WHOLE``).
+             sequence over ``model``.
 
 The spec builders (``param_pspec`` / ``act_pspec`` / ``instance_pspec``)
 return a tuple with one entry a dimension: ``None``
@@ -22,12 +21,20 @@ evenly stays replicated, so no placement is ever uneven.
 On a ``torch.distributed`` ``DeviceMesh`` tensors are DTensors: a spec
 becomes DTensor placements (``placements``), ``init_params`` keeps each
 rank's shard of the full leaf it draws, and ``constrain`` redistributes
-an activation (the reference's ``with_sharding_constraint``; the
-sequence kept whole, ``ShardingCtx.WHOLE``). A mesh changes where
-tensors live, never what they hold: the model's functions run on
-DTensors unchanged, DTensor's sharding propagation playing GSPMD's part.
+an activation (the reference's ``with_sharding_constraint``). A mesh
+changes where tensors live, never what they hold: the model's functions
+run on DTensors, DTensor's sharding propagation playing GSPMD's part.
 Model code runs inside ``ctx.scope()``, where the plain tensors it makes
 (masks, positions, iotas: the same on every rank) count as replicated.
+
+Where the sequence is split over ``model`` (``seq_split``), no product
+sees a sequence-split DTensor: each such region runs on plain local
+blocks inside ``local_map`` (``split_region``), with the weights and
+any gathered activation (attention's k and v, the SSD's chunk states)
+brought whole at its edge by DTensor redistributes, which carry the
+gradients back to each operand's own placement. Between regions only
+elementwise ops, norms over the last dim and residual adds touch the
+split activations.
 """
 from __future__ import annotations
 
@@ -37,7 +44,8 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch import resolve_device
 from repro_torch.config import MeshConfig
@@ -213,12 +221,6 @@ class ShardingCtx:
         return self._pspec(axes, self.act_rules, shape)
 
     # -- placements on a DeviceMesh -----------------------------------------
-    # logical axes a DTensor activation keeps whole on every rank: DTensor
-    # (torch 2.11) cannot flatten a sharded dim behind the first in the
-    # views that ``@`` and ``einsum`` make, and [batch, seq] go into each
-    # projection flattened; GSPMD reshards there instead
-    WHOLE = (Ax.SEQ,)
-
     def _names(self) -> tuple:
         return tuple(self._sizes())
 
@@ -245,11 +247,8 @@ class ShardingCtx:
         return self.placements(self.param_pspec(axes, shape))
 
     def act_sharding(self, axes, shape=None) -> Optional[tuple]:
-        """An activation's placements (the sequence kept whole,
-        ``WHOLE``)."""
         if self.mesh is None:
             return None
-        axes = tuple(None if a in self.WHOLE else a for a in axes)
         return self.placements(self.act_pspec(axes, shape))
 
     def instance_sharding(self, shape, cols: Optional[int] = None
@@ -289,9 +288,9 @@ class ShardingCtx:
     # -- activation constraint ----------------------------------------------
     def constrain(self, x, *axes):
         """``with_sharding_constraint`` by logical axes: a DTensor is
-        redistributed to the activation spec (the sequence kept whole,
-        ``WHOLE``), anything else (no mesh, a ``MeshShape``) passes as it
-        is."""
+        redistributed to the activation spec, anything else (no mesh, a
+        ``MeshShape``, a plain local block inside a ``split_region``)
+        passes as it is."""
         if self.mesh is None:
             return x
         assert len(axes) == x.ndim, (axes, x.shape)
@@ -304,6 +303,83 @@ class ShardingCtx:
         # sharded; ``tests/_torch_lm_mesh.py`` part ``grads``)
         return x.redistribute(self.mesh, self.act_sharding(axes,
                                                            tuple(x.shape)))
+
+    # -- sequence-split regions ----------------------------------------------
+    def seq_split(self, shape) -> bool:
+        """True where an activation [b, s, ...] of ``shape`` has its
+        sequence split over ``model`` on a device mesh: the act rule's
+        ``Ax.SEQ``, demoted where ``model`` does not divide ``s``."""
+        return (self.places and self.model_size > 1
+                and self.act_pspec((Ax.BATCH, Ax.SEQ),
+                                   tuple(shape[:2]))[1] is not None)
+
+    def split_region(self, fn, tokens_shape, ins, outs):
+        """``fn`` run by ``local_map`` on each rank's plain blocks, for a
+        region whose tokens ([b, s]: ``tokens_shape``) lie as the act rule
+        places them. ``ins`` / ``outs`` give one kind a tensor argument /
+        output (``fn`` returns a tuple):
+
+          ``"seq"``    [b, s or chunks, ...] split like the tokens;
+          ``"batch"``  [b, ...] the batch split, whole over ``model`` (an
+                       activation gathered at the region's edge);
+          ``"whole"``  replicated (a weight gathered);
+          ``"pos"``    [s] positions, split over ``model``;
+          ``"seq_sum"`` [b, ...] a sum over the sequence's ranks
+                       (``Partial()`` over ``model``);
+          ``"sum"``    a sum over every token block (``Partial()``
+                       wherever the tokens are split).
+
+        A plain tensor argument (the same on every rank) is cut to its
+        block first. An input held whole on a mesh dim that splits the
+        tokens takes its gradient back as ``Partial()`` there (each rank
+        computed its share of the sum), which the edge's redistribute
+        reduces onto the operand's own placement. So an output that every
+        rank computes alike from such an input must take no gradient.
+
+        ``fn`` runs the same ops on every rank, only its offsets differing
+        (a rank's first position, its slice of a gathered tensor): the
+        backward's collectives, and those of a remat recompute that stops
+        once it has what the backward needs, then pair up across the
+        ranks. An input no op of ``fn`` reads on one rank takes no
+        gradient there, and the other ranks wait for that rank in its
+        edge's reduce (``tests/_torch_lm_mesh.py`` part ``seq``)."""
+        tok = self.act_sharding((Ax.BATCH, Ax.SEQ), tuple(tokens_shape[:2]))
+
+        def pl(kind):
+            out = []
+            for t in tok:
+                seq, batch = t == Shard(1), t == Shard(0)
+                out.append({
+                    "seq": t,
+                    "batch": t if batch else Replicate(),
+                    "whole": Replicate(),
+                    "pos": Shard(0) if seq else Replicate(),
+                    "seq_sum": Partial() if seq else t,
+                    "sum": Partial() if seq or batch else Replicate(),
+                }[kind])
+            return tuple(out)
+
+        def grad(kind):
+            return tuple(Partial() if isinstance(p, Replicate)
+                         and isinstance(t, Shard) else p
+                         for p, t in zip(pl(kind), tok))
+        in_pl = tuple(pl(k) for k in ins)
+        run = local_map(fn, out_placements=tuple(pl(k) for k in outs),
+                        in_placements=in_pl,
+                        in_grad_placements=tuple(grad(k) for k in ins),
+                        device_mesh=self.mesh, redistribute_inputs=True)
+
+        def call(*args):
+            assert len(args) == len(ins), (len(args), ins)
+            return run(*(a if isinstance(a, DTensor) else self.place(a, p)
+                         for a, p in zip(args, in_pl)))
+        return call
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's coordinate on ``model`` (0 without a device
+        mesh)."""
+        return self.mesh.get_local_rank("model") if self.places else 0
 
     @property
     def dp_size(self) -> int:

@@ -39,17 +39,30 @@ with ``repro_torch.launch.mesh.make_smoke_mesh`` ((WORLD / 2, 2) over
             needs; ``launch/train.py --mesh smoke`` training (AdamW and
             hybrid); ``HybridReadoutTrainer`` under the mesh against no
             mesh with the same injected draws;
+  seq       the sequence split over ``model`` on a (1, WORLD) mesh: the
+            six families and the reduced moonshot at SEQ_TOTAL positions
+            (hymba's meta tokens and the VLM's patches inside them; the
+            SSD's chunks and hymba's window blocks cross the ranks):
+            logits, loss and every parameter's gradient against no mesh
+            (and the reference's, given DATA_DIR), the prefill's KV cache
+            and SSM state and greedy tokens against no mesh, and the
+            block-boundary activation, q, k, v and the SSD's chunk tensors
+            ``Shard`` on the sequence dim over ``model``;
   all       every part above but reshard2 (those that read the
             reference's numbers last);
   full      (four cards) moonshot-v1-16b-a3b at full width served on a
-            (1, 4) mesh, and smollm-360m training on (2, 2) against one
-            card (``part_full``).
+            (1, 4) mesh, smollm-360m training on (2, 2) against one card,
+            then ``full_seq`` (``part_full``);
+  full_seq  (four cards) smollm-360m training and qwen1.5-0.5b prefill at
+            8 x 4096 on (1, 4) against one card: losses, logits, ms and
+            each card's peak memory (``part_full_seq``).
 
 DATA_DIR holds the checkpoint the ranks share and, where the test wrote
 them, the reference's numbers (the test imports JAX; this file imports
 none, so it runs on a machine without JAX: the card's). While a
 ``PENDING`` file is there, the parts that read them wait for ``READY``.
-Prints ``LM_MESH_OK rank=R part=P checks=N``. Not collected by pytest
+PART may name several parts, joined by commas. Prints ``LM_MESH_OK
+rank=R part=P checks=N``. Not collected by pytest
 (no ``test_`` prefix).
 """
 import dataclasses
@@ -64,7 +77,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
@@ -75,8 +88,10 @@ from repro_torch.config import MoEConfig, ShapeConfig, get_arch  # noqa: E402
 from repro_torch.launch import mesh as LM  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLMPipeline  # noqa: E402
-from repro_torch.models.transformer import build_model  # noqa: E402
+from repro_torch.models.transformer import (build_model,  # noqa: E402
+                                            prefix_len)
 from repro_torch.parallel.sharding import (Ax, MeshPlacement,  # noqa: E402
                                            ParamDecl, ShardingCtx, full,
                                            init_params, tree_leaves,
@@ -93,6 +108,9 @@ FAMILIES = ("qwen1.5-0.5b", "smollm-360m", "mamba2-130m", "hymba-1.5b",
             "internvl2-2b", "hubert-xlarge")
 ARCHS = FAMILIES + ("moonshot-v1-16b-a3b",)
 SEQ, BATCH = 32, 2
+# the seq part's positions: a multiple of 4 ranks x the reduced SSD chunk
+# (16); hymba's window (8) then ends a block at each rank boundary
+SEQ_TOTAL = 64
 TRAIN_SHAPE = ShapeConfig("smoke", 32, 4, "train")
 TRAIN_OPT = AdamWConfig(lr=1e-3, warmup_steps=2)
 
@@ -115,6 +133,23 @@ def family_batch(arch, seed=1):
         return dict(frames=rng.standard_normal(
             (BATCH, SEQ, arch.frame_dim)).astype(np.float32), labels=labels)
     out = dict(tokens=rng.integers(0, arch.vocab, (BATCH, SEQ)).astype(
+        np.int32), labels=labels)
+    if arch.vit_dim:
+        out["patch_embeds"] = rng.standard_normal(
+            (BATCH, arch.n_patches, arch.vit_dim)).astype(np.float32)
+    return out
+
+
+def seq_batch(arch, seed=2):
+    """Numpy inputs of SEQ_TOTAL positions, the prefix (meta tokens,
+    patches) included."""
+    rng = np.random.default_rng(seed)
+    s = SEQ_TOTAL - prefix_len(arch)
+    labels = rng.integers(0, arch.vocab, (BATCH, s)).astype(np.int32)
+    if arch.family == "audio":
+        return dict(frames=rng.standard_normal(
+            (BATCH, s, arch.frame_dim)).astype(np.float32), labels=labels)
+    out = dict(tokens=rng.integers(0, arch.vocab, (BATCH, s)).astype(
         np.int32), labels=labels)
     if arch.vit_dim:
         out["patch_embeds"] = rng.standard_normal(
@@ -621,6 +656,109 @@ def part_hybrid(ctx, dev):
     return 1
 
 
+SPLIT_REGIONS = ("_qkv_block", "_ssd_chunk_block")
+
+
+def part_seq(ctx, dev, data):
+    """The sequence split over ``model`` on a (1, WORLD) mesh, every arch
+    of ARCHS at SEQ_TOTAL positions."""
+    world = dist.get_world_size()
+    cs = ShardingCtx(mesh=LM.make_smoke_mesh((1, world),
+                                             device_type=ctx.mesh.device_type))
+    split = [p for p in cs.placements((None, "model")) if p != Replicate()]
+    assert split == [Shard(1)], split
+    seen, checks = {}, 0
+    region = cs.split_region
+
+    def spy_region(fn, *a, **k):
+        run = region(fn, *a, **k)
+        name = getattr(fn, "func", fn).__name__
+
+        def call(*args):
+            out = run(*args)
+            seen.setdefault(name, []).extend(
+                tuple(t.placements) for t in out)
+            return out
+        return call
+    cs.split_region = spy_region
+    block = T._block
+
+    def spy_block(*a, **k):
+        out = block(*a, **k)
+        if isinstance(out[0], DTensor):
+            seen.setdefault("block", []).append(tuple(out[0].placements))
+        return out
+    for name in ARCHS:
+        arch = get_arch(name).reduced()
+        b0, bm = build_model(arch, ShardingCtx()), build_model(arch, cs)
+        params, ref = load(data, f"seq_{name}")
+        if params is None:
+            params = tree_map(lambda t: t.numpy(), init_params(
+                b0.decls, torch.Generator().manual_seed(0), "cpu"),
+                _is_tensor)
+            batch_np = seq_batch(arch)
+        else:
+            batch_np = {k[2:]: v for k, v in ref.items()
+                        if k.startswith("b/")}
+        p0 = convert.params(params, dev)
+        pm = convert.params(params, ctx=cs, decls=bm.decls)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        seen.clear()
+        T._block = spy_block
+        try:
+            if arch.family != "audio":
+                lg0 = to_np(b0.forward(p0, batch)[0])
+                lgm = to_np(bm.forward(pm, batch)[0])
+                close(lgm, lg0, f"{name} logits vs no mesh")
+                if ref is not None:
+                    close(lgm, ref["logits"], f"{name} logits vs ref")
+            l0, g0 = value_and_grad(b0.loss, p0, batch)
+            lm, gm = value_and_grad(bm.loss, pm, batch)
+        finally:
+            T._block = block
+        close(to_np(lm), to_np(l0), f"{name} loss vs no mesh")
+        if ref is not None:
+            close(to_np(lm), ref["loss"], f"{name} loss vs ref")
+        for k, a, g in zip(sorted(flatten(b0.decls)),
+                           tree_leaves(g0, _is_tensor),
+                           tree_leaves(gm, _is_tensor)):
+            close(to_np(g), to_np(a), f"{name} grad {k} vs no mesh")
+            if ref is not None:
+                close(to_np(g), ref[f"g/{k}"], f"{name} grad {k} vs ref")
+        # where the split is: every layer's output, and each attention
+        # layer's q, k, v and each SSD layer's chunk tensors, Shard(1)
+        # over ``model``
+        want = dict(block=arch.n_layers, _qkv_block=3 * arch.n_layers
+                    * bool(arch.n_heads), _ssd_chunk_block=6 * arch.n_layers
+                    * (arch.family in ("ssm", "hybrid")))
+        for k, n in want.items():
+            got = seen.get(k, [])
+            assert len(got) >= n, (name, k, len(got), n)
+            assert all(pl == (Replicate(), Shard(1)) for pl in got), (
+                name, k, set(got))
+        checks += 3
+        if arch.is_encoder_only:
+            continue
+        prompt = {k: v for k, v in batch.items() if k != "labels"}
+        _, c0 = b0.prefill(p0, prompt)
+        _, cm = bm.prefill(pm, prompt)
+        f0, fm = flatten(c0), flatten(cm)
+        assert sorted(f0) == sorted(fm) and f0, (name, sorted(fm))
+        for k in f0:
+            close(to_np(fm[k]), to_np(f0[k]), f"{name} prefill cache {k}")
+        kv = [v for k, v in fm.items() if "/kv/" in k]
+        assert all(v.placements == (Replicate(), Shard(1)) for v in kv), name
+        toks = batch["tokens"]
+        n_new = 3
+        e0 = ServeEngine(arch, max_len=SEQ_TOTAL + 8, device=dev)
+        em = ServeEngine(arch, cs, max_len=SEQ_TOTAL + 8)
+        want_t = e0.generate(p0, toks, n_new)
+        got_t = em.generate(pm, toks, n_new)
+        assert torch.equal(got_t, want_t), (name, got_t, want_t)
+        checks += 2
+    return checks
+
+
 def _timed_steps(tr, n):
     """``n`` steps of ``tr.train()`` from its initial state, each step
     between CUDA events: (losses, ms a step after the first)."""
@@ -702,17 +840,113 @@ def part_full(ctx, dev, data):
     dist.barrier()
     if rank == 0:
         print("mesh_full_train " + json.dumps(rec), flush=True)
+    return 2 + part_full_seq(ctx, dev, data)
+
+
+def _peaks():
+    """Every rank's peak allocated bytes since its last reset."""
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, torch.cuda.max_memory_allocated())
+    return out
+
+
+def part_full_seq(ctx, dev, data):
+    """Four cards (NCCL), the sequence over ``model``: smollm-360m at full
+    width, 3 training steps at 8 x 4096 (train_4k's sequence) on a (1, 4)
+    mesh against one card alone on the same batches (losses, step ms,
+    each card's peak memory); qwen1.5-0.5b prefill at 8 x 4096 on (1, 4)
+    against one card (the last position's logits, ms, each card's peak
+    memory). The parameters are drawn on each card from a seeded CUDA
+    generator. The mesh trains with the arch's remat ("dots"), the one
+    card with "full". Rank 0 prints a ``mesh_full_seq`` JSON line. The measures
+    read the model through its public entry points only, so the helper
+    also measures a tree that keeps the sequence whole."""
+    import json
+    rank, world = dist.get_rank(), dist.get_world_size()
+    assert world == 4 and dev.type == "cuda", (world, dev)
+    c14 = ShardingCtx(mesh=LM.make_smoke_mesh((1, 4), device_type="cuda"))
+    rec = dict(torch=torch.__version__, mesh=[1, 4])
+    arch = get_arch("smollm-360m")
+    rec["remat_mesh"], rec["remat_one_card"] = arch.remat_policy, "full"
+    shape = ShapeConfig("train_4k_b8", 4096, 8, "train")
+    with tempfile.TemporaryDirectory() as d:
+        tcfg = TrainerConfig(steps=3, ckpt_every=100, ckpt_dir=d,
+                             log_every=100, opt=TRAIN_OPT)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rec["train_losses_mesh"], rec["train_step_ms_mesh"] = _timed_steps(
+            Trainer(arch, shape, tcfg, c14), 3)
+        rec["train_peak_bytes_mesh"] = _peaks()
+        torch.cuda.empty_cache()
+        if rank == 0:
+            # one card holds this batch only with remat "full" (with the
+            # arch's "dots" its saved products overflow 80 GB); the
+            # policies give the same numbers (part ``train``)
+            torch.cuda.reset_peak_memory_stats()
+            rec["train_losses_one_card"], rec["train_step_ms_one_card"] = \
+                _timed_steps(Trainer(dataclasses.replace(
+                    arch, remat_policy="full"), shape, tcfg, device=dev), 3)
+            rec["train_peak_bytes_one_card"] = \
+                torch.cuda.max_memory_allocated()
+            torch.cuda.empty_cache()
+    dist.barrier()
+
+    arch = get_arch("qwen1.5-0.5b")
+    tokens = torch.from_numpy(np.random.default_rng(27).integers(
+        0, arch.vocab, (8, 4096))).to(dev)
+    bm = build_model(arch, c14)
+    pm = init_params(bm.decls, torch.Generator(dev).manual_seed(0), ctx=c14)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        bm.prefill(pm, dict(tokens=tokens[:, :512]))         # warm-up
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        lgm = full(bm.prefill(pm, dict(tokens=tokens))[0])
+        e1.record()
+        torch.cuda.synchronize()
+    rec["prefill_ms_mesh"] = e0.elapsed_time(e1)
+    rec["prefill_peak_bytes_mesh"] = _peaks()
+    del pm
+    torch.cuda.empty_cache()
+    if rank == 0:
+        b1 = build_model(arch, ShardingCtx())
+        p1 = init_params(b1.decls, torch.Generator(dev).manual_seed(0), dev)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            b1.prefill(p1, dict(tokens=tokens[:, :512]))
+            e0.record()
+            lg1 = b1.prefill(p1, dict(tokens=tokens))[0]
+            e1.record()
+            torch.cuda.synchronize()
+        rec["prefill_ms_one_card"] = e0.elapsed_time(e1)
+        rec["prefill_peak_bytes_one_card"] = torch.cuda.max_memory_allocated()
+        real = slice(0, arch.vocab)          # the padded columns: -1e30
+        err = (lgm[..., real].float() - lg1[..., real].float()).abs()
+        rec["prefill_logits_max_abs_err"] = float(err.max())
+        rec["prefill_logits_max_abs"] = float(
+            lg1[..., real].float().abs().max())
+        del p1, b1
+        torch.cuda.empty_cache()
+        print("mesh_full_seq " + json.dumps(rec), flush=True)
+        close(rec["train_losses_mesh"], rec["train_losses_one_card"],
+              "smollm 8 x 4096 losses, (1, 4) mesh vs one card",
+              rtol=1e-4, atol=0)
+        close(to_np(lgm), to_np(lg1), "qwen 8 x 4096 prefill logits, (1, 4) "
+              "mesh vs one card", rtol=1e-3, atol=1e-3)
+    dist.barrier()
     return 2
 
 
 PARTS = dict(place=part_place, families=part_families, moe=part_moe,
              serve=part_serve, train=part_train, reshard=part_reshard,
              reshard2=part_reshard2, launch=part_launch, grads=part_grads,
-             ops=part_ops, full=part_full)
+             ops=part_ops, seq=part_seq, full=part_full,
+             full_seq=part_full_seq)
 # the parts that read the reference's numbers last: the test writes them
 # while the others run
 ALL = ("place", "serve", "ops", "grads", "train", "launch", "families", "moe",
-       "reshard")
+       "reshard", "seq")
 
 
 def mesh_shape(world):
@@ -727,12 +961,15 @@ def main(rank, world, store, backend="gloo", part="all", data=None):
         dev = torch.device("cpu")
     dist.init_process_group(backend, init_method=f"file://{store}",
                             rank=rank, world_size=world,
-                            timeout=datetime.timedelta(seconds=100),
+                            # the four-card parts hold ranks at a barrier
+                            # while rank 0 runs the one-card baseline
+                            timeout=datetime.timedelta(
+                                seconds=600 if "full" in part else 100),
                             device_id=dev if backend == "nccl" else None)
-    shape = (1, 2) if part == "reshard2" else mesh_shape(world)
-    ctx = ShardingCtx(mesh=LM.make_smoke_mesh(shape, device_type=dev.type))
+    ctx = ShardingCtx(mesh=LM.make_smoke_mesh(mesh_shape(world),
+                                              device_type=dev.type))
     checks, failed = 0, []
-    for p in (ALL if part == "all" else (part,)):
+    for p in (ALL if part == "all" else part.split(",")):
         t0 = time.time()
         try:
             n = PARTS[p](ctx, dev, data)

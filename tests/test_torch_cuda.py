@@ -1828,18 +1828,18 @@ def _lm_mesh_ranks(tmp_path, world, part):
 
 def test_lm_mesh_on_nccl(cuda, tmp_path):
     """``tests/_torch_lm_mesh.py`` parts place, serve, ops, grads, train,
-    launch, families, moe and reshard on NCCL, one card a rank (4 ranks on a
-    (2, 2) mesh where four cards are present, else 2 on (1, 2)), each
-    against the port without a mesh; with four, the reshard onto a world
-    of 2 too. NCCL takes no two ranks on one card, so this needs two cards
-    or more."""
+    launch, families, moe, reshard and seq on NCCL, one card a rank (4
+    ranks on a (2, 2) mesh where four cards are present, else 2 on (1,
+    2); seq on (1, 4) or (1, 2)), each against the port without a mesh;
+    with four, the reshard onto a world of 2 and seq on (1, 2) too. NCCL
+    takes no two ranks on one card, so this needs two cards or more."""
     n = torch.cuda.device_count()
     if n < 2:
         pytest.skip("needs two cards or more: NCCL takes one card a rank")
     world = 4 if n >= 4 else 2
     _lm_mesh_ranks(tmp_path, world, "all")
     if world == 4:
-        _lm_mesh_ranks(tmp_path, 2, "reshard2")
+        _lm_mesh_ranks(tmp_path, 2, "reshard2,seq")
 
 
 def test_bss2_cell_counts_on_card_equal_cpu(cuda):

@@ -18,7 +18,14 @@ numbers are made here and handed over as numpy files:
     data-parallel size, so a no-mesh reference is the wrong oracle. ``y``
     and the gradients at 1e-4, ``aux`` at 1e-5;
   * a checkpoint the reference wrote (``repro.checkpoint``), restored
-    onto the port's mesh.
+    onto the port's mesh;
+  * for the ``seq`` part, the six families and the reduced moonshot at
+    ``SEQ_TOTAL`` positions: logits, loss and every parameter's gradient
+    of the reference without a mesh, at rtol = atol = 1e-4.
+
+The ``seq`` part (the sequence split over ``model``) runs on a (1, 4)
+mesh in the 4-rank run and on (1, 2) beside the reshard in the 2-rank
+run.
 
 Counterparts of ``tests/test_moe_ep.py::test_moe_ep_matches_gspmd_
 subprocess``, ``tests/test_runtime.py::test_elastic_reshard_subprocess``
@@ -97,6 +104,20 @@ def _reference_data(data: Path):
             out["logits"] = np.asarray(jax.jit(rb.forward)(rp, rbatch)[0])
         out["loss"] = np.asarray(jax.jit(rb.loss)(rp, rbatch))
         np.savez(data / f"fam_{name}.npz", **out)
+    for name in H.ARCHS:
+        ra, rb, rp, pa, _, _ = setup(name)
+        b = H.seq_batch(pa)
+        rbatch = {k: jax.numpy.asarray(v) for k, v in b.items()}
+        out = {f"p/{k}": np.asarray(v) for k, v in
+               H.flatten(jax.tree.map(np.asarray, rp)).items()}
+        out.update({f"b/{k}": v for k, v in b.items()})
+        if pa.family != "audio":
+            out["logits"] = np.asarray(jax.jit(rb.forward)(rp, rbatch)[0])
+        loss, g = jax.jit(jax.value_and_grad(rb.loss))(rp, rbatch)
+        out["loss"] = np.asarray(loss)
+        out.update({f"g/{k}": v for k, v in
+                    H.flatten(jax.tree.map(np.asarray, g)).items()})
+        np.savez(data / f"seq_{name}.npz", **out)
     from repro.checkpoint import save_checkpoint
     save_checkpoint(data / "ref_ckpt", 1, dict(params=setup(
         "smollm-360m")[2]))
@@ -138,7 +159,7 @@ def runs(tmp_path_factory):
     (data / "PENDING").touch()
     out = {4: _run_ranks(tmp / "store4", 4, "all", data,
                          meanwhile=lambda: _reference_data(data))}
-    out[2] = _run_ranks(tmp / "store2", 2, "reshard2", data)
+    out[2] = _run_ranks(tmp / "store2", 2, "reshard2,seq", data)
     return out
 
 
@@ -203,6 +224,19 @@ def test_elastic_reshard(runs):
     _part_ok(runs, 2, "reshard2")
 
 
+@pytest.mark.parametrize("world", [2, 4])
+def test_sequence_split_over_model(runs, world):
+    """The sequence split over ``model`` on (1, 2) and (1, 4): the six
+    families and the reduced moonshot, the split crossing the SSD's
+    chunks and hymba's window blocks, with hymba's meta tokens and the
+    VLM's patches inside the positions. Logits, loss and every
+    parameter's gradient within 1e-4 of the reference and of no mesh;
+    the prefill's KV cache and SSM state within 1e-4 of no mesh and its
+    greedy tokens equal; the block-boundary activation, q, k, v and the
+    SSD's chunk tensors ``Shard(1)`` over ``model``."""
+    _part_ok(runs, world, "seq")
+
+
 def test_launch_meshes(runs):
     """``make_production_mesh`` on a world of 4 raises the ``ValueError``
     that names 256 (512 multi-pod); ``launch/train.py --smoke --mesh
@@ -210,4 +244,7 @@ def test_launch_meshes(runs):
     _part_ok(runs, 4, "launch")
     for rank, (rc, out, err) in enumerate(runs[4]):
         assert rc == 0 and f"LM_MESH_OK rank={rank} part=all" in out, \
+            out[-2000:] + err[-3000:]
+    for rank, (rc, out, err) in enumerate(runs[2]):
+        assert rc == 0 and "part=reshard2,seq" in out, \
             out[-2000:] + err[-3000:]

@@ -347,6 +347,39 @@ class TestAttentionPaths:
         got = PA.attention_decode(q[:, -1:], k, v, 31, window=5, ctx=ctx)
         np.testing.assert_allclose(to_np(got), np.asarray(ref), **TOL)
 
+    @pytest.mark.parametrize("window,kv_block", [(0, 64), (8, 16), (8, 24)])
+    def test_prefill_at_a_query_offset(self, window, kv_block):
+        """``attention_prefill(q_offset=)``: the last 24 of 64 queries
+        against all 64 keys equal the reference's at the same offset and
+        the rows of the whole prefill (the causal and window masks take
+        the queries' global positions)."""
+        q, k, v = _qkv(4, 2, 64, 4, 2, 16)
+        ctx = ShardingCtx()
+        got = PA.attention_prefill(q[:, 40:], k, v, causal=True,
+                                   window=window, ctx=ctx, kv_block=kv_block,
+                                   q_offset=40)
+        ref = jax.jit(lambda *a: RA.attention_prefill(
+            *a, causal=True, window=window, ctx=RefCtx(), kv_block=kv_block,
+            q_offset=40))(*_j(q[:, 40:], k, v))
+        np.testing.assert_allclose(to_np(got), np.asarray(ref), **TOL)
+        whole = PA.attention_prefill(q, k, v, causal=True, window=window,
+                                     ctx=ctx, kv_block=kv_block)
+        np.testing.assert_allclose(to_np(got), to_np(whole[:, 40:]), **TOL)
+
+    def test_swa_blocked_at_a_query_offset(self):
+        """``attention_swa_blocked(q_offset=)`` (a rank's w-blocks of a
+        split sequence, the block before them from the whole k/v): the
+        rows of the whole banded attention, at offsets 0, one block and
+        the last block."""
+        q, k, v = _qkv(5, 2, 64, 4, 2, 16)
+        ctx = ShardingCtx()
+        whole = PA.attention_swa_blocked(q, k, v, window=8, ctx=ctx)
+        for off, n in ((0, 16), (8, 24), (56, 8)):
+            got = PA.attention_swa_blocked(q[:, off:off + n], k, v, window=8,
+                                           ctx=ctx, q_offset=off)
+            np.testing.assert_allclose(to_np(got),
+                                       to_np(whole[:, off:off + n]), **TOL)
+
     def test_encoder_attention_is_bidirectional(self):
         q, k, v = _qkv(3, 1, 16, 2, 2, 8)
         ref = jax.jit(lambda *a: RA.attention_prefill(

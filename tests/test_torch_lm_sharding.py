@@ -185,7 +185,7 @@ def test_placements_follow_the_specs(mesh):
     specs. ``tree_pspecs`` gives ``MeshPlacement`` leaves, or the spec
     tuples."""
     from torch.distributed.tensor import Replicate, Shard
-    _, port = _ctxs(*mesh)
+    ref, port = _ctxs(*mesh)
     names = port.mesh.axis_names
     size = dict(zip(names, port.mesh.shape))
     for spec in [("data", "model"), (None, ("pod", "data")), (None, None),
@@ -211,10 +211,14 @@ def test_placements_follow_the_specs(mesh):
             assert s.mesh is port.mesh
             assert s.placements == port.placements(sp)
             assert s.placements == port.param_sharding(d.axes, d.shape)
-    # an activation's placements keep the sequence whole (``WHOLE``)
-    act = port.act_sharding((ps.Ax.BATCH, ps.Ax.SEQ, None), (8, 16, 4))
-    assert act == port.placements(port.act_pspec(
-        (ps.Ax.BATCH, None, None), (8, 16, 4)))
+    # an activation's placements are the reference's act spec, the
+    # sequence over ``model`` where it divides and demoted where not
+    for shape in ((8, 16, 4), (8, 15, 4), (8, 1, 4)):
+        axes = (ps.Ax.BATCH, ps.Ax.SEQ, None)
+        want = _norm(ref.act_pspec(axes, shape))
+        assert port.act_sharding(axes, shape) == port.placements(want)
+        seq = size["model"] > 1 and shape[1] % size["model"] == 0
+        assert (Shard(1) in port.act_sharding(axes, shape)) == seq, shape
     assert ps.ShardingCtx().param_sharding((ps.Ax.EMBED,), (4,)) is None
 
 
