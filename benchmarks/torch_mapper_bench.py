@@ -20,7 +20,10 @@ rungs:
   2048 spec on four 256 x 512 chips against one 968 x 2048 virtual chip,
   W = 4 windows of T = 128 (Poisson inputs, p = 0.05). ``rt.run`` timed
   with CUDA events (median and best of 5 after a warm-up), in
-  microseconds a window; the spikes of both equal bit for bit.
+  microseconds a window, as it runs by default (one captured window
+  replayed once a window; on the CPU the window loop's body) and with
+  ``eager=True`` (``run_windows``); the spikes of all four equal bit for
+  bit.
 
 Each number is printed beside the card's name and power limit. With
 ``--device cpu`` the windows run on the host clock, which is no device
@@ -155,19 +158,25 @@ def step_time(rng, device):
                                       device=device)
             net_inst = rt.net_inst
             res = {}
-
-            def run():
-                res["out"] = rt.run(ev)[1]
-            med, best = _timed(run, device)
-            spikes[label] = res["out"]["spikes"]
-            row[label] = dict(chips=n_chips, chip_rows=rows, chip_cols=cols,
-                              us_per_window=1e3 * med / W,
-                              best_us_per_window=1e3 * best / W,
-                              spikes=float(spikes[label].sum()))
+            row[label] = dict(chips=n_chips, chip_rows=rows, chip_cols=cols)
+            for mode, eager in (("", False), ("eager_", True)):
+                def run():
+                    res[mode] = rt.run(ev, eager=eager)[1]["spikes"]
+                med, best = _timed(run, device)
+                row[label].update({f"{mode}us_per_window": 1e3 * med / W,
+                                   f"{mode}best_us_per_window":
+                                   1e3 * best / W})
+            if not torch.equal(res[""], res["eager_"]):
+                raise AssertionError(f"{name}, {label}: run != eager run")
+            spikes[label] = res[""]
+            row[label]["spikes"] = float(spikes[label].sum())
+            r = row[label]
             print(f"{name}, {label} ({n_chips} x {rows} x {cols}): "
-                  f"{row[label]['us_per_window']:9.1f} us/window (best "
-                  f"{row[label]['best_us_per_window']:.1f}), "
-                  f"{row[label]['spikes']:.0f} spikes", flush=True)
+                  f"{r['us_per_window']:9.1f} us/window (best "
+                  f"{r['best_us_per_window']:.1f}), eager "
+                  f"{r['eager_us_per_window']:.1f} (best "
+                  f"{r['eager_best_us_per_window']:.1f}), "
+                  f"{r['spikes']:.0f} spikes", flush=True)
         if not torch.equal(spikes["mapped"], spikes["monolithic"]):
             raise AssertionError(f"{name}: mapped != monolithic spikes")
         row["mapped_over_monolithic"] = (row["mapped"]["us_per_window"]

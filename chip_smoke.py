@@ -162,9 +162,11 @@ Phases, each reported on its own line:
    the instance drawn at spec shapes from one ``torch.Generator``, 6
    windows of T = 128 (Poisson inputs, p = 0.05) through
    ``build_runtime(...).run`` with the launch counts set to 0 before and
-   read after (every kernel of the path launched, ``census`` none;
-   ``launches_path_f``);
-   one window under ``set_sync_debug_mode("error")``; the same at K = 2
+   read after (``run`` replays one captured window a window, so the
+   wrappers count the window's warm-up and capture: every kernel of the
+   path launched, ``census`` none; ``launches_path_f``);
+   one eager window and a replayed run under
+   ``set_sync_debug_mode("error")``; the same at K = 2
    (490 x 1024) and K = 1 (968 x 2048), spec-order spikes bit for bit
    (on a failure each K's routes by window and the first divergence are
    printed); window 0 again on the CPU (flips counted, 0 expected); a
@@ -172,9 +174,14 @@ Phases, each reported on its own line:
    (the mapping avoids every bad site; run with them killed by faults,
    equal to K = 1 bit for bit); at each of those geometries window 1's
    operands of every wrapper captured and each kernel held to its plain
-   version; K = 4 against K = 1 eager ms a window (CUDA events, in
-   turns) and a ``torch.profiler`` trace of 3 windows and of the router
-   alone.
+   version; at K = 4, 2, 1 and blacklisted, ``run``'s replays against
+   its eager windows (``eager=True``) from fresh telemetry counters:
+   state, spikes, routed grid, counters and route counts bit for bit, one
+   replay launching what one eager window launches, each graph's pool;
+   replay against eager ms a window at K = 4 and K = 1 (CUDA events, in
+   turns; the replays alone too) and the capture's ms; a
+   ``torch.profiler`` trace of 3 replayed windows, of 3 eager windows
+   and of the router alone.
 14. Path G, LM serving (``repro_torch.serve``): ``ServeEngine`` on
    qwen1.5-0.5b at full width in f32 (24 layers, d 1024, vocab 151,936,
    0.464 B parameters from ``init_params`` with a seeded generator on the
@@ -3055,39 +3062,25 @@ def _path_f_parity(rts, ev_g):
 
 
 def _path_f_blacklist(spec, net_inst, ev_g, spk1):
-    """A blacklist with rows, neurons and one dead link: path F's spec
-    fills the four native chips' columns exactly (2,048 neurons), so a
-    neuron blacklist needs spare columns: four chips of 264 rows x 528
-    columns, 5 even and 3 odd rows and 12 neurons a chip screened out, and
-    the link (0, 2) dead (the spec routes nothing on it, so no edge is
-    relayed). The mapping avoids every bad site; run with those sites
-    killed by faults, it equals the clean K = 1 run bit for bit."""
-    import numpy as np
+    """A blacklist with rows, neurons and one dead link
+    (``tests/_torch_mapper.py::path_f_blacklist``): four chips of 264 rows
+    x 528 columns, 5 even and 3 odd rows and 12 neurons a chip screened
+    out, and the link (0, 2) dead. The mapping avoids every bad site; run
+    with those sites killed by faults, it equals the clean K = 1 run bit
+    for bit."""
+    import _torch_mapper
     import torch
     from repro_torch import mapper
     from repro_torch.configs.bss2 import BSS2
-    from repro_torch.faults import Blacklist, FaultPlan
-    from repro_torch.wafer import WaferTopology
-    K, R, C = 4, 264, 528
-    rng = np.random.default_rng(41)
-    rows = np.zeros((K, R), bool)
-    neurons = np.zeros((K, C), bool)
-    for k in range(K):
-        rows[k, 2 * rng.choice(R // 2, 5, replace=False)] = True
-        rows[k, 2 * rng.choice(R // 2, 3, replace=False) + 1] = True
-        neurons[k, rng.choice(C, 12, replace=False)] = True
-    bl = Blacklist(rows=rows, neurons=neurons, links=((0, 2),))
-    m = mapper.map_network(spec, K, chip_rows=R, chip_cols=C, blacklist=bl)
+    m, bl, fp = _torch_mapper.path_f_blacklist(spec)
+    R, C = m.chip_rows, m.chip_cols
     routed_pairs = set(zip(m.plan.src_chip.tolist(),
                            m.plan.dst_chip.tolist()))
-    if ((m.row_source >= 0) & rows).any() or \
-            m.part.used_mask()[neurons].any() or (0, 2) in routed_pairs \
+    if ((m.row_source >= 0) & bl.rows).any() or \
+            m.part.used_mask()[bl.neurons].any() or (0, 2) in routed_pairs \
             or m.n_relayed_edges:
         raise AssertionError("[13] the blacklisted mapping uses a bad site "
                              f"or relays ({m.n_relayed_edges} edges)")
-    links = WaferTopology(K, "all2all").links()
-    fp = FaultPlan(dead_rows=rows, dead_neurons=neurons,
-                   dead_links=np.array([sd == (0, 2) for sd in links]))
     rt = mapper.build_runtime(m, cfg=BSS2, net_inst=net_inst, faults=fp,
                               device="cuda")
     spk = rt.run(ev_g)[1]["spikes"]
@@ -3101,16 +3094,111 @@ def _path_f_blacklist(spec, net_inst, ev_g, spk1):
     return rt
 
 
+def _path_f_replay_vs_eager(rt, ev_g, label):
+    """``rt.run`` replayed and eager from fresh telemetry counters
+    (``tests/_torch_mapper.py::replay_against_eager``): the final state,
+    the spikes, the last routed grid, every counter and the device's
+    route counts bit for bit, and one replay launching what one eager
+    window launches. Returns the graph."""
+    import _torch_mapper
+    from repro_torch.obs import trace as obs_trace
+    graph, differ, out, routes, per_window = \
+        _torch_mapper.replay_against_eager(rt, ev_g)
+    if differ:
+        raise AssertionError(f"[13] {label}: the replays and the eager "
+                             f"windows differ in {differ}")
+    tele = obs_trace.summary(out["telemetry"])
+    W = ev_g.shape[0]
+    log(f"[13] {label}: {W} replays == {W} eager windows bit for bit "
+        f"(state, spikes, routed grid, counters, routes {routes}); a replay "
+        f"launches {per_window}; pool {graph.pool_bytes / 2**20:.1f} MiB; "
+        f"counters steps {tele['steps']} in_events {tele['in_events']} "
+        f"out_spikes {tele['out_spikes']} routed_events "
+        f"{tele['routed_events']} link_overflows {tele['link_overflows']}")
+    return graph
+
+
+def _path_f_turns(rts, ev_g, turns=4):
+    """Replayed against eager ms a window at K = 4 and K = 1 (CUDA events,
+    ``turns`` runs of each in turns: replay, eager, eager, replay, ...):
+    ``run`` as a user calls it (placement, the load, W replays, gather
+    and clones) against ``run(..., eager=True)``, and the W replays
+    alone. Returns ``{K: {"replay": ms, "eager": ms, "replay_only":
+    ms}}`` (medians)."""
+    import numpy as np
+    import torch
+    W = ev_g.shape[0]
+
+    def timed(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / W
+    med = {}
+    for K in (4, 1):
+        rt = rts[K]
+        rt.run(ev_g)
+        graph = rt.loops[(W, ev_g.shape[1], False)][1]
+
+        def replays():
+            for _ in range(W):
+                graph.replay()
+        runs = (("replay", lambda: rt.run(ev_g)),
+                ("eager", lambda: rt.run(ev_g, eager=True)))
+        times = {"replay": [], "eager": [], "replay_only": []}
+        for i in range(turns):
+            for k, fn in (runs if i % 2 == 0 else runs[::-1]):
+                times[k].append(timed(fn))
+            graph.loop.reset()
+            times["replay_only"].append(timed(replays))
+        med[K] = {k: float(np.median(v)) for k, v in times.items()}
+        log(f"[13] K={K} ms a window (CUDA events, {W} windows a run, "
+            f"{turns} runs each in turns): run replayed median "
+            f"{med[K]['replay']:.4f} "
+            f"{[round(t, 4) for t in times['replay']]}, eager median "
+            f"{med[K]['eager']:.4f} "
+            f"{[round(t, 4) for t in times['eager']]}, the replays alone "
+            f"median {med[K]['replay_only']:.4f}; eager / replayed "
+            f"{med[K]['eager'] / med[K]['replay']:.2f}")
+    log(f"[13] K=4 / K=1 a window: replayed "
+        f"{med[4]['replay'] / med[1]['replay']:.2f}, eager "
+        f"{med[4]['eager'] / med[1]['eager']:.2f}")
+    return med
+
+
+def _path_f_capture_ms(rt, ev_g):
+    """Host ms of one capture of ``rt``'s window loop at ``ev_g``'s shape
+    (the warm-up window, the reset and the capture; ``LoopGraph``), and
+    the graph."""
+    import torch
+    from repro_torch.core.graph import LoopGraph
+    from repro_torch.wafer import WindowLoop
+    ev, ad = rt.place(ev_g)
+    loop = WindowLoop(rt.core, rt.router, rt.init_state(), ev, ad)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph = LoopGraph(loop)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, graph
+
+
 def phase_path_f():
     """Path F, the network mapper at full width: the 480 x 2048 spec
     mapped onto four native 256 x 512 chips and run through
-    ``build_runtime(...).run`` (6 windows of T = 128, eager, with the
-    launch counts set to 0 before and read after), chip-count parity
-    with K = 2 and K = 1, window 0 against the CPU, one window under
-    ``set_sync_debug_mode("error")``, a blacklisted mapping, every kernel
-    against its plain version at each geometry, CUDA-event times K = 4
-    against K = 1 and a ``torch.profiler`` trace. Returns the launches of
-    the K = 4 run."""
+    ``build_runtime(...).run`` (6 windows of T = 128 as replays of one
+    captured window, with the launch counts set to 0 before and read
+    after: the wrappers count the window's warm-up and capture),
+    chip-count parity with K = 2 and K = 1, window 0 against the CPU, an
+    eager window and a replayed run under ``set_sync_debug_mode
+    ("error")``, a blacklisted mapping, every kernel against its plain
+    version at each geometry, replays against eager windows bit for bit
+    at each geometry, CUDA-event times of replayed and eager windows at
+    K = 4 and K = 1, and ``torch.profiler`` traces. Returns the launches
+    of the K = 4 run."""
     import numpy as np
     import torch
     from repro_torch import kernels, mapper
@@ -3135,14 +3223,15 @@ def phase_path_f():
     ev_g = torch.from_numpy((rng.random((PATH_F_W, PATH_F_T, spec.n_in))
                              < 0.05).astype(np.float32)).to(dev)
     rt4 = rts[4]
-    rt4.run(ev_g[:2])                                  # warm-up
+    rt4.run(ev_g[:2])                     # warm-up: builds, a W = 2 graph
     torch.cuda.synchronize()
     routes = synapse.route_counts(dev)
     synapse.reset_route_counts()
     kernels.reset_launches()
-    state, out = rt4.run(ev_g)
+    state, out = rt4.run(ev_g)            # captures W = 6, then replays
     torch.cuda.synchronize()
     counts = dict(kernels.LAUNCHES)
+    graph4 = rt4.loops[(PATH_F_W, PATH_F_T, False)][1]
     missing = [k for k in PATH_F_KERNELS if not counts[k]]
     if missing or counts["census"]:
         raise AssertionError(f"[13] path F launched no {missing} or a "
@@ -3155,21 +3244,23 @@ def phase_path_f():
     for x in _flatten(state):
         if x.is_floating_point() and not bool(torch.isfinite(x).all()):
             raise AssertionError("[13] non-finite state after path F")
-    log(f"[13] path F, K=4, {PATH_F_W} eager windows: launches {counts}; "
-        f"routes [dense, sparse] on the device {routes.tolist()}; "
-        f"{float(spk.sum()):.0f} spikes, per window "
+    log(f"[13] path F, K=4, {PATH_F_W} windows replayed: launches {counts} "
+        f"(the window's warm-up and capture; each replay launches "
+        f"{graph4.launches}); routes [dense, sparse] on the device "
+        f"{routes.tolist()}; {float(spk.sum()):.0f} spikes, per window "
         f"{spk.sum((1, 2)).tolist()}")
 
-    # one window with no device-to-host read
+    # an eager window and a replayed run with no device-to-host read
     st0 = rt4.init_state()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        rt4.run(ev_g[:1], state=st0)
+        rt4.run(ev_g[:1], state=st0, eager=True)
+        rt4.run(ev_g, state=st0)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    log("[13] one window of rt.run under set_sync_debug_mode('error'): no "
-        "device-to-host read")
+    log("[13] one eager window and a replayed run of rt.run under "
+        "set_sync_debug_mode('error'): no device-to-host read")
 
     # chip-count parity
     outs = _path_f_parity(rts, ev_g)
@@ -3216,27 +3307,33 @@ def phase_path_f():
                       ("blacklisted (4 x 264 x 528)", bl_rt)):
         kparity[label] = _path_f_kernels(rt, ev_g, label)
 
-    # eager time a window, K = 4 against K = 1, in turns
-    times = {4: [], 1: []}
-    for i in range(4):
-        for K in ((4, 1) if i % 2 == 0 else (1, 4)):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            a.record()
-            rts[K].run(ev_g)
-            b.record()
-            b.synchronize()
-            times[K].append(a.elapsed_time(b) / PATH_F_W)
-    med = {K: float(np.median(v)) for K, v in times.items()}
-    log(f"[13] eager ms a window (CUDA events, {PATH_F_W} windows a run, 4 "
-        f"runs each in turns): K=4 median {med[4]:.4f} "
-        f"{[round(t, 4) for t in times[4]]}, K=1 median {med[1]:.4f} "
-        f"{[round(t, 4) for t in times[1]]}; K=4 / K=1 "
-        f"{med[4] / med[1]:.2f}")
+    # replays against eager windows at each geometry, with counters
+    pools = {}
+    for label, rt in (("K=4", rts[4]), ("K=2", rts[2]), ("K=1", rts[1]),
+                      ("blacklisted", bl_rt)):
+        pools[label] = _path_f_replay_vs_eager(rt, ev_g, label).pool_bytes
 
-    # where a window's time goes, and the router's own kernels
-    summ = _traced(lambda: rt4.run(ev_g[:3]), "path_f_windows", 3)
+    # replayed against eager time a window, K = 4 and K = 1, in turns
+    _path_f_turns(rts, ev_g)
+    caps = {K: _path_f_capture_ms(rts[K], ev_g) for K in (4, 1)}
+    log("[13] capture of the 6-window loop (host ms: warm-up window, "
+        "reset, capture): " + ", ".join(
+            f"K={K} {ms:.1f} ms, pool {g.pool_bytes / 2**20:.1f} MiB"
+            for K, (ms, g) in caps.items()) + "; pools of the parity "
+        "graphs with counters: " + ", ".join(
+            f"{k} {v / 2**20:.1f} MiB" for k, v in pools.items()))
+    del caps
+
+    # where a window's time goes, replayed and eager, and the router's
+    # own kernels
+    rt4.run(ev_g[:3])                     # the W = 3 graph, captured
+    torch.cuda.synchronize()
+    g_summ = _traced(lambda: rt4.run(ev_g[:3]), "path_f_replays", 3)
+    graph4.loop.reset()                   # 2 x 3 replays of the 6 windows
+    o_summ = _traced(lambda: [graph4.replay() for _ in range(3)],
+                     "path_f_graph", 3)
+    summ = _traced(lambda: rt4.run(ev_g[:3], eager=True), "path_f_windows",
+                   3)
     _, o1 = rt4.core.run_routed(rt4.init_state(),
                                 rt4.router.init_buffer(PATH_F_T), ev_d[0],
                                 ad_d[0], rt4.router)
@@ -3249,19 +3346,45 @@ def phase_path_f():
     r_summ = _traced(route_calls, "path_f_router", 3)
     # a trace that lost device events (seen once: a corr launch and the
     # router's kernels missing) is reported as such, not as numbers
-    n_corr = 0 if summ is None else sum(
-        c for k, (_, c) in summ["by_name"].items()
-        if k.startswith("corr_kernel"))
+    def n_corr(sm):
+        return 0 if sm is None else sum(
+            c for k, (_, c) in sm["by_name"].items()
+            if k.startswith("corr_kernel"))
+    if g_summ is None or not g_summ["by_name"]:
+        log("[13] profiler, replays: NO DEVICE TIME in the trace")
+    elif n_corr(g_summ) != 3:
+        log(f"[13] profiler, replays: the trace lost device events "
+            f"(corr_kernel x{n_corr(g_summ)} of 3 windows); its numbers "
+            f"are not reported")
+    else:
+        top = sorted(g_summ["by_name"].items(), key=lambda kv: -kv[1][0])[:8]
+        w, bz = g_summ["window_us"], g_summ["busy_us"]
+        log(f"[13] profiler, 3 replayed windows of K=4 (rt.run): window "
+            f"{w / 1e3:.3f} ms, device busy {bz / 1e3:.3f} ms = "
+            f"{bz / w:.4f} of it; {g_summ['kernels_per_trial']:.1f} kernels "
+            f"a window; by name: "
+            + "; ".join(f"{k} {t / 1e3:.4f} ({c})" for k, (t, c) in top))
+    if o_summ is None or not o_summ["by_name"] or n_corr(o_summ) != 3:
+        log("[13] profiler, the replays alone: no device time, or the "
+            "trace lost device events; not reported")
+    else:
+        w, bz = o_summ["window_us"], o_summ["busy_us"]
+        log(f"[13] profiler, 3 replays alone of K=4 (graph.replay()): "
+            f"window {w / 1e3:.3f} ms, device busy {bz / 1e3:.3f} ms = "
+            f"{bz / w:.4f} of it; {o_summ['kernels_per_trial']:.1f} "
+            f"kernels a replay")
     if summ is None or r_summ is None or not summ["by_name"]:
         log("[13] profiler: NO DEVICE TIME in the trace")
-    elif n_corr != 3 or not r_summ["kernels_per_trial"]:
+    elif n_corr(summ) != 3 or not r_summ["kernels_per_trial"]:
         log(f"[13] profiler: the traces lost device events (corr_kernel "
-            f"x{n_corr} of 3 windows, {r_summ['kernels_per_trial']:.1f} "
-            f"router kernels a call); their numbers are not reported")
+            f"x{n_corr(summ)} of 3 windows, "
+            f"{r_summ['kernels_per_trial']:.1f} router kernels a call); "
+            f"their numbers are not reported")
     else:
         top = sorted(summ["by_name"].items(), key=lambda kv: -kv[1][0])[:8]
         w, bz = summ["window_us"], summ["busy_us"]
-        log(f"[13] profiler, 3 eager windows of K=4: window {w / 1e3:.3f} "
+        log(f"[13] profiler, 3 eager windows of K=4 (rt.run(..., eager="
+            f"True)): window {w / 1e3:.3f} "
             f"ms, device busy {bz / 1e3:.3f} ms = {bz / w:.4f} of it; "
             f"{summ['kernels_per_trial']:.1f} kernels a window; by name: "
             + "; ".join(f"{k} {t / 1e3:.4f} ({c})" for k, (t, c) in top))

@@ -55,10 +55,12 @@ from typing import Any, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from repro_torch import kernels, resolve_device
+from repro_torch import resolve_device
 from repro_torch.configs.bss2 import BSS2, BSS2Config
 from repro_torch.core import synapse
 from repro_torch.core.anncore import AnnCore, AnnCoreState
+from repro_torch.core.graph import (LoopGraph, assign, clones,
+                                    leaves as _leaves, rebuild as _rebuild)
 from repro_torch.core.ppu import VectorUnit
 from repro_torch.faults.model import (as_plans, chain, remap_link_faults,
                                       slice_chips)
@@ -103,29 +105,6 @@ class Draws(NamedTuple):
     """Every random number a run consumes after the instance."""
     events: torch.Tensor          # [n_trials, T, *prefix, 2I] float32 {0,1}
     xi: torch.Tensor              # [n_trials, *prefix, I, C] float32
-
-
-def _leaves(tree):
-    """The tensors of a tree of NamedTuples, in order (an empty slot,
-    ``None``, has none)."""
-    if tree is None:
-        return []
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    return [x for v in tree for x in _leaves(v)]
-
-
-def _rebuild(tree, leaves):
-    """``tree`` with its tensors replaced by ``leaves`` (in order)."""
-    it = iter(leaves)
-
-    def build(t):
-        if t is None:
-            return None
-        if isinstance(t, torch.Tensor):
-            return next(it)
-        return type(t)(*(build(v) for v in t))
-    return build(tree)
 
 
 def _patterns(ecfg: RSTDPConfig) -> Tuple[np.ndarray, np.ndarray]:
@@ -566,7 +545,7 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
             loops[key] = loop, run
         for _ in range(loop.n):
             run()
-        return (_rebuild(loop.state, [x.clone() for x in _leaves(loop.state)]),
+        return (clones(loop.state),
                 {k: v.clone() for k, v in loop.history().items()})
 
     loops = scanned_training.loops = {}
@@ -649,7 +628,7 @@ class TrialLoop:
         dev = state.w_signed.device
         self.trial = trial
         self.initial = state
-        self.state = _rebuild(state, [x.clone() for x in _leaves(state)])
+        self.state = clones(state)
         self.stims = torch.as_tensor(stims, dtype=torch.int32).to(dev)
         self.n = self.stims.shape[0]
         if self.n == 0:
@@ -678,22 +657,8 @@ class TrialLoop:
         self.step += 1
 
     def _assign(self, new: ExperimentState):
-        """Copy ``new`` into the loop's state tensors. A leaf the trial
-        passed through unchanged is the state tensor itself; a leaf that
-        shares memory with another state tensor is copied out first, so
-        no copy reads what an earlier one wrote."""
-        dst = _leaves(self.state)
-        src = _leaves(new)
-        held = {x.untyped_storage().data_ptr() for x in dst}
-        src = [s if s is d or s.untyped_storage().data_ptr() not in held
-               else s.clone() for s, d in zip(src, dst)]
-        for s, d in zip(src, dst):
-            if s.shape != d.shape or s.dtype != d.dtype:
-                raise ValueError(f"TrialLoop: a state tensor changed from "
-                                 f"{d.dtype}{tuple(d.shape)} to "
-                                 f"{s.dtype}{tuple(s.shape)}")
-            if s is not d:
-                d.copy_(s)
+        """Copy ``new`` into the loop's state tensors (``graph.assign``)."""
+        assign(_leaves(self.state), _leaves(new), "TrialLoop")
 
     def reset(self):
         """The state back to the given state, the counter to 0."""
@@ -718,62 +683,10 @@ class TrialLoop:
         return dict(self.hist, stim=self.stims)
 
 
-class TrialGraph:
-    """``TrialLoop.body`` captured once as a CUDA graph; ``replay()`` runs
-    the next trial.
-
-    Before the capture one body runs on a side stream, on the loop's clone
-    of the state: it builds the kernels, fills the lazy caches on the path
-    (``AnnCore``'s packed neuron parameters, the census's ticket, the
-    device's route counter) and allocates the histories. Then the loop's
-    state and counter are reset and the route counter is set back to its
-    value before that trial. The capture runs under
-    ``torch.cuda.set_sync_debug_mode("error")``: a trial that reads the
-    host, or copies host data to the device, raises instead of being
-    captured. Nothing falls back to eager trials.
-
-    ``launches`` holds the kernel launches the wrappers counted while the
-    trial was captured: what each replay launches (the wrappers' own
-    counts do not move under replay). ``pool_bytes`` is what the capture
-    added to the allocator's reserved memory: the graph's private pool,
-    which holds the trial's intermediate tensors."""
-
-    captures = 0        # graphs captured in this process
-
-    def __init__(self, loop: TrialLoop):
-        dev = loop.step.device
-        if dev.type != "cuda":
-            raise ValueError(f"TrialGraph: CUDA graphs need a CUDA device, "
-                             f"not {dev}")
-        self.loop = loop
-        routes = synapse.route_counts(dev)
-        before = routes.clone()
-        cur = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            loop.body()
-            loop.reset()
-            routes.copy_(before)
-        cur.wait_stream(side)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        counted = dict(kernels.LAUNCHES)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                loop.body()
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
-        self.launches = {k: v - counted[k] for k, v in kernels.LAUNCHES.items()}
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        TrialGraph.captures += 1
-
-    def replay(self):
-        self.graph.replay()
+# ``TrialLoop.body`` captured once as a CUDA graph; ``replay()`` runs the
+# next trial (the capture code is ``graph.LoopGraph``, shared with the
+# mapped runtime's window loop)
+TrialGraph = LoopGraph
 
 
 def make_scanned_training(meta):

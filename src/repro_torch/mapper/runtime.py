@@ -25,8 +25,18 @@ The placement is host numpy, done once when a runtime is built; what
 ``MappedRuntime.run`` needs of it (the input rows, the address plane,
 the neurons' chips and columns, the weight and address planes) lies on
 the runtime's device as tensors, so a run moves nothing between the host
-and the device. Windows run eagerly through
-``wafer.router.run_windows``.
+and the device.
+
+The W windows of a run are one device dispatch, as the reference's
+jitted ``lax.scan`` over them is (``repro/mapper/runtime.py:152-170``):
+``run`` loads the placed inputs into a ``wafer.router.WindowLoop`` kept
+on the runtime per (W, T, telemetry on or off), and on a CUDA device
+replays one captured window (``core.graph.LoopGraph``) once a window; on
+the CPU, which has no graphs, the same loop body runs window by window.
+A capture that fails raises. ``run(..., eager=True)`` runs the windows
+eagerly through ``wafer.router.run_windows``, and so does a runtime
+under a ``torch.distributed`` group of more than one rank: the sharded
+transport's point-to-point sends and all-gathers are not captured.
 
 Contract test: ``tests/test_torch_mapper.py`` (K in {1, 2, 4}, fused and
 blocked backends, ring and all2all, with and without a blacklist).
@@ -43,11 +53,12 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.bss2 import BSS2, BSS2Config
 from repro_torch.core.anncore import AnnCore
+from repro_torch.core.graph import LoopGraph
 from repro_torch.faults.model import slice_chips
 from repro_torch.mapper.mapping import ChipMapping
 from repro_torch.mapper.spec import NetworkSpec
 from repro_torch.verif.mismatch import ideal_instance, sample_instance
-from repro_torch.wafer.router import InterChipRouter, run_windows
+from repro_torch.wafer.router import InterChipRouter, WindowLoop, run_windows
 
 
 def sample_network_instance(spec: NetworkSpec, generator: torch.Generator,
@@ -186,6 +197,8 @@ class MappedRuntime:
     ``router`` the plan's ``InterChipRouter``; ``net_inst`` the
     spec-shaped mismatch draw the per-chip ``inst`` was scattered from
     (reuse it to build the monolithic reference of the SAME silicon).
+    ``loops`` holds ``run``'s window loops by (W, T, telemetry on), each
+    with its captured ``LoopGraph`` (``None`` on the CPU).
     """
     mapping: ChipMapping
     chip_cfg: BSS2Config
@@ -197,6 +210,7 @@ class MappedRuntime:
     _tables: _Tables = field(init=False, repr=False)
     _planes: tuple = field(init=False, repr=False)
     _addr: Dict = field(init=False, repr=False, default_factory=dict)
+    loops: Dict = field(init=False, repr=False, default_factory=dict)
 
     def __post_init__(self):
         self._tables = _Tables.of(self.mapping, self.device)
@@ -245,7 +259,7 @@ class MappedRuntime:
             chip_spikes = full.movedim(0, -2)
         return gather_spikes(self.mapping, chip_spikes, self._tables)
 
-    def run(self, ev_in, telemetry=None, state=None):
+    def run(self, ev_in, telemetry=None, state=None, eager=False):
         """Emulate W windows of a [W, T, n_in] external stimulus.
 
         Returns ``(state, out)`` where ``out["spikes"]`` is the
@@ -253,17 +267,43 @@ class MappedRuntime:
         keeps the raw [W, T, K, C] planes, this rank's chips under a
         group; routed grid and telemetry as ``run_windows`` returns
         them). With ``telemetry=True`` on the core and no counters given,
-        window 0 starts fresh ones and ``run_windows`` carries them
-        through the later windows: the counters span all W windows.
+        fresh ones start before window 0: the counters span all W windows.
+
+        The windows run through the runtime's ``WindowLoop`` of this
+        (W, T, telemetry on): on a CUDA device its window is captured at
+        the first run of the shape and replayed once a window, later runs
+        of the shape load their inputs and replay the same graph; on the
+        CPU its body runs window by window. The results are clones, and
+        ``state`` is left as it was. ``eager=True``, or a group of more
+        than one rank, runs ``run_windows`` instead: the same bits.
         """
         ev, ad = self.place(ev_in)
         if state is None:
             state = self.init_state()
-        state, out = run_windows(self.core, self.router, state, ev, ad,
-                                 telemetry=telemetry)
+        if eager or self.router.dp > 1:
+            state, out = run_windows(self.core, self.router, state, ev, ad,
+                                     telemetry=telemetry)
+        else:
+            state, out = self._replay(state, ev, ad, telemetry)
         out["chip_spikes"] = out["spikes"]
         out["spikes"] = self.gather(out["chip_spikes"])
         return state, out
+
+    def _replay(self, state, ev, ad, telemetry):
+        key = (ev.shape[0], ev.shape[1],
+               telemetry is not None or self.core.telemetry)
+        if key in self.loops:
+            loop, graph = self.loops[key]
+            loop.load(state, ev, ad, telemetry)
+        else:
+            loop = WindowLoop(self.core, self.router, state, ev, ad,
+                              telemetry)
+            graph = LoopGraph(loop) if self.device.type == "cuda" else None
+            self.loops[key] = loop, graph
+        step = loop.body if graph is None else graph.replay
+        for _ in range(loop.n):
+            step()
+        return loop.result()
 
 
 def build_runtime(mapping: ChipMapping, cfg: Optional[BSS2Config] = None,

@@ -28,7 +28,7 @@ hardware's inter-chip bus delay. Per window the router
 Every table is a tensor on the router's device, made once at
 construction, and every budget a Python int of the plan, so a routing
 step reads nothing from the host and builds nothing from host data: it
-runs inside a captured trial graph.
+runs inside a captured trial or window graph (``core.graph``).
 
 Transports. With no ``group`` the router is local: one process holds
 every chip. With a ``torch.distributed`` process group of ``dp`` ranks
@@ -49,6 +49,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import events
+from repro_torch.core.graph import assign, clones, leaves
 from repro_torch.faults import inject as finject
 from repro_torch.obs import trace as obs_trace
 from repro_torch.wafer.topology import WaferPlan
@@ -323,9 +324,10 @@ def run_windows(core, router: InterChipRouter, state, ev_w, ad_w,
                 telemetry=None):
     """W routed windows: ``ev_w`` / ``ad_w`` are [W, T, K, R] external
     inputs; each window's spikes are routed into the next window's inputs
-    (one-window latency). A Python loop: on the card the trial graph is
-    where a capture happens. Returns ``(state, dict(spikes=[W, T, K, C],
-    routed=last grid, telemetry=...))``."""
+    (one-window latency). A Python loop of eager windows (``WindowLoop``
+    runs the same windows through tensors of its own, which a CUDA graph
+    can capture). Returns ``(state, dict(spikes=[W, T, K, C], routed=last
+    grid, telemetry=...))``."""
     routed = router.init_buffer(ev_w.shape[1])
     spikes = []
     for w in range(ev_w.shape[0]):
@@ -335,3 +337,98 @@ def run_windows(core, router: InterChipRouter, state, ev_w, ad_w,
         spikes.append(out["spikes"])
     return state, dict(spikes=torch.stack(spikes), routed=routed,
                        telemetry=telemetry)
+
+
+class WindowLoop:
+    """``run_windows`` as a loop of one body with no host work in it (the
+    reference's ``lax.scan`` over the windows; the window counterpart of
+    ``core.hybrid.TrialLoop``).
+
+    ``body()`` runs the window at the loop's step counter, a tensor on the
+    device: it reads that window's inputs from the loop's own [W, T, K, R]
+    copies of ``ev_w`` / ``ad_w``, runs ``core.run_routed`` on the loop's
+    state, routed grid and telemetry counters, writes the window's spikes
+    into a [W, T, K, C] buffer at the counter, copies the new state, grid
+    and counters into the loop's tensors (``graph.assign``) and advances
+    the counter. Nothing in it reads the host or builds a tensor from host
+    data, so a CUDA graph can capture it (``graph.LoopGraph``).
+
+    With ``telemetry=None`` and a core built with telemetry on, the loop
+    makes fresh counters here (the core's lazy init would allocate inside
+    the body); the counters span all W windows. The spike buffer is
+    allocated by the first ``body()``."""
+
+    def __init__(self, core, router: InterChipRouter, state, ev_w, ad_w,
+                 telemetry=None):
+        if ev_w.shape[0] == 0:
+            raise ValueError("WindowLoop: no windows to run")
+        dev = ev_w.device
+        self.core, self.router = core, router
+        self.n = ev_w.shape[0]
+        self.ev_w = ev_w.clone(memory_format=torch.contiguous_format)
+        self.ad_w = ad_w.clone(memory_format=torch.contiguous_format)
+        self.initial, self.tele_initial = state, telemetry
+        self.state = clones(state)
+        self.routed = router.init_buffer(ev_w.shape[1])
+        self.tele = None
+        if telemetry is not None:
+            self.tele = clones(telemetry)
+        elif core.telemetry:
+            self.tele = obs_trace.init_telemetry(dev)
+        self.step = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.spikes = None
+
+    def _carry(self):
+        return leaves(self.state) + [self.routed] + leaves(self.tele)
+
+    def body(self):
+        i = self.step
+        new, out = self.core.run_routed(
+            self.state, self.routed, self.ev_w.index_select(0, i)[0],
+            self.ad_w.index_select(0, i)[0], self.router,
+            telemetry=self.tele)
+        spk = out["spikes"]
+        if self.spikes is None:
+            self.spikes = spk.new_empty((self.n, *spk.shape))
+        self.spikes.index_copy_(0, i, spk.unsqueeze(0))
+        assign(self._carry(), leaves(new) + [out["routed"]]
+               + leaves(out.get("telemetry")), "WindowLoop")
+        self.step += 1
+
+    def reset(self):
+        """The state and counters back to the given ones, the routed grid
+        silent, the counter to 0."""
+        for d, s in zip(leaves(self.state), leaves(self.initial)):
+            d.copy_(s)
+        self.routed.zero_()
+        if self.tele_initial is None:
+            for d in leaves(self.tele):
+                d.zero_()
+        else:
+            for d, s in zip(leaves(self.tele), leaves(self.tele_initial)):
+                d.copy_(s)
+        self.step.zero_()
+
+    def load(self, state, ev_w, ad_w, telemetry=None):
+        """Another run of as many windows through the same tensors:
+        ``state`` and ``telemetry`` become the given ones, ``ev_w`` and
+        ``ad_w`` (the same shapes) are copied into the loop's, and the
+        loop is reset."""
+        if len(leaves(state)) != len(leaves(self.state)):
+            raise ValueError("WindowLoop.load: the state has other fields")
+        if (telemetry is not None or self.core.telemetry) != (
+                self.tele is not None):
+            raise ValueError("WindowLoop.load: telemetry on where the loop "
+                             "has it off, or off where it has it on")
+        self.initial, self.tele_initial = state, telemetry
+        self.ev_w.copy_(ev_w)
+        self.ad_w.copy_(ad_w)
+        self.reset()
+
+    def result(self):
+        """``(state, dict(spikes=[W, T, K, C], routed=last grid,
+        telemetry=...))`` as ``run_windows`` returns them, cloned from the
+        loop's tensors."""
+        return clones(self.state), dict(
+            spikes=self.spikes.clone(), routed=self.routed.clone(),
+            telemetry=None if self.tele is None else clones(self.tele))

@@ -8,7 +8,8 @@ the default; nccl on card ``RANK``, one card a rank), holds chips
 routed windows as the local transport on every chip (which it runs too):
 its spikes, delivered grids and link counters must equal the local
 run's slice bit for bit. Last, a mapped network (``repro_torch.mapper``)
-through ``build_runtime(group=)`` against the local runtime. The
+through ``build_runtime(group=)`` (windows eager under the group)
+against the local runtime (its window loop). The
 ``gaps`` part runs what the reference takes with its ``ctx`` /
 ``wafer_ctx``: a mapped network with dead rows, a hot neuron and a dead
 link through ``build_runtime(group=, faults=)``, and ``run_training(
@@ -259,9 +260,13 @@ def main(rank, world, store, backend="gloo", part="transport"):
             spec, torch.Generator().manual_seed(9), device=dev)
         ev_in = torch.from_numpy((np.random.default_rng(8).random(
             (W, T, 16)) < 0.3).astype(np.float32)).to(dev)
-        _, loc = build_runtime(m, net_inst=net_inst, device=dev).run(ev_in)
-        _, sh = build_runtime(m, net_inst=net_inst, device=dev,
-                              group=group).run(ev_in)
+        loc_rt = build_runtime(m, net_inst=net_inst, device=dev)
+        _, loc = loc_rt.run(ev_in)
+        sh_rt = build_runtime(m, net_inst=net_inst, device=dev, group=group)
+        _, sh = sh_rt.run(ev_in)
+        # the local runtime runs its window loop; under a group of more
+        # than one rank the windows run eagerly (no loop), by design
+        assert len(loc_rt.loops) == 1 and not sh_rt.loops, topology
         assert torch.equal(sh["spikes"], loc["spikes"]), topology
         assert torch.equal(sh["chip_spikes"],
                            loc["chip_spikes"][:, :, chips]), topology

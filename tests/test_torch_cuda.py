@@ -41,7 +41,13 @@ capture raises; a second scanned run replays its graph. The wafer: the
 router's delivered grids and link counters equal the CPU's bit for bit
 in every mode (link faults and failover forwards included),
 ``run_training(wafer=2)``'s graph, eager and host-loop runs bit-equal,
-and chip-count parity (K = 1, 2, 4) bit for bit.
+and chip-count parity (K = 1, 2, 4) bit for bit. The mapper:
+``MappedRuntime.run``'s replays of one captured window equal its eager
+windows bit for bit (state, spikes, routed grid, telemetry, route
+counts; a replay launches what an eager window launches) at path F's
+geometries and on small relay, link-fault and compact-link runtimes; a
+window that reads the host fails to capture; a replay after
+``stp_scan``'s step-count buffer grew is unchanged.
 """
 import dataclasses
 import math
@@ -1567,6 +1573,142 @@ def test_sharded_transport_on_nccl(cuda, tmp_path):
     for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {rank}:\n{out[-2000:]}{err[-4000:]}"
         assert f"WAFER_SHARDED_OK rank={rank} cases=14" in out, out + err
+
+
+def _replay_equals_eager(rt, ev_in):
+    """``_torch_mapper.replay_against_eager``: ``rt.run``'s replays and
+    its eager windows, from fresh counters, give the same state, spikes,
+    routed grid, counters and route counts bit for bit, and a replay
+    launches what an eager window launches. Returns the replayed run's
+    output."""
+    import _torch_mapper
+    graph, differ, out, _, _ = _torch_mapper.replay_against_eager(rt, ev_in)
+    assert graph is not None and not differ, differ
+    assert out["spikes"].sum() > 0
+    return out
+
+
+@pytest.mark.parametrize("geometry", ["k4", "k2", "k1", "blacklist"])
+def test_mapped_run_replay_equals_eager_at_path_f(cuda, geometry):
+    """Path F's 480 x 2048 spec on four 256 x 512, two 490 x 1024 and one
+    968 x 2048 chip, and on the blacklisted four 264 x 528 chips (its bad
+    sites killed by faults), over 4 windows of T = 128: ``run``'s replays
+    equal its eager windows bit for bit (``_replay_equals_eager``), and
+    every geometry's spec-order spikes equal the K = 1 run's."""
+    import _torch_mapper
+    from repro_torch import mapper
+    spec = _torch_mapper.path_f_spec()
+    ni = mapper.sample_network_instance(
+        spec, torch.Generator().manual_seed(31), cfg=BSS2, device=cuda)
+    ev_in = t((np.random.default_rng(13).random((4, 128, spec.n_in))
+               < 0.05).astype(np.float32)).to(cuda)
+    if geometry == "blacklist":
+        m, _, fp = _torch_mapper.path_f_blacklist(spec)
+        rt = mapper.build_runtime(m, cfg=BSS2, net_inst=ni, faults=fp,
+                                  device=cuda)
+    else:
+        m = _torch_mapper.path_f_mappings(spec)[int(geometry[1])]
+        rt = mapper.build_runtime(m, cfg=BSS2, net_inst=ni, device=cuda)
+    out = _replay_equals_eager(rt, ev_in)
+    # every window gated: each half's route counted once a window
+    assert sum(synapse.route_counts(cuda).tolist()) == 2 * 4
+    m1 = _torch_mapper.path_f_mappings(spec)[1]
+    _, o1 = mapper.build_runtime(m1, cfg=BSS2, net_inst=ni,
+                                 device=cuda).run(ev_in, eager=True)
+    assert torch.equal(out["spikes"], o1["spikes"])
+
+
+@pytest.mark.parametrize("case", ["ring_relay", "link_faults", "compact",
+                                  "k4_blocked"])
+def test_mapped_run_replay_equals_eager_small(cuda, case):
+    """The small runtimes of ``tests/test_torch_mapper_loop.py`` on the
+    card (blocked backend): a ring plan with a relayed edge (the forward
+    rule reads last window's routed grid inside the graph), dead and
+    flaky links, the compact link mode's stream cumsums; replay equals
+    eager bit for bit, the forwards and overflows counted."""
+    import _torch_mapper
+    rt, ev = _torch_mapper.small_runtime(case, telemetry=False, W=4, T=32,
+                                         device=cuda, backend="blocked")
+    out = _replay_equals_eager(rt, t(ev).to(cuda))
+    summ = obs_trace.summary(out["telemetry"])
+    bites = {"ring_relay": "link_reroutes", "compact": "link_overflows",
+             "link_faults": "faults_injected"}.get(case)
+    if bites:
+        assert summ[bites] > 0, bites
+
+
+def test_mapped_capture_under_sync_debug_error(cuda, monkeypatch):
+    """``run``'s capture runs under ``set_sync_debug_mode("error")`` and
+    puts the previous mode back: the window body is entered twice (warm-up
+    and capture), not once a window. A window that reads the host fails to
+    capture: ``run`` raises, keeps no loop and runs no window eagerly in
+    its place."""
+    import _torch_mapper
+    rt, ev = _torch_mapper.small_runtime("k2_fused", telemetry=True,
+                                         device=cuda, backend="blocked")
+    ev = t(ev).to(cuda)
+    modes = []
+    real = rt.core.run_routed
+
+    def run_routed(*args, **kw):
+        modes.append(torch.cuda.get_sync_debug_mode())
+        return real(*args, **kw)
+    monkeypatch.setattr(rt.core, "run_routed", run_routed)
+    before = torch.cuda.get_sync_debug_mode()
+    rt.run(ev)
+    rt.run(ev)                                  # a replay: no body
+    assert modes == [before, 2]
+    assert torch.cuda.get_sync_debug_mode() == before
+
+    rt2, _ = _torch_mapper.small_runtime("k2_fused", telemetry=True,
+                                         device=cuda, backend="blocked")
+    calls = []
+    real2 = rt2.core.run_routed
+
+    def reads_host(state, routed, ev_t, *args, **kw):
+        calls.append(float(ev_t.sum()))
+        return real2(state, routed, ev_t, *args, **kw)
+    monkeypatch.setattr(rt2.core, "run_routed", reads_host)
+    with pytest.raises(RuntimeError):
+        rt2.run(ev)
+    torch.cuda.synchronize()
+    assert not rt2.loops and len(calls) == 1    # the warm-up only
+
+
+def test_mapped_replay_after_a_larger_eager_launch(cuda):
+    """The K = 1 path-F window captured, then the K = 4 runtime run eagerly
+    and a census-form ``stp_scan`` launch that grows the step-count buffer
+    past what the capture saw: the K = 1 replay is unchanged (the graph
+    keeps summing into the buffer it captured, ``stp_ops._HELD``)."""
+    import _torch_mapper
+    from repro_torch import mapper
+    spec = _torch_mapper.path_f_spec()
+    maps = _torch_mapper.path_f_mappings(spec)
+    ni = mapper.sample_network_instance(
+        spec, torch.Generator().manual_seed(31), cfg=BSS2, device=cuda)
+    ev_in = t((np.random.default_rng(13).random((4, 128, spec.n_in))
+               < 0.05).astype(np.float32)).to(cuda)
+    rt1, rt4 = (mapper.build_runtime(maps[K], cfg=BSS2, net_inst=ni,
+                                     device=cuda) for K in (1, 4))
+    _, first = rt1.run(ev_in)
+    _, o4 = rt4.run(ev_in, eager=True)
+    held = stp_ops._COUNTS[ev_in.device].numel()
+    kw = dict(u=0.2, recovery=float(1.0 - math.exp(-0.2 / 20.0)))
+    T = held // 4 + 1
+    r0, sp, scale = (t(x).to(cuda) for x in _stp_census_operands(
+        T, (4,), 968, "bursts"))
+    caps = tuple(synapse.route_plan(T, len(range(h, 968, 2)), 512,
+                                    const_addr=True, sparse="always")[1:]
+                 for h in (0, 1))
+    stp_ops.stp_scan(r0, sp, scale, caps=caps, **kw)
+    torch.cuda.synchronize()
+    assert max(c.numel() for c in stp_ops._COUNTS.values()) > held
+    _, again = rt1.run(ev_in)
+    for k in ("spikes", "chip_spikes", "routed"):
+        assert torch.equal(again[k], first[k]), k
+    assert torch.equal(first["spikes"], o4["spikes"])
+    _, eager = rt1.run(ev_in, eager=True)
+    assert torch.equal(eager["chip_spikes"], first["chip_spikes"])
 
 
 # ---------------------------------------------------------------------------

@@ -14,8 +14,9 @@ reference (``repro.mapper``), on the CPU.
 - ``scatter_instance``, ``place_inputs`` and ``gather_spikes`` exact
   against the reference, given the reference's spec-shaped ``net_inst``
   through ``convert.instance``.
-- ``MappedRuntime.run`` against the reference's at 30-32 neurons (both on
-  the fused backend, the reference's default): tier 2, window by window
+- ``MappedRuntime.run`` (its window loop, ``wafer.router.WindowLoop``)
+  against the reference's jitted run at 30-32 neurons (both on the
+  fused backend, the reference's default): tier 2, window by window
   from the reference's state and routed grid, spikes equal up to flips
   where the membrane of the run that did not spike lies within
   rtol = atol = 1e-4 of threshold (``_torch_parity``); with no flip the
@@ -439,6 +440,7 @@ def test_run_equal_to_reference(case):
         routed_j = out_j["routed"]
     _, free_j = rt_j.run(ev)
     _, free_t = rt_t.run(torch.from_numpy(ev))
+    assert list(rt_t.loops) == [(3, 24, False)]     # the window loop ran
     assert np.asarray(free_j["spikes"]).sum() > 0
     if flips == 0:
         assert_array_equal(free_t["spikes"].numpy(),
