@@ -181,7 +181,23 @@ Phases, each reported on its own line:
    replay against eager ms a window at K = 4 and K = 1 (CUDA events, in
    turns; the replays alone too) and the capture's ms; a
    ``torch.profiler`` trace of 3 replayed windows, of 3 eager windows
-   and of the router alone.
+   and of the router alone. Then the same K = 4 runtime under a
+   ``torch.distributed`` group (``build_runtime(group=)``, each rank
+   holding its block of the four chips; ``tests/_torch_wafer_sharded.py::
+   path_f``): a world of 1 on NCCL through a file store under ``build/``
+   on any card, and where two cards or more are present, ``min(4, n)``
+   NCCL ranks as child processes, each under a time limit (a line says
+   which forms ran). Each rank's window is captured under
+   ``set_sync_debug_mode("error")`` with the sharded transport's
+   collectives inside the graph; its replays equal its eager windows bit
+   for bit (state, spikes, routed grid, counters, route counts; a replay
+   launching what an eager window launches), the gathered spikes equal
+   the runtime without a group and one 968 x 2048 chip; ``rt.run``
+   replayed and eager under the group and the runtime without a group
+   timed in turns (CUDA events), the replays alone, a fresh capture's
+   host ms and pool, 3 bare replays traced (device operations a
+   replay, NCCL's kernels among them). A rank that fails fails the phase. Its numbers go on a
+   ``mapped_path_f_grouped`` JSON line.
 14. Path G, LM serving (``repro_torch.serve``): ``ServeEngine`` on
    qwen1.5-0.5b at full width in f32 (24 layers, d 1024, vocab 151,936,
    0.464 B parameters from ``init_params`` with a seeded generator on the
@@ -305,6 +321,7 @@ fails; the last line is the JSON device record.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -3186,6 +3203,101 @@ def _path_f_capture_ms(rt, ev_g):
     return (time.perf_counter() - t0) * 1e3, graph
 
 
+def _path_f_ranks(world, timeout=420):
+    """``world`` NCCL ranks of ``tests/_torch_wafer_sharded.py``'s
+    ``path_f`` part as child processes, one card a rank, all under
+    ``timeout`` seconds (every child is killed on the way out; each
+    rank's output kept in ``build/``). Returns each rank's
+    ``PATH_F_GROUPED`` record; a rank that fails raises."""
+    build = REPO / "build"
+    store = build / f"path_f_store_{world}"
+    store.unlink(missing_ok=True)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    # each rank writes to a file: a pipe read one rank after another could
+    # fill and stall a rank that the others wait for in a collective
+    logs = [build / f"path_f_rank{rank}_of_{world}.log"
+            for rank in range(world)]
+    procs = []
+    try:
+        for rank, path in enumerate(logs):
+            with open(path, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable,
+                     str(REPO / "tests" / "_torch_wafer_sharded.py"),
+                     str(rank), str(world), str(store), "nccl", "path_f"],
+                    stdout=f, stderr=subprocess.STDOUT, env=env,
+                    cwd=str(REPO)))
+        t_end = time.time() + timeout
+        for p in procs:
+            p.wait(timeout=max(1.0, t_end - time.time()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs = []
+    for rank, (p, path) in enumerate(zip(procs, logs)):
+        out = path.read_text(errors="replace")
+        line = next((x for x in out.splitlines()
+                     if x.startswith("PATH_F_GROUPED ")), None)
+        if p.returncode != 0 or line is None or \
+                f"WAFER_SHARDED_OK rank={rank} cases=4" not in out:
+            raise AssertionError(f"[13] grouped path F, world {world}, rank "
+                                 f"{rank} failed (rc {p.returncode}):\n"
+                                 f"{out[-6000:]}")
+        recs.append(json.loads(line.split(" ", 1)[1]))
+    return recs
+
+
+def _path_f_grouped():
+    """Path F's K = 4 runtime under a group (see the module docstring,
+    phase 13): a world of 1 on NCCL in this process, then ``min(4, n)``
+    ranks as children where ``n >= 2`` cards are present. Returns
+    ``{world: [record of each rank]}``."""
+    import torch
+    import torch.distributed as dist
+    import _torch_wafer_sharded as sharded
+    torch.cuda.set_device(0)
+    (REPO / "build").mkdir(exist_ok=True)
+    store = REPO / "build" / "path_f_store"
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        _, rec = sharded.path_f(dist.group.WORLD, slice(0, 4),
+                                torch.device("cuda", 0), W=PATH_F_W)
+    finally:
+        # path_f's graphs hold NCCL work: they must be gone before the
+        # group is destroyed (a live one hangs the teardown)
+        gc.collect()
+        dist.destroy_process_group()
+    recs = {1: [rec]}
+    n = torch.cuda.device_count()
+    if n >= 2:
+        world = min(4, n)
+        log(f"[13] grouped path F ran as: a world of 1 in this process, and "
+            f"{world} NCCL ranks as child processes ({n} cards)")
+        recs[world] = _path_f_ranks(world)
+    else:
+        log("[13] grouped path F ran as: a world of 1 in this process only "
+            "(one card; the multi-rank form needs two or more)")
+    for world, rs in recs.items():
+        for r in rs:
+            t = {k: round(v["median"], 4) for k, v in r["ms_a_window"].items()}
+            tr = r["trace"] or {}
+            log(f"[13] grouped path F, world {world} rank {r['rank']} (chips "
+                f"{r['chips']}): replays == eager windows == the runtime "
+                f"without a group == one chip, bit for bit; ms a window "
+                f"(medians in turns) {t}; capture {r['capture_ms']:.1f} ms, "
+                f"pool {r['pool_mib']:.1f} MiB; a replay launches "
+                f"{ {k: v for k, v in r['launches_a_replay'].items() if v} }, "
+                f"{tr.get('ops', 'not traced')} device operations "
+                f"({tr.get('kernels', '-')} kernels, {tr.get('nccl', '-')} "
+                f"NCCL), busy {tr.get('busy_share', '-')} of 3 traced "
+                f"replays")
+    return recs
+
+
 def phase_path_f():
     """Path F, the network mapper at full width: the 480 x 2048 spec
     mapped onto four native 256 x 512 chips and run through
@@ -3392,6 +3504,10 @@ def phase_path_f():
             f"window 0's spikes): device busy {r_summ['busy_us'] / 1e3:.4f} "
             f"ms, {r_summ['kernels_per_trial']:.1f} kernels a call, "
             f"{r_summ['busy_us'] / bz:.4f} of the windows' busy time")
+
+    grouped = _path_f_grouped()
+    print("mapped_path_f_grouped " + json.dumps(
+        {str(w): rs for w, rs in grouped.items()}), flush=True)
     return counts
 
 

@@ -8,7 +8,12 @@ into the loop's carry tensors (``assign``) and advances the counter.
 ``LoopGraph`` captures that body once and replays it once a step.
 
 Two loops use it: ``core.hybrid.TrialLoop`` (the §5 experiment's trials)
-and ``wafer.router.WindowLoop`` (a mapped network's routed windows).
+and ``wafer.router.WindowLoop`` (a mapped network's routed windows). Under
+a ``torch.distributed`` group their bodies hold the router's NCCL
+collectives, and the graph holds them too: the warm-up body issues them
+eagerly first (so a communicator NCCL sets up lazily is made there, not
+under the capture), and every rank of the group captures and replays the
+same loop at the same call.
 """
 from __future__ import annotations
 

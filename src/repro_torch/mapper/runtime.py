@@ -33,10 +33,12 @@ jitted ``lax.scan`` over them is (``repro/mapper/runtime.py:152-170``):
 on the runtime per (W, T, telemetry on or off), and on a CUDA device
 replays one captured window (``core.graph.LoopGraph``) once a window; on
 the CPU, which has no graphs, the same loop body runs window by window.
-A capture that fails raises. ``run(..., eager=True)`` runs the windows
-eagerly through ``wafer.router.run_windows``, and so does a runtime
-under a ``torch.distributed`` group of more than one rank: the sharded
-transport's point-to-point sends and all-gathers are not captured.
+Under a ``torch.distributed`` group each rank's loop holds its own chips,
+and the sharded transport's collectives (``wafer.router``) are captured
+inside the window graph, as the reference's ``shard_map`` collectives lie
+inside its scan. A capture that fails raises. ``run(..., eager=True)``
+runs the windows eagerly through ``wafer.router.run_windows``, on one
+rank and under a group.
 
 Contract test: ``tests/test_torch_mapper.py`` (K in {1, 2, 4}, fused and
 blocked backends, ring and all2all, with and without a blacklist).
@@ -274,13 +276,24 @@ class MappedRuntime:
         the first run of the shape and replayed once a window, later runs
         of the shape load their inputs and replay the same graph; on the
         CPU its body runs window by window. The results are clones, and
-        ``state`` is left as it was. ``eager=True``, or a group of more
-        than one rank, runs ``run_windows`` instead: the same bits.
+        ``state`` is left as it was. ``eager=True`` runs ``run_windows``
+        instead: the same bits.
+
+        Under a group the loop holds this rank's [W, T, K_loc, R] inputs,
+        routed grid and spike buffer, and its graph holds the sharded
+        transport's collectives; ``gather``'s all-gather runs after the
+        replays, outside the graph. Every rank must make the same calls
+        in the same order: the loop's key (W, T, telemetry on) is the
+        same on every rank, so every rank builds, captures and replays
+        the same loops at the same calls, and a rank that ran eagerly
+        while another replayed would leave both waiting on the other.
+        Drop the runtime (its graphs hold NCCL work) before the group is
+        destroyed: NCCL does not tear down a group under a live graph.
         """
         ev, ad = self.place(ev_in)
         if state is None:
             state = self.init_state()
-        if eager or self.router.dp > 1:
+        if eager:
             state, out = run_windows(self.core, self.router, state, ev, ad,
                                      telemetry=telemetry)
         else:

@@ -38,7 +38,12 @@ its chips: the ring moves the one link that crosses to the next rank
 point to point (the reference's ``ppermute``), all2all gathers every
 rank's link grids (the reference's masked ``all_gather``), and the
 per-link census is summed over the ranks (``psum``). Both are bit-equal
-to the local transport (``tests/test_torch_wafer_sharded.py``).
+to the local transport (``tests/test_torch_wafer_sharded.py``). Like the
+reference's collectives inside its ``shard_map``ped scan, these run
+inside the captured trial and window graphs (``core.graph``): NCCL
+captures the ring's coalesced send / receive pair, the all-gather and
+the all-reduce, and every rank replays them in the same order. A graph
+that holds them must be freed before its group is destroyed.
 """
 from __future__ import annotations
 

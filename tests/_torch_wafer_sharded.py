@@ -1,6 +1,6 @@
 """One rank of the sharded-transport check (``tests/test_torch_wafer_
 sharded.py`` starts two of them): ``python _torch_wafer_sharded.py RANK
-WORLD STORE_FILE [gloo|nccl] [transport|gaps]``.
+WORLD STORE_FILE [gloo|nccl] [transport|gaps|path_f]``.
 
 Each rank joins a process group through a file store (gloo on the CPU,
 the default; nccl on card ``RANK``, one card a rank), holds chips
@@ -8,15 +8,24 @@ the default; nccl on card ``RANK``, one card a rank), holds chips
 routed windows as the local transport on every chip (which it runs too):
 its spikes, delivered grids and link counters must equal the local
 run's slice bit for bit. Last, a mapped network (``repro_torch.mapper``)
-through ``build_runtime(group=)`` (windows eager under the group)
-against the local runtime (its window loop). The
-``gaps`` part runs what the reference takes with its ``ctx`` /
-``wafer_ctx``: a mapped network with dead rows, a hot neuron and a dead
-link through ``build_runtime(group=, faults=)``, and ``run_training(
-wafer=4, group=)`` (clean and faulted), each equal to the local
-transport's slice. Not collected by pytest (no ``test_`` prefix).
+through ``build_runtime(group=)``: its windows run through the rank's
+window loop (replays of one captured window on a card, the sharded
+transport's collectives inside the graph), equal to the local runtime's
+slice, to its own eager windows and, on a second stimulus, to a fresh
+runtime. The ``gaps`` part runs what the reference takes with its
+``ctx`` / ``wafer_ctx``: a mapped network with dead rows, a hot neuron
+and a dead link through ``build_runtime(group=, faults=)``, and
+``run_training(wafer=4, group=)`` (clean and faulted; on a card one
+captured trial graph with the collectives inside), each equal to the
+local transport's slice. The ``path_f`` part (a card a rank, world 1, 2
+or 4) runs path F's 480 x 2048 network on four full chips under the
+group (``path_f``): replays against eager windows, against the local
+runtime and against one chip, timed; it prints one ``PATH_F_GROUPED``
+JSON line. Not collected by pytest (no ``test_`` prefix).
 """
 import dataclasses
+import gc
+import json
 import sys
 from pathlib import Path
 
@@ -28,6 +37,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
 from repro_torch.configs.bss2 import BSS2  # noqa: E402
 from repro_torch.core.anncore import AnnCore  # noqa: E402
+from repro_torch.core.graph import leaves  # noqa: E402
 from repro_torch.core.hybrid import run_training, stimuli  # noqa: E402
 from repro_torch.faults import FaultPlan, screen_links  # noqa: E402
 from repro_torch.mapper import (build_runtime, map_network,  # noqa: E402
@@ -59,6 +69,80 @@ def counters(tele):
     return {k: s[k] for k in COUNTERS}
 
 
+def _mapping(topology):
+    """``(mapping, spec)``: a 16 -> 32 random spec with ring-crossing
+    recurrence on four 64 x 8 chips."""
+    n = 32
+    spec = random_spec(np.random.default_rng(7), 16, n, fan_out=4,
+                       rec_fan_out=3, rec_mask=ring_mask(n))
+    return map_network(spec, K, chip_rows=64, chip_cols=n // K,
+                       topology=topology), spec
+
+
+def _stimulus(seed, dev):
+    return torch.from_numpy((np.random.default_rng(seed).random(
+        (W, T, 16)) < 0.3).astype(np.float32)).to(dev)
+
+
+def same_run(a, b, what):
+    """Two ``run`` results bit for bit: state, spikes, per-chip planes,
+    routed grid and counters."""
+    (s_a, o_a), (s_b, o_b) = a, b
+    for i, (x, y) in enumerate(zip(leaves(s_a), leaves(s_b))):
+        assert torch.equal(x, y), (what, "state", i)
+    for k in ("spikes", "chip_spikes", "routed"):
+        assert torch.equal(o_a[k], o_b[k]), (what, k)
+    assert counters(o_a["telemetry"]) == counters(o_b["telemetry"]), \
+        (what, counters(o_a["telemetry"]), counters(o_b["telemetry"]))
+
+
+def mapped(group, chips, dev):
+    """A mapped network through ``build_runtime(group=)``, ring and
+    all2all: each rank runs its chips through its window loop (one loop on
+    each runtime), the spec-order spikes (gathered over the group) equal
+    the local runtime's and its chips' planes the local planes' slice;
+    with counters, the loop equals the rank's eager windows
+    (``eager=True``); a second stimulus through the same loop equals a
+    fresh runtime's run."""
+    checked = 0
+    for topology in ("ring", "all2all"):
+        m, spec = _mapping(topology)
+        net_inst = sample_network_instance(
+            spec, torch.Generator().manual_seed(9), device=dev)
+        ev_in = _stimulus(8, dev)
+        loc_rt = build_runtime(m, net_inst=net_inst, device=dev)
+        _, loc = loc_rt.run(ev_in)
+        sh_rt = build_runtime(m, net_inst=net_inst, device=dev, group=group)
+        _, sh = sh_rt.run(ev_in)
+        assert len(loc_rt.loops) == 1 and len(sh_rt.loops) == 1, topology
+        assert torch.equal(sh["spikes"], loc["spikes"]), topology
+        assert torch.equal(sh["chip_spikes"],
+                           loc["chip_spikes"][:, :, chips]), topology
+        assert torch.equal(sh["routed"], loc["routed"][:, chips]), topology
+        assert loc["spikes"].sum() > 0 and loc["routed"].sum() > 0
+        checked += 1
+
+        # the loop against the rank's eager windows, with counters
+        replayed, eager = (sh_rt.run(ev_in, telemetry=obs.init_telemetry(
+            dev), eager=e) for e in (False, True))
+        assert len(sh_rt.loops) == 2, topology
+        same_run(replayed, eager, (topology, "loop vs eager"))
+        assert counters(replayed[1]["telemetry"])["routed_events"] > 0
+        checked += 1
+
+        # another stimulus through the same loops, against a fresh runtime
+        ev2 = _stimulus(18, dev)
+        again = sh_rt.run(ev2, telemetry=obs.init_telemetry(dev))
+        fresh = build_runtime(m, net_inst=net_inst, device=dev,
+                              group=group).run(
+            ev2, telemetry=obs.init_telemetry(dev))
+        assert len(sh_rt.loops) == 2, topology
+        same_run(again, fresh, (topology, "second run vs fresh"))
+        assert not torch.equal(again[1]["spikes"], replayed[1]["spikes"])
+        checked += 1
+    return checked
+
+
 def mapped_with_faults(group, chips, dev):
     """``build_runtime(group=, faults=)`` against the local runtime with
     the same plan: dead rows and a hot neuron on two chips' planes, a dead
@@ -66,15 +150,11 @@ def mapped_with_faults(group, chips, dev):
     equal; the plan changes the run."""
     checked = 0
     for topology in ("ring", "all2all"):
-        n = 32
-        spec = random_spec(np.random.default_rng(7), 16, n, fan_out=4,
-                           rec_fan_out=3, rec_mask=ring_mask(n))
-        m = map_network(spec, K, chip_rows=64, chip_cols=n // K,
-                        topology=topology)
+        m, spec = _mapping(topology)
+        n = spec.n_neurons
         net_inst = sample_network_instance(
             spec, torch.Generator().manual_seed(9), device=dev)
-        ev_in = torch.from_numpy((np.random.default_rng(8).random(
-            (W, T, 16)) < 0.3).astype(np.float32)).to(dev)
+        ev_in = _stimulus(8, dev)
         _, clean = build_runtime(m, net_inst=net_inst, device=dev).run(ev_in)
         busy = clean["routed"].sum(dim=(0, 2))     # events a chip gets
         dst = int(torch.argmax(busy))
@@ -89,8 +169,10 @@ def mapped_with_faults(group, chips, dev):
                        dead_links=dead)
         _, loc = build_runtime(m, net_inst=net_inst, device=dev, faults=fp,
                                telemetry=True).run(ev_in)
-        _, sh = build_runtime(m, net_inst=net_inst, device=dev, faults=fp,
-                              telemetry=True, group=group).run(ev_in)
+        sh_rt = build_runtime(m, net_inst=net_inst, device=dev, faults=fp,
+                              telemetry=True, group=group)
+        sh_st, sh = sh_rt.run(ev_in)
+        assert len(sh_rt.loops) == 1, topology
         assert torch.equal(sh["spikes"], loc["spikes"]), topology
         assert torch.equal(sh["chip_spikes"],
                            loc["chip_spikes"][:, :, chips]), topology
@@ -101,6 +183,10 @@ def mapped_with_faults(group, chips, dev):
         assert not torch.equal(loc["routed"], clean["routed"]), topology
         assert counters(loc["telemetry"])["faults_injected"] == \
             fp.total_sites
+        checked += 1
+        # the faulted loop against the rank's eager windows
+        same_run((sh_st, sh), sh_rt.run(ev_in, eager=True),
+                 (topology, "faulted loop vs eager"))
         checked += 1
     return checked
 
@@ -146,22 +232,167 @@ def training(group, chips, dev):
     return checked
 
 
-def main(rank, world, store, backend="gloo", part="transport"):
-    if backend == "nccl":
-        dev = torch.device("cuda", rank)
-        torch.cuda.set_device(dev)
-    else:
-        dev = torch.device("cpu")
-    dist.init_process_group(backend, init_method=f"file://{store}",
-                            rank=rank, world_size=world)
-    group = dist.group.WORLD
-    chips = slice(rank * K // world, (rank + 1) * K // world)
-    if part == "gaps":
-        checked = (mapped_with_faults(group, chips, dev)
-                   + training(group, chips, dev))
-        dist.destroy_process_group()
-        print(f"WAFER_SHARDED_OK rank={rank} cases={checked}", flush=True)
-        return
+def _replays_traced(graph, n=3):
+    """``torch.profiler`` over ``n`` bare replays of ``graph`` (at most
+    its loop's windows): the device operations a replay (kernels, copies
+    and sets: the tracer reports a graph's copy node as a copy or as a
+    ``memcpy32_post`` kernel, so only the sum is stable), its kernels and
+    NCCL's among them, and the device's busy share of the traced span;
+    ``None`` where the trace holds no device kernel."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    n = min(n, graph.loop.n)
+    graph.loop.reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            graph.replay()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e)
+                 for e in events if e.get("ph") == "X" and "dur" in e
+                 and str(e.get("cat", "")).lower() in
+                 ("kernel", "gpu_memcpy", "gpu_memset"))
+    kern = [e for *_, e in dev if str(e.get("cat", "")).lower() == "kernel"]
+    if not kern:
+        return None
+    busy, end = 0.0, None
+    for a, b, _ in dev:
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return dict(ops=len(dev) / n, kernels=len(kern) / n,
+                nccl=sum("nccl" in e["name"].lower() for e in kern) / n,
+                busy_share=busy / (dev[-1][1] - dev[0][0]))
+
+
+def _path_f_times(rt_g, rt_loc, ev, graph, turns):
+    """ms a window (CUDA events on this rank's card, medians of ``turns``
+    runs of each in turns): ``rt.run`` replayed and eager under the group,
+    the local runtime's ``rt.run`` replayed, and the group's W replays
+    alone, each loop captured before. Every rank runs the same calls in
+    the same order."""
+    W = ev.shape[0]
+
+    def timed(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / W
+
+    def replays():
+        for _ in range(W):
+            graph.replay()
+    runs = (("replayed", lambda: rt_g.run(ev)),
+            ("eager", lambda: rt_g.run(ev, eager=True)),
+            ("local_replayed", lambda: rt_loc.run(ev)))
+    times = {k: [] for k, _ in runs}
+    times["replays_alone"] = []
+    for i in range(turns):
+        for k, fn in (runs if i % 2 == 0 else runs[::-1]):
+            times[k].append(timed(fn))
+        graph.loop.reset()
+        times["replays_alone"].append(timed(replays))
+    return {k: dict(median=float(np.median(v)), runs=v)
+            for k, v in times.items()}
+
+
+def path_f(group, chips, dev, W=6, turns=4):
+    """Path F's 480 x 2048 spec on four native 256 x 512 chips under the
+    group, W windows of T = 128 (``tests/_torch_mapper.py``), on a card:
+
+    - the window is captured under ``set_sync_debug_mode("error")`` (the
+      body is entered twice: warm-up and capture), and ``run``'s replays
+      equal the rank's eager windows bit for bit, with counters and route
+      counts, a replay launching what an eager window launches
+      (``_torch_mapper.replay_against_eager``);
+    - the gathered spikes equal the local K = 4 runtime's and the one
+      968 x 2048 chip's, the rank's planes, routed grid and counters the
+      local run's slice;
+    - timed (``_path_f_times``), a fresh capture timed on the host, and 3
+      bare replays traced.
+
+    Returns ``(checks, record)``."""
+    import time
+    import _torch_mapper
+    from repro_torch.configs.bss2 import BSS2
+    from repro_torch.core.graph import LoopGraph
+    from repro_torch.wafer import WindowLoop
+    assert dev.type == "cuda", "path_f replays captured windows: a card"
+    spec = _torch_mapper.path_f_spec()
+    maps = _torch_mapper.path_f_mappings(spec)
+    ni = sample_network_instance(spec, torch.Generator().manual_seed(31),
+                                 cfg=BSS2, device=dev)
+    ev = torch.from_numpy((np.random.default_rng(13).random(
+        (W, 128, spec.n_in)) < 0.05).astype(np.float32)).to(dev)
+    rt_g = build_runtime(maps[4], cfg=BSS2, net_inst=ni, device=dev,
+                         group=group)
+    rt_loc = build_runtime(maps[4], cfg=BSS2, net_inst=ni, device=dev)
+    rt_1 = build_runtime(maps[1], cfg=BSS2, net_inst=ni, device=dev)
+
+    modes = []
+    real = rt_g.core.run_routed
+
+    def run_routed(*args, **kw):
+        modes.append(torch.cuda.get_sync_debug_mode())
+        return real(*args, **kw)
+    before = torch.cuda.get_sync_debug_mode()
+    rt_g.core.run_routed = run_routed
+    try:
+        graph, differ, out, routes, per_window = \
+            _torch_mapper.replay_against_eager(rt_g, ev)
+    finally:
+        del rt_g.core.run_routed
+    assert modes == [before, 2] + [before] * W, modes
+    assert graph is not None and not differ, differ
+    assert out["spikes"].sum() > 0 and out["routed"].sum() > 0
+    assert sum(routes) == 2 * W, routes
+
+    loc = rt_loc.run(ev, telemetry=obs.init_telemetry(dev))[1]
+    one = rt_1.run(ev)[1]
+    assert torch.equal(out["spikes"], loc["spikes"])
+    assert torch.equal(out["spikes"], one["spikes"])
+    assert torch.equal(out["chip_spikes"], loc["chip_spikes"][:, :, chips])
+    assert torch.equal(out["routed"], loc["routed"][:, chips])
+    assert counters(out["telemetry"]) == counters(loc["telemetry"]), \
+        (counters(out["telemetry"]), counters(loc["telemetry"]))
+
+    rt_g.run(ev)                    # the loops the timed runs replay
+    rt_loc.run(ev)
+    graph_off = rt_g.loops[(W, 128, False)][1]
+    times = _path_f_times(rt_g, rt_loc, ev, graph_off, turns)
+    place = rt_g.place(ev)
+    loop = WindowLoop(rt_g.core, rt_g.router, rt_g.init_state(), *place)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh = LoopGraph(loop)
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    rec = dict(world=rt_g.router.dp, rank=rt_g.router.rank,
+               chips=[chips.start, chips.stop], W=W, T=128,
+               device=torch.cuda.get_device_name(dev),
+               ms_a_window=times, capture_ms=capture_ms,
+               pool_mib=fresh.pool_bytes / 2**20,
+               launches_a_replay=graph_off.launches, routes=routes,
+               spikes=float(out["spikes"].sum()),
+               routed_events=counters(out["telemetry"])["routed_events"],
+               trace=_replays_traced(graph_off))
+    return 4, rec
+
+
+def transport(group, chips, dev):
+    """The router's sharded transport against the local one (every link
+    mode, ring and all2all, link faults and forwards, the link screen),
+    then ``mapped``; a group that does not divide K raises."""
     cfg = dataclasses.replace(BSS2.reduced(), n_rows=R, n_cols=C)
     inst = sample_instance(cfg, torch.Generator().manual_seed(3), (K,),
                            device=dev)
@@ -247,33 +478,7 @@ def main(rank, world, store, backend="gloo", part="transport"):
                                           group=g)) for g in (None, group)]
     assert found[0] == found[1] == ((0, 2), (1, 3)), found
 
-    # a mapped network through build_runtime(group=): each rank runs its
-    # chips, the spec-order spikes (gathered over the group) equal the
-    # local runtime's, and its chips' planes the local planes' slice
-    for topology in ("ring", "all2all"):
-        n = 32
-        spec = random_spec(np.random.default_rng(7), 16, n, fan_out=4,
-                           rec_fan_out=3, rec_mask=ring_mask(n))
-        m = map_network(spec, K, chip_rows=64, chip_cols=n // K,
-                        topology=topology)
-        net_inst = sample_network_instance(
-            spec, torch.Generator().manual_seed(9), device=dev)
-        ev_in = torch.from_numpy((np.random.default_rng(8).random(
-            (W, T, 16)) < 0.3).astype(np.float32)).to(dev)
-        loc_rt = build_runtime(m, net_inst=net_inst, device=dev)
-        _, loc = loc_rt.run(ev_in)
-        sh_rt = build_runtime(m, net_inst=net_inst, device=dev, group=group)
-        _, sh = sh_rt.run(ev_in)
-        # the local runtime runs its window loop; under a group of more
-        # than one rank the windows run eagerly (no loop), by design
-        assert len(loc_rt.loops) == 1 and not sh_rt.loops, topology
-        assert torch.equal(sh["spikes"], loc["spikes"]), topology
-        assert torch.equal(sh["chip_spikes"],
-                           loc["chip_spikes"][:, :, chips]), topology
-        assert torch.equal(sh["routed"], loc["routed"][:, chips]), topology
-        assert loc["spikes"].sum() > 0 and loc["routed"].sum() > 0
-        checked += 1
-
+    checked += mapped(group, chips, dev)
     try:
         InterChipRouter(make_plan(WaferTopology(3, "ring"), R, C, []),
                         device=dev, group=group)
@@ -281,7 +486,33 @@ def main(rank, world, store, backend="gloo", part="transport"):
         assert "divides the chip count" in str(e)
     else:
         raise AssertionError("a group that does not divide K was taken")
+    return checked
+
+
+def main(rank, world, store, backend="gloo", part="transport"):
+    if backend == "nccl":
+        dev = torch.device("cuda", rank)
+        torch.cuda.set_device(dev)
+    else:
+        dev = torch.device("cpu")
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    group = dist.group.WORLD
+    chips = slice(rank * K // world, (rank + 1) * K // world)
+    rec = None
+    if part == "gaps":
+        checked = (mapped_with_faults(group, chips, dev)
+                   + training(group, chips, dev))
+    elif part == "path_f":
+        checked, rec = path_f(group, chips, dev)
+    else:
+        checked = transport(group, chips, dev)
+    # the captured graphs hold NCCL work: they must be gone before the
+    # group is destroyed (a live one hangs the teardown)
+    gc.collect()
     dist.destroy_process_group()
+    if rec is not None:
+        print("PATH_F_GROUPED " + json.dumps(rec), flush=True)
     print(f"WAFER_SHARDED_OK rank={rank} cases={checked}", flush=True)
 
 

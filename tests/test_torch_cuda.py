@@ -47,7 +47,13 @@ windows bit for bit (state, spikes, routed grid, telemetry, route
 counts; a replay launches what an eager window launches) at path F's
 geometries and on small relay, link-fault and compact-link runtimes; a
 window that reads the host fails to capture; a replay after
-``stp_scan``'s step-count buffer grew is unchanged.
+``stp_scan``'s step-count buffer grew is unchanged. Under NCCL (a card a
+rank, child processes of ``tests/_torch_wafer_sharded.py`` under a time
+limit): the sharded transport, the mapped window graphs and
+``run_training(wafer=4, group=)``'s trial graph with the collectives
+inside equal to the local transport, and path F's K = 4 runtime under 1,
+2 and 4 ranks replaying equal to its eager windows, the local runtime
+and one chip bit for bit.
 """
 import dataclasses
 import math
@@ -1541,38 +1547,93 @@ def test_path_f_kernels_at_mapped_geometries(cuda, N, R, C):
         assert torch.equal(x, y)
 
 
-def test_sharded_transport_on_nccl(cuda, tmp_path):
-    """``tests/_torch_wafer_sharded.py`` on NCCL, one card a rank (4 ranks
-    where four cards are present, else 2): the sharded router and the
-    mapped runtime under a group equal to the local ones. NCCL takes no
-    two ranks on one card, so this needs two cards or more."""
+def _sharded_ranks(tmp_path, world, part, timeout=300):
+    """``world`` ranks of ``tests/_torch_wafer_sharded.py`` on NCCL, one
+    card a rank, running ``part``, all under one time limit (a rank that
+    captures while another runs eagerly hangs: the limit fails it).
+    Returns each rank's output; fails on a rank's exit code."""
     import os
     import subprocess
     import sys
+    import time
     from pathlib import Path
-    n = torch.cuda.device_count()
-    if n < 2:
-        pytest.skip("needs two cards or more: NCCL takes one card a rank")
-    world = 4 if n >= 4 else 2
     here = Path(__file__).resolve().parent
     env = dict(os.environ, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, str(here / "_torch_wafer_sharded.py"), str(rank),
-         str(world), str(tmp_path / "store"), "nccl"],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-        for rank in range(world)]
-    outs = []
+    store = tmp_path / f"store_{part}_{world}"
+    # each rank writes to a file: a pipe read one rank after another could
+    # fill and stall a rank that the others wait for in a collective
+    logs = [tmp_path / f"{part}_{world}_rank{rank}.log"
+            for rank in range(world)]
+    procs = []
     try:
+        for rank, path in enumerate(logs):
+            with open(path, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(here / "_torch_wafer_sharded.py"),
+                     str(rank), str(world), str(store), "nccl", part],
+                    stdout=f, stderr=subprocess.STDOUT, env=env))
+        t_end = time.time() + timeout
         for p in procs:
-            outs.append(p.communicate(timeout=300))
+            p.wait(timeout=max(1.0, t_end - time.time()))
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
-    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {rank}:\n{out[-2000:]}{err[-4000:]}"
-        assert f"WAFER_SHARDED_OK rank={rank} cases=14" in out, out + err
+                p.wait()
+    outs = [path.read_text(errors="replace") for path in logs]
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {rank}:\n{out[-6000:]}"
+    return outs
+
+
+def test_sharded_transport_on_nccl(cuda, tmp_path):
+    """``tests/_torch_wafer_sharded.py`` on NCCL, one card a rank (4 ranks
+    where four cards are present, else 2): the sharded router and the
+    mapped runtime under a group equal to the local ones, its window loop
+    replaying one captured window with the transport's collectives inside
+    (ring and all2all) equal to its eager windows (part ``transport``);
+    the faulted mapped runtime and ``run_training(wafer=4, group=)``, whose
+    trials replay one captured trial graph with the collectives inside,
+    equal to the local transport's slice (part ``gaps``). NCCL takes no
+    two ranks on one card, so this needs two cards or more."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards or more: NCCL takes one card a rank")
+    world = 4 if n >= 4 else 2
+    for part, cases in (("transport", 18), ("gaps", 6)):
+        for rank, out in enumerate(_sharded_ranks(tmp_path, world, part)):
+            assert f"WAFER_SHARDED_OK rank={rank} cases={cases}" in out, \
+                (part, out)
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_mapped_path_f_on_nccl(cuda, tmp_path, world):
+    """Path F's K = 4 mapping (480 x 2048 on four 256 x 512 chips) under
+    ``world`` NCCL ranks, one card a rank (part ``path_f`` of
+    ``tests/_torch_wafer_sharded.py``): each rank's window captured under
+    ``set_sync_debug_mode("error")`` with the sharded transport's
+    collectives inside, its replays equal to its eager windows bit for bit
+    (state, spikes, routed grid, counters, route counts; a replay launching
+    what an eager window launches), the gathered spikes equal to the local
+    K = 4 runtime's and to one 968 x 2048 chip's. A world of 1 runs on
+    one card (the group's all-gather over one rank is captured); 2 and 4
+    skip where the cards are too few."""
+    import json
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} cards: NCCL takes one card a rank")
+    outs = _sharded_ranks(tmp_path, world, "path_f", timeout=600)
+    for rank, out in enumerate(outs):
+        assert f"WAFER_SHARDED_OK rank={rank} cases=4" in out, out
+        rec = json.loads(next(line for line in out.splitlines()
+                              if line.startswith("PATH_F_GROUPED "))
+                         .split(" ", 1)[1])
+        assert (rec["world"], rec["rank"]) == (world, rank)
+        assert rec["chips"] == [rank * 4 // world, (rank + 1) * 4 // world]
+        for k in ("stp_scan", "neuron_scan", "corr"):
+            assert rec["launches_a_replay"][k] == 1, rec["launches_a_replay"]
+        print(f"world {world} rank {rank}: " + json.dumps(
+            {k: rec[k] for k in ("ms_a_window", "capture_ms", "pool_mib",
+                                 "trace")}))
 
 
 def _replay_equals_eager(rt, ev_in):

@@ -4,9 +4,11 @@ to the local transport bit for bit on the ring (point to point) and on
 all2all (all-gather), in every link mode, over and under the link budget,
 with link faults and failover forwards; the link screen on a sharded
 router equals the local one; a mapped network run through
-``mapper.build_runtime(group=)`` equals the local runtime, ring and
-all2all, also with a fault plan; ``run_training(wafer=4, group=)``
-equals the local run's slice; a group that does not divide K raises
+``mapper.build_runtime(group=)`` (each rank's window loop) equals the
+local runtime, its own eager windows and, on a second stimulus, a fresh
+runtime, ring and all2all, also with a fault plan;
+``run_training(wafer=4, group=)`` equals the local run's slice; a group
+that does not divide K raises
 (tests/test_wafer.py::test_sharded_transport_matches_local_subprocess and
 tests/test_faults.py::test_sharded_link_faults_match_local_subprocess).
 
@@ -50,7 +52,7 @@ def _run_ranks(tmp_path, *args):
 def test_sharded_transport_equals_local(tmp_path):
     for rank, (rc, out, err) in enumerate(_run_ranks(tmp_path)):
         assert rc == 0, f"rank {rank}:\n{out[-2000:]}{err[-4000:]}"
-        assert f"WAFER_SHARDED_OK rank={rank} cases=14" in out, out + err
+        assert f"WAFER_SHARDED_OK rank={rank} cases=18" in out, out + err
 
 
 def test_sharded_faults_and_training_equal_local(tmp_path):
@@ -63,4 +65,4 @@ def test_sharded_faults_and_training_equal_local(tmp_path):
     for rank, (rc, out, err) in enumerate(_run_ranks(tmp_path, "gloo",
                                                      "gaps")):
         assert rc == 0, f"rank {rank}:\n{out[-2000:]}{err[-4000:]}"
-        assert f"WAFER_SHARDED_OK rank={rank} cases=4" in out, out + err
+        assert f"WAFER_SHARDED_OK rank={rank} cases=6" in out, out + err
