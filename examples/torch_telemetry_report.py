@@ -1,8 +1,10 @@
 """One telemetered training run on the port -> a structured run report.
 
-A short §5 training with the counters on, a phase split of one emulation
-window, merged with config and provenance (commit, PyTorch version, the
-card's name) into JSON + markdown.
+A short §5 training with the counters and the spans on (the scanned
+call's load, replays and clones, the last trial's emulation, rule and
+carry, the capture), a phase split of one emulation window, merged with
+config and provenance (commit, PyTorch version, the card's name) into
+JSON + markdown.
 
 Run:  PYTHONPATH=src python examples/torch_telemetry_report.py \
           [--device cpu] [--trials N] [--rule vm|python] [--json PATH]
@@ -38,6 +40,7 @@ def main():
     out, state, meta = run_training(args.trials, seed=0, rule_impl=args.rule,
                                     telemetry=True, device=device)
     tele = out["telemetry"]
+    spans = meta["timer"].summary()
 
     core, ecfg = meta["core"], meta["ecfg"]
     rng = np.random.default_rng(0)
@@ -47,7 +50,7 @@ def main():
     phases = profile_phases(core, core.init_state(), ev, ad, iters=3)
 
     rep = obs_report.build_report(
-        "telemetry_demo", telemetry=tele, timings=phases,
+        "telemetry_demo", telemetry=tele, timings={**spans, **phases},
         config=dict(n_trials=args.trials, rule_impl=args.rule,
                     device=str(device)),
         extra=dict(median_reward_final=float(
@@ -62,6 +65,7 @@ def main():
     # a telemetered run reports real activity
     assert tele["out_spikes"] > 0 and tele["steps"] > 0
     assert tele["trials"] == args.trials
+    assert spans["scan.calls"]["count"] == 1
     if args.rule == "vm":
         assert tele["vm_runs"] == args.trials
     return paths

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core import synapse
+from repro_torch.obs import timing
 
 
 def leaves(tree):
@@ -87,42 +88,54 @@ class LoopGraph:
     body was captured: what each replay launches (the wrappers' own
     counts do not move under replay). ``pool_bytes`` is what the capture
     added to the allocator's reserved memory: the graph's private pool,
-    which holds the body's intermediate tensors."""
+    which holds the body's intermediate tensors.
 
-    captures = 0        # graphs captured in this process
+    ``pool``: the memory pool of another ``LoopGraph``'s graph
+    (``graph.pool()``) to capture into, for graphs of one loop that are
+    replayed one after another, never at once.
 
-    def __init__(self, loop):
+    ``timer`` (an ``obs.timing.PhaseTimer``; ``None``: the process-wide
+    ``obs.timing.PROCESS``) gets two host-clock spans, exact because both
+    end synchronised: ``graph.warmup`` (the eager body, a first run's
+    kernel build included) and ``graph.capture``; and the counters
+    ``graph.captures`` and ``graph.pool_bytes``."""
+
+    def __init__(self, loop, timer=None, pool=None):
         dev = loop.step.device
         if dev.type != "cuda":
             raise ValueError(f"{type(loop).__name__}: CUDA graphs need a "
                              f"CUDA device, not {dev}")
+        timer = timing.PROCESS if timer is None else timer
         self.loop = loop
         routes = synapse.route_counts(dev)
         before = routes.clone()
-        cur = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            loop.body()
-            loop.reset()
-            routes.copy_(before)
-        cur.wait_stream(side)
-        torch.cuda.synchronize(dev)
+        with timer.span("graph.warmup", host=True):
+            cur = torch.cuda.current_stream(dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                loop.body()
+                loop.reset()
+                routes.copy_(before)
+            cur.wait_stream(side)
+            torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         counted = dict(kernels.LAUNCHES)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                loop.body()
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
+        with timer.span("graph.capture", host=True):
+            with torch.cuda.graph(self.graph, pool=pool):
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    loop.body()
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
         self.launches = {k: v - counted[k]
                          for k, v in kernels.LAUNCHES.items()}
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        LoopGraph.captures += 1
+        timer.count("graph.captures")
+        timer.count("graph.pool_bytes", self.pool_bytes)
 
     def replay(self):
         self.graph.replay()

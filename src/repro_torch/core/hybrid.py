@@ -49,6 +49,7 @@ count. A blacklist with links reroutes the plan around them
 from __future__ import annotations
 
 import dataclasses
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Dict, NamedTuple, Tuple
 
@@ -65,6 +66,7 @@ from repro_torch.core.ppu import VectorUnit
 from repro_torch.faults.model import (as_plans, chain, remap_link_faults,
                                       slice_chips)
 from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.timing import PhaseTimer
 from repro_torch.ppuvm import isa, programs
 from repro_torch.verif.mismatch import sample_instance
 from repro_torch.wafer import InterChipRouter, reroute_plan, s5_column_plan
@@ -227,7 +229,7 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
                     blacklist=None, wafer: int = None,
                     wafer_topology: str = "all2all", wafer_relay: bool = True,
                     wafer_plan=None, group=None, link_budget: int = None,
-                    link_mode: str = "auto"):
+                    link_mode: str = "auto", spans: bool = True):
     """Build the experiment. Returns ``(init, trial, meta)``.
 
     The machine uses 2 rows per input (exc/inh pair, Dale's law: the PPU
@@ -288,6 +290,19 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
         the rank's own chips; the link counters are summed over the group.
       link_budget / link_mode: the router's bus budget and transport
         (``wafer.InterChipRouter``).
+      spans: the experiment's ``obs.timing.PhaseTimer`` (``meta["timer"]``,
+        also ``meta["scanned_training"].timer``) records
+        ``scanned_training``'s spans and counters (``scan.load``,
+        ``scan.replays``, ``scan.clones``, ``scan.calls``,
+        ``scan.loop_misses``), the capture's (``LoopGraph``: ``graph.*``)
+        and, from marks inside the trial body, the last trial of each call
+        split into ``trial.emulation``, ``trial.rule`` (the reward, the
+        rule and its weight-update count) and ``trial.carry`` (histories,
+        state copies, the step). On a card nothing waits for them; the
+        marks are event-record nodes of a second capture of the trial,
+        which replays a call's last trial. ``False`` records nothing and
+        captures one graph, without event nodes; the outputs are the same
+        bit for bit.
 
     ``trial(state, stim, events, xi)`` runs one trial with its draws
     (``stim`` an int or a 0-d int32 tensor on the device);
@@ -468,7 +483,10 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
     def trial(state: ExperimentState, stim, events, xi):
         """One training trial: emulate the window, reward, PPU update.
         ``stim`` in {0: none, 1: A, 2: B}, an int or a 0-d int32 tensor on
-        the device; ``events`` [T, *prefix, 2I]; ``xi`` [*prefix, I, C]."""
+        the device; ``events`` [T, *prefix, 2I]; ``xi`` [*prefix, I, C].
+        Inside ``scanned_training``'s loop body it marks the running
+        loop's regions 1 and 2 (``marking``)."""
+        mark = marking[0]
         if not isinstance(stim, torch.Tensor):
             if int(stim) not in stim_of:
                 raise ValueError(f"stim must be 0, 1 or 2, got {stim}")
@@ -481,6 +499,8 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
         else:
             cs, core_out = core.run(state.core, events, addr,
                                     telemetry=state.tele)
+        if mark is not None:
+            mark(1)
         tele = core_out.get("telemetry")
         rates = cs.rate_counters
         r = _reward(rates, stim)
@@ -496,6 +516,8 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
                 reward=r)
         tele = obs_trace.count_dw(tele, state.w_signed,
                                   rule_state["w_signed"])
+        if mark is not None:
+            mark(2)
         new = ExperimentState(core=cs2, w_signed=rule_state["w_signed"],
                               mean_reward=rule_state["mean_reward"],
                               tele=tele, routed=core_out.get("routed"))
@@ -528,32 +550,78 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
 
     def scanned_training(state: ExperimentState, stims, draws: Draws):
         """Run ``len(stims)`` trials as ``TrialLoop``'s body: on a CUDA
-        device one captured ``TrialGraph`` replayed once a trial, on the
-        CPU the body trial by trial. Returns ``(state, hist)`` as ``train``
-        does, bit for bit. A later call with as many trials and draws of
-        the same shapes loads its state and draws into the same loop and
-        replays the same graph (``scanned_training.loops``), as the
-        reference's jitted function runs without a retrace."""
+        device one captured ``TrialGraph`` replayed once a trial (with
+        spans on, a call's last trial replays a second capture that holds
+        the marks), on the CPU the body trial by trial. Returns ``(state,
+        hist)`` as ``train`` does, bit for bit. A later call with as many
+        trials and draws of the same shapes loads its state and draws into
+        the same loop and replays the same graphs
+        (``scanned_training.loops``), as the reference's jitted function
+        runs without a retrace. The spans and
+        counters go to ``scanned_training.timer`` (``make_experiment``'s
+        ``spans``)."""
+        timer.count("scan.calls")
         key = (len(stims), tuple(draws.events.shape), tuple(draws.xi.shape))
-        if key in loops:
-            loop, run = loops[key]
-            loop.load(state, stims, draws)
-        else:
-            loop = TrialLoop(trial, state, stims, draws)
-            run = (TrialGraph(loop).replay if device.type == "cuda"
-                   else loop.body)
-            loops[key] = loop, run
-        for _ in range(loop.n):
-            run()
-        return (clones(loop.state),
-                {k: v.clone() for k, v in loop.history().items()})
+        hit = key in loops
+        with timer.span("scan.load"):
+            if hit:
+                loop, regions, steps = loops[key]
+                loop.load(state, stims, draws)
+            else:
+                loop = TrialLoop(trial, state, stims, draws)
+        if not hit:
+            timer.count("scan.loop_misses")
+            regions = timer.regions(TRIAL_REGIONS)
+            steps = _steps(loop, regions)
+            loops[key] = loop, regions, steps
+        if regions is not None:
+            timer.rearm(regions)
+        with timer.span("scan.replays"), _marked(loop, regions):
+            for step in steps:
+                step()
+        if regions is not None:
+            timer.take(regions)
+        with timer.span("scan.clones"):
+            return (clones(loop.state),
+                    {k: v.clone() for k, v in loop.history().items()})
+
+    def _steps(loop, regions):
+        """The loop's trials as callables: on the CPU its body, marked on
+        every trial (host clock); on a card replays of one captured trial,
+        the last of a call replaying a second capture that holds the
+        marks' event-record nodes and shares the first's memory pool (the
+        four nodes cost the cell's trial ~0.5%, so not every trial carries
+        them)."""
+        if device.type != "cuda":
+            return [loop.body] * loop.n
+        plain = TrialGraph(loop, timer)
+        steps = [plain.replay] * loop.n
+        if regions is not None:
+            with _marked(loop, regions):
+                steps[-1] = TrialGraph(loop, timer,
+                                       pool=plain.graph.pool()).replay
+        return steps
+
+    @contextmanager
+    def _marked(loop, regions):
+        """The loop's body and the trial mark ``regions`` (``None``:
+        nothing) inside."""
+        loop.regions = regions
+        marking[0] = None if regions is None else regions.mark
+        try:
+            yield
+        finally:
+            loop.regions = marking[0] = None
 
     loops = scanned_training.loops = {}
+    # the marking loop's ``Regions.mark`` (``_marked``), else None
+    marking = [None]
+    timer = scanned_training.timer = PhaseTimer(device, enabled=spans)
 
     meta = dict(cfg=cfg, ecfg=ecfg, inst=inst, core=core, ppu=ppu,
                 mask_a=mask_a, mask_b=mask_b, even=even, train=train,
                 draw=draw, scanned_training=scanned_training, router=router,
-                chips=chips)
+                chips=chips, timer=timer)
     return init, trial, meta
 
 
@@ -611,6 +679,11 @@ def column_part(cfg: BSS2Config, ecfg: RSTDPConfig, parts: int, part: int,
     return init, trial, meta
 
 
+# the regions of a trial body that ``TrialLoop`` marks (``make_experiment``'s
+# ``spans``)
+TRIAL_REGIONS = ("trial.emulation", "trial.rule", "trial.carry")
+
+
 class TrialLoop:
     """The experiment as a loop of one body with no host work in it.
 
@@ -622,11 +695,18 @@ class TrialLoop:
     and advances the counter. Nothing in it reads the host or builds a
     tensor from host data, so a CUDA graph can capture it (``TrialGraph``).
     The histories are allocated by the first ``body()`` (from its metrics'
-    shapes)."""
+    shapes).
+
+    ``regions`` (an ``obs.timing.Regions`` of ``TRIAL_REGIONS``, which
+    ``scanned_training`` sets while it marks, or ``None``) is marked at
+    the body's start and end, and by the experiment's trial when the
+    emulation and the rule return: under a capture the marks are
+    event-record nodes, recorded again by every replay."""
 
     def __init__(self, trial, state: ExperimentState, stims, draws: Draws):
         dev = state.w_signed.device
         self.trial = trial
+        self.regions = None
         self.initial = state
         self.state = clones(state)
         self.stims = torch.as_tensor(stims, dtype=torch.int32).to(dev)
@@ -644,6 +724,8 @@ class TrialLoop:
 
     def body(self):
         i = self.step
+        if self.regions is not None:
+            self.regions.mark(0)
         new, m = self.trial(self.state,
                             self.stims.index_select(0, i).reshape(()),
                             self.events.index_select(0, i)[0],
@@ -655,6 +737,8 @@ class TrialLoop:
             self.hist[k].index_copy_(0, i, v.unsqueeze(0))
         self._assign(new)
         self.step += 1
+        if self.regions is not None:
+            self.regions.mark(3)
 
     def _assign(self, new: ExperimentState):
         """Copy ``new`` into the loop's state tensors (``graph.assign``)."""
@@ -694,9 +778,11 @@ def make_scanned_training(meta):
     ``make_scanned_training``, ``repro/core/hybrid.py:512-518``):
     ``scanned(state, stims, draws) -> (state, hist)``, which is
     ``meta["scanned_training"]``. On a CUDA device it captures one trial
-    (``TrialGraph``) and replays it once a trial; a capture that fails
-    raises. On the CPU, which has no graphs, it runs the same trial body
-    trial by trial. (The reference jits here; eager PyTorch has nothing
+    (``TrialGraph``) and replays it once a trial, and with the
+    experiment's spans on a second one that holds the trial's marks,
+    replayed for a call's last trial; a capture that fails raises. On the
+    CPU, which has no graphs, it runs the same trial body trial by
+    trial. (The reference jits here; eager PyTorch has nothing
     to compile: the capture happens at the first call of a shape, and
     later calls replay it.)"""
     return meta["scanned_training"]
@@ -720,8 +806,10 @@ def run_training(n_trials: int = 300, ecfg: RSTDPConfig = RSTDPConfig(),
     metrics history as numpy arrays stacked [n_trials, ...] plus
     ``w_signed_final`` (and, with ``telemetry=True``, the counters'
     ``obs.trace.summary`` under ``"telemetry"``); ``state`` the final
-    ``ExperimentState``. ``telemetry`` / ``faults`` / ``blacklist`` and the
-    wafer keywords (``wafer``, ``wafer_topology``, ``wafer_relay``,
+    ``ExperimentState``; ``meta`` the experiment's, whose ``"timer"`` holds
+    the scanned mode's spans and counters (``make_experiment``'s
+    ``spans``). ``telemetry`` / ``faults`` / ``blacklist`` and the wafer
+    keywords (``wafer``, ``wafer_topology``, ``wafer_relay``,
     ``wafer_plan``, ``group``, ``link_budget``, ``link_mode``) go to
     ``make_experiment``. Under a ``group`` each rank runs and returns its
     own chips (``meta["chips"]``), and injected ``draws`` are the rank's

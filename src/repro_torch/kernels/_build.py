@@ -8,7 +8,9 @@ at the root of the checkout, named by a hash of the sources and flags, so
 a changed source is rebuilt and an unchanged one is reused. Each source's
 compiler output (``-Xptxas -v``: registers, stack frame, spills) is kept
 in ``BUILD_LOG`` and in a file beside the library, so a reused library
-still reports it.
+still reports it. Each ``build()`` is a host span ``kernels.build`` of
+the process-wide ``obs.timing.PROCESS`` timer, counted as
+``kernels.built`` or ``kernels.reused``.
 
 A failed build raises; nothing falls back to the plain versions.
 """
@@ -118,11 +120,21 @@ def _digest() -> str:
 def build() -> Path:
     """Compile every source (in parallel) and link the library; returns
     its path. Reuses a library whose hash matches the sources."""
-    out = BUILD_DIR / f"librepro_torch_{_digest()}.so"
-    log_path = out.with_suffix(".log.json")
-    if out.exists() and log_path.exists():
-        BUILD_LOG.update(json.loads(log_path.read_text()))
+    from repro_torch.obs.timing import PROCESS
+    with PROCESS.span("kernels.build", host=True):
+        out = BUILD_DIR / f"librepro_torch_{_digest()}.so"
+        log_path = out.with_suffix(".log.json")
+        if out.exists() and log_path.exists():
+            BUILD_LOG.update(json.loads(log_path.read_text()))
+            PROCESS.count("kernels.reused")
+            return out
+        _compile(out, log_path)
+        PROCESS.count("kernels.built")
         return out
+
+
+def _compile(out: Path, log_path: Path):
+    """Build the library ``out`` and its compiler log ``log_path``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -151,7 +163,6 @@ def build() -> Path:
             raise RuntimeError("nvcc link failed:\n" + link.stdout)
         log_path.write_text(json.dumps(BUILD_LOG))
         os.replace(tmp_lib, out)
-    return out
 
 
 def lib() -> ctypes.CDLL:

@@ -8,9 +8,11 @@
     the counters ride inside a captured trial graph).
 
 ``repro_torch.obs.timing``
-    Phase timing: ``PhaseTimer`` spans (CUDA events on a card, the host
-    clock on the CPU), ``profile_phases`` for one AnnCore window, and a
-    ``torch.profiler`` trace hook.
+    Phase timing, the port's one recorder: ``PhaseTimer`` spans (CUDA
+    events on a card, read without waiting; the host clock on the CPU),
+    counters and ``Regions`` marked inside a captured graph; the
+    process-wide ``PROCESS`` timer; ``profile_phases`` for one AnnCore
+    window, and a ``torch.profiler`` trace hook.
 
 ``repro_torch.obs.report``
     Structured run reports (JSON + markdown) merging counters, timings,

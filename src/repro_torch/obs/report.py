@@ -70,19 +70,14 @@ def _config_section(config) -> Optional[dict]:
 
 def build_report(label: str, telemetry: Optional[dict] = None,
                  timings: Optional[dict] = None,
-                 cache: Optional[dict] = None,
                  config=None, extra: Optional[dict] = None) -> dict:
     """Merge one run's observability sections into a report dict.
 
     ``telemetry``: ``repro_torch.obs.trace.summary`` output; ``timings``:
-    ``PhaseTimer.summary`` output; ``cache``: specializer-cache stats (a
-    dict with hits / misses / evictions / size / max_size; the port has
-    no such cache, ROADMAP.md); ``config``: any dataclass/NamedTuple/dict.
-    Health warnings (overflow fallbacks, saturation, eviction storms)
-    are derived here so every emitter surfaces them uniformly.
+    ``PhaseTimer.summary`` output (spans and counters); ``config``: any
+    dataclass/NamedTuple/dict. Health warnings (overflow fallbacks,
+    saturation) are derived here so every emitter surfaces them uniformly.
     """
-    from repro_torch.obs.timing import eviction_storm
-
     report = dict(label=label,
                   timestamp=time.strftime("%Y-%m-%dT%H:%M:%S"),
                   **host_header())
@@ -103,13 +98,6 @@ def build_report(label: str, telemetry: Optional[dict] = None,
                 "clips; rescale its operands if unintended")
     if timings is not None:
         report["timings"] = jsonable(timings)
-    if cache is not None:
-        report["specialize_cache"] = jsonable(cache)
-        if eviction_storm(cache):
-            warnings.append(
-                f"specializer-cache eviction storm: {cache['misses']} "
-                f"misses exceed the LRU capacity ({cache['max_size']}) "
-                "within this run")
     if config is not None:
         report["config"] = _config_section(config)
     if extra:
@@ -143,20 +131,20 @@ def to_markdown(report: dict) -> str:
             pairs = ", ".join(f"{l}:{n}" for l, n in
                               zip(labels, tele["dw_hist"]) if n)
             lines.append(f"| dw_hist (\\|dw\\| LSBs) | {pairs or '0'} |")
-    tim = report.get("timings")
-    if tim:
+    tim = report.get("timings") or {}
+    spans = {k: s for k, s in tim.items() if "mean_us" in s}
+    if spans:
         lines += ["", "## Phase timings", "",
                   "| phase | mean us | best us | calls |", "|---|---|---|---|"]
-        for name, s in tim.items():
+        for name, s in spans.items():
             lines.append(f"| {name} | {s['mean_us']:.1f} | "
                          f"{s['best_us']:.1f} | {s['count']} |")
-    cache = report.get("specialize_cache")
-    if cache:
-        lines += ["", "## Specializer cache", "",
-                  "| hits | misses | evictions | size/cap |", "|---|---|---|---|"]
-        lines.append(f"| {cache.get('hits')} | {cache.get('misses')} | "
-                     f"{cache.get('evictions')} | {cache.get('size')}/"
-                     f"{cache.get('max_size')} |")
+    counted = {k: s for k, s in tim.items() if k not in spans}
+    if counted:
+        lines += ["", "## Phase counters", "", "| counter | count |",
+                  "|---|---|"]
+        for name, s in counted.items():
+            lines.append(f"| {name} | {s['count']} |")
     cfgs = report.get("config")
     if cfgs:
         lines += ["", "## Config", "", "```json",

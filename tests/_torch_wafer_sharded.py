@@ -15,8 +15,8 @@ slice, to its own eager windows and, on a second stimulus, to a fresh
 runtime. The ``gaps`` part runs what the reference takes with its
 ``ctx`` / ``wafer_ctx``: a mapped network with dead rows, a hot neuron
 and a dead link through ``build_runtime(group=, faults=)``, and
-``run_training(wafer=4, group=)`` (clean and faulted; on a card one
-captured trial graph with the collectives inside), each equal to the
+``run_training(wafer=4, group=)`` (clean and faulted; on a card
+captured trial graphs with the collectives inside), each equal to the
 local transport's slice. The ``path_f`` part (a card a rank, world 1, 2
 or 4) runs path F's 480 x 2048 network on four full chips under the
 group (``path_f``): replays against eager windows, against the local

@@ -53,7 +53,10 @@ limit): the sharded transport, the mapped window graphs and
 ``run_training(wafer=4, group=)``'s trial graph with the collectives
 inside equal to the local transport, and path F's K = 4 runtime under 1,
 2 and 4 ranks replaying equal to its eager windows, the local runtime
-and one chip bit for bit.
+and one chip bit for bit. The spans: a span returns while its work
+runs; a captured trial's event-record regions add up to the replay
+within 1%; a call's load, replays and clones to the call within 2%; a
+second call of a shape captures nothing; spans off bit-equal to on.
 """
 import dataclasses
 import math
@@ -960,16 +963,21 @@ def test_graph_replay_equals_eager(cuda, rule_impl):
 
 
 def test_run_training_default_replays_a_graph(cuda):
-    """``run_training`` on the card captures one trial and replays it: its
+    """``run_training`` on the card captures the trial and replays it: its
     three modes agree bit for bit, and the graph run's wrappers count only
-    the warm-up and the capture."""
+    the warm-ups and the captures (two of each with the experiment's spans
+    on: the second capture holds the last trial's marks)."""
     outs = []
     for mode in (dict(), dict(scan=False), dict(fused=False)):
         kernels.reset_launches()
-        out, _, _ = th.run_training(12, seed=1, device=cuda, **mode)
+        out, _, meta = th.run_training(12, seed=1, device=cuda, **mode)
         outs.append((out, dict(kernels.LAUNCHES)))
+        if not mode:
+            captures = meta["timer"].counters["graph.captures"]
     (o0, n0), rest = outs[0], outs[1:]
-    assert n0["stp_scan"] == 2 and n0["neuron_scan"] == 2
+    assert captures == 2
+    assert n0["stp_scan"] == 2 * captures
+    assert n0["neuron_scan"] == 2 * captures
     for o, n in rest:
         assert n["stp_scan"] == 12
         for k in o0:
@@ -1252,10 +1260,10 @@ def test_second_scanned_run_replays_the_graph(cuda):
     d1 = meta["draw"](torch.Generator().manual_seed(1), stims)
     d2 = meta["draw"](torch.Generator().manual_seed(2), stims)
     state, _ = scanned(init(), stims, d1)
-    n = th.TrialGraph.captures
+    n = meta["timer"].counters["graph.captures"]
     obs_report.build_report("t", telemetry=obs_trace.summary(state.tele))
     state2, hist2 = scanned(init(), stims, d2)
-    assert th.TrialGraph.captures == n
+    assert meta["timer"].counters["graph.captures"] == n
     init_f, _, meta_f = th.make_experiment(
         generator=torch.Generator().manual_seed(2), device=cuda,
         telemetry=True)
@@ -1593,8 +1601,9 @@ def test_sharded_transport_on_nccl(cuda, tmp_path):
     replaying one captured window with the transport's collectives inside
     (ring and all2all) equal to its eager windows (part ``transport``);
     the faulted mapped runtime and ``run_training(wafer=4, group=)``, whose
-    trials replay one captured trial graph with the collectives inside,
-    equal to the local transport's slice (part ``gaps``). NCCL takes no
+    trials replay captured trial graphs with the collectives inside (the
+    second, with the spans' marks, for a call's last trial), equal to the
+    local transport's slice (part ``gaps``). NCCL takes no
     two ranks on one card, so this needs two cards or more."""
     n = torch.cuda.device_count()
     if n < 2:
@@ -2065,3 +2074,105 @@ def test_bss2_cell_counts_on_card_equal_cpu(cuda):
         assert getattr(rec_g, k) == getattr(rec_c, k), k
     assert dict(rec_g.by_kind) == dict(rec_c.by_kind)
     assert rep_g.step_time == rep_c.step_time
+
+
+def test_a_span_never_waits(cuda):
+    """``PhaseTimer.span`` on the card records its events and returns while
+    the work inside still runs (its end event not yet complete); the
+    summary then waits and folds it in."""
+    from repro_torch.obs.timing import PhaseTimer
+    timer = PhaseTimer(cuda)
+    torch.cuda.synchronize()
+    with timer.span("sleep"):
+        torch.cuda._sleep(200_000_000)
+    pending = timer._pending
+    assert len(pending) == 1 and not pending[0].done()
+    s = timer.summary()
+    assert s["sleep"]["count"] == 1 and s["sleep"]["best_us"] > 1e3
+
+
+def _fleet_with_spans(cuda, spans, n_inst=256):
+    """The benchmark cell's experiment (256 full chips, the python rule)
+    with three trials a call (A, B, none)."""
+    ecfg = th.RSTDPConfig(n_inputs=128, n_neurons=512, pattern_size=24,
+                          trial_steps=128)
+    init, _, meta = th.make_experiment(
+        cfg=BSS2, ecfg=ecfg, prefix=(n_inst,), backend="blocked",
+        generator=torch.Generator().manual_seed(31), device=cuda,
+        spans=spans)
+    stims = [1, 2, 0]
+    draws = meta["draw"](torch.Generator().manual_seed(32), stims)
+    return init, meta, stims, draws
+
+
+def test_trial_regions_add_up_to_a_replay(cuda):
+    """The event-record nodes of a captured ``TrialLoop``: positive region
+    times (emulation, rule, carry) whose sum is within 1% of the replay
+    timed by stream events around it, for each of a call's trials. A
+    sleep on the stream first keeps the host's launch of the graph out of
+    the timed interval, as in a call's back-to-back replays."""
+    init, meta, stims, draws = _fleet_with_spans(cuda, True)
+    scanned = th.make_scanned_training(meta)
+    scanned(init(), stims, draws)
+    (loop, marks, steps), = scanned.loops.values()
+    assert steps[0] == steps[1] and steps[-1] != steps[0]
+    loop.reset()
+    for _ in stims:                     # the marked capture, each trial
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        a.record()
+        steps[-1]()
+        b.record()
+        b.synchronize()
+        regions = dict(marks.read())
+        assert set(regions) == set(th.TRIAL_REGIONS)
+        assert all(v > 0 for v in regions.values()), regions
+        whole = a.elapsed_time(b) * 1e-3
+        assert abs(sum(regions.values()) - whole) <= 0.01 * whole, (
+            regions, whole)
+
+
+def test_scanned_spans_on_card(cuda):
+    """The first call captures the trial twice (the plain graph and the
+    one with the marks, for the call's last trial); a second call of the
+    same shape adds no capture (``graph.captures``); its load, replays and clones add up to
+    within 2% of the call timed by stream events around it; the last
+    trial's regions lie between 85% and 101% of the replays over the
+    trials; ``spans=False`` gives the same outputs bit for bit, records
+    nothing and replays one graph."""
+    init, meta, stims, draws = _fleet_with_spans(cuda, True)
+    scanned = th.make_scanned_training(meta)
+    timer = meta["timer"]
+    st, _ = scanned(init(), stims, draws)
+    assert timer.counters["graph.captures"] == 2
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    st2, hist2 = scanned(st, stims, draws)
+    b.record()
+    b.synchronize()
+    s = timer.summary()
+    assert s["graph.captures"] == dict(count=2)
+    assert s["scan.loop_misses"] == dict(count=1)
+    assert s["scan.calls"] == dict(count=2)
+    smp = timer.samples
+    call = a.elapsed_time(b) * 1e-3
+    parts = sum(smp[k][-1] for k in ("scan.load", "scan.replays",
+                                     "scan.clones"))
+    assert abs(parts - call) <= 0.02 * call, (parts, call)
+    last = sum(smp[k][-1] for k in th.TRIAL_REGIONS)
+    per_trial = smp["scan.replays"][-1] / len(stims)
+    assert 0.85 * per_trial <= last <= 1.01 * per_trial, (last, per_trial)
+    init_f, meta_f, _, _ = _fleet_with_spans(cuda, False)
+    scanned_f = th.make_scanned_training(meta_f)
+    st_f, _ = scanned_f(init_f(), stims, draws)
+    st2_f, hist2_f = scanned_f(st_f, stims, draws)
+    for k in hist2:
+        assert torch.equal(hist2[k], hist2_f[k]), k
+    for x, y in zip(th._leaves(st2), th._leaves(st2_f)):
+        assert torch.equal(x, y)
+    assert meta_f["timer"].summary() == {}
+    (_, regions_f, steps_f), = meta_f["scanned_training"].loops.values()
+    assert regions_f is None and len({s.__self__ for s in steps_f}) == 1

@@ -14,9 +14,11 @@
 - A summary read does not recapture: after ``summary()`` and
   ``build_report``, a second call of ``make_scanned_training`` with the
   same shapes runs the same loop (on a card: replays the same graph; the
-  card's test counts ``TrialGraph.captures``), not a new one.
-- Phase timer, ``profile_phases``, the profiler hook, the run report, and
-  playback with telemetry (the golden traces replay unchanged with
+  card's test counts the timer's ``graph.captures``), not a new one.
+- Phase timer (spans, counters, regions, off), the kernel build's span and
+  counters, ``scanned_training``'s spans (on and off bit-equal, one
+  sample a call), ``profile_phases``, the profiler hook, the run report,
+  and playback with telemetry (the golden traces replay unchanged with
   ``telemetry=True``).
 """
 import dataclasses
@@ -429,6 +431,138 @@ def test_phase_timer_needs_a_device(monkeypatch):
         obs_timing.PhaseTimer()
 
 
+def test_phase_timer_counters_regions_and_off():
+    """Counters beside the spans in ``summary()`` (a counter is
+    ``{count}``, a span keeps count / total / mean / best), regions folded
+    by ``take``, and a timer that is off records nothing and makes no
+    regions."""
+    tm = obs_timing.PhaseTimer(CPU)
+    tm.count("n")
+    tm.count("n", 4)
+    with tm.span("h", host=True):
+        pass
+    r = tm.regions(("x", "y"))
+    for i in range(3):
+        r.mark(i)
+    tm.take(r)
+    s = tm.summary()
+    assert s["n"] == dict(count=5)
+    for name in ("h", "x", "y"):
+        assert set(s[name]) == {"count", "total_us", "mean_us", "best_us"}
+        assert s[name]["count"] == 1 and s[name]["total_us"] >= 0
+    assert tm.samples["x"][0] == r.marks[1] - r.marks[0]
+    off = obs_timing.PhaseTimer(CPU, enabled=False)
+    with off.span("a"):
+        pass
+    off.count("n")
+    assert off.regions(("x",)) is None and off.summary() == {}
+
+
+def test_phase_timer_rearm_counts_a_lost_sample():
+    """A ``Regions`` recorded again while its sample is still pending (a
+    caller running ahead of the card) loses that sample: ``rearm`` counts
+    it in ``timer.dropped``, and each recording is taken once; a sample
+    that has completed is folded in, not dropped."""
+
+    class Slow(obs_timing.Regions):
+        ready = False
+
+        def done(self):
+            return self.ready
+
+    tm = obs_timing.PhaseTimer(CPU)
+    r = Slow(("x",), CPU)
+    tm.rearm(r)
+    r.mark(0), r.mark(1)
+    tm.take(r)
+    assert tm.counters == {}
+    tm.rearm(r)
+    assert tm.counters == {"timer.dropped": 1}
+    r.mark(0), r.mark(1)
+    tm.take(r)
+    r.ready = True
+    tm.rearm(r)
+    r.mark(0), r.mark(1)
+    tm.take(r)
+    assert tm.counters == {"timer.dropped": 1}
+    assert tm.summary()["x"]["count"] == 2
+
+
+def test_kernel_build_counts_a_reused_library(tmp_path, monkeypatch):
+    """``kernels._build.build`` is a host span ``kernels.build`` of the
+    process-wide timer and counts a library whose hash matches as
+    ``kernels.reused`` (no compiler runs)."""
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    lib = tmp_path / f"librepro_torch_{_build._digest()}.so"
+    lib.write_bytes(b"")
+    lib.with_suffix(".log.json").write_text("{}")
+    before = obs_timing.PROCESS.summary()
+    assert _build.build() == lib
+    after = obs_timing.PROCESS.summary()
+
+    def n(s, k):
+        return s.get(k, {}).get("count", 0)
+    assert n(after, "kernels.reused") == n(before, "kernels.reused") + 1
+    assert n(after, "kernels.build") == n(before, "kernels.build") + 1
+    assert n(after, "kernels.built") == n(before, "kernels.built")
+
+
+def _spans_run(spans, rule_impl="python", calls=1, n=4):
+    init, _, meta = th.make_experiment(
+        ecfg=th.RSTDPConfig(trial_steps=32), rule_impl=rule_impl,
+        device=CPU, spans=spans)
+    scanned = th.make_scanned_training(meta)
+    stims = th.stimuli(n)
+    state = init()
+    for k in range(calls):
+        draws = meta["draw"](torch.Generator().manual_seed(10 + k), stims)
+        state, hist = scanned(state, stims, draws)
+    return state, hist, meta
+
+
+@pytest.mark.parametrize("rule_impl", ["python", "vm"])
+def test_scanned_spans_on_off_bit_equal(rule_impl):
+    """``make_experiment(spans=True)`` and ``spans=False`` give the same
+    states and histories bit for bit over two calls; off records
+    nothing."""
+    s_on, h_on, m_on = _spans_run(True, rule_impl, calls=2)
+    s_off, h_off, m_off = _spans_run(False, rule_impl, calls=2)
+    assert sorted(h_on) == sorted(h_off)
+    for k in h_on:
+        assert torch.equal(h_on[k], h_off[k]), k
+    for a, b in zip(th._leaves(s_on), th._leaves(s_off)):
+        assert torch.equal(a, b)
+    assert m_off["timer"].summary() == {}
+    assert m_on["timer"] is m_on["scanned_training"].timer
+    assert m_on["timer"].summary()["scan.calls"]["count"] == 2
+
+
+def test_scanned_spans_count_calls_and_regions():
+    """After k calls of n trials: k samples of ``scan.load``,
+    ``scan.replays`` and ``scan.clones``, ``scan.calls`` k, one
+    ``scan.loop_misses`` for one shape, and the last trial of each call in
+    ``trial.emulation`` / ``trial.rule`` / ``trial.carry``, together no
+    longer than the call's replays."""
+    k = 3
+    _, _, meta = _spans_run(True, calls=k, n=4)
+    s = meta["timer"].summary()
+    for name in ("scan.load", "scan.replays", "scan.clones",
+                 *th.TRIAL_REGIONS):
+        assert s[name]["count"] == k, name
+        assert s[name]["best_us"] > 0, name
+    assert s["scan.calls"] == dict(count=k)
+    assert s["scan.loop_misses"] == dict(count=1)
+    smp = meta["timer"].samples
+    for i in range(k):
+        last = sum(smp[name][i] for name in th.TRIAL_REGIONS)
+        assert last <= smp["scan.replays"][i]
+    run_out, _, run_meta = th.run_training(
+        2, device=CPU, ecfg=th.RSTDPConfig(trial_steps=32))
+    assert run_meta["timer"].summary()["scan.calls"] == dict(count=1)
+    assert "spans" not in run_out
+
+
 @pytest.mark.parametrize("backend", ["fused", "blocked"])
 def test_profile_phases_keys(backend):
     cfg = BSS2.reduced()
@@ -467,15 +601,10 @@ def test_report_roundtrip(tmp_path):
 
 def test_report_warnings_derived():
     tele = dict(overflow_fallbacks=2, census_events_max=999, vm_sat_hits=7)
-    rep = obs_report.build_report("w", telemetry=tele,
-                                  cache=dict(hits=0, misses=100,
-                                             evictions=36, size=64,
-                                             max_size=64))
-    assert len(rep["warnings"]) == 3
+    rep = obs_report.build_report("w", telemetry=tele)
+    assert len(rep["warnings"]) == 2
     joined = " ".join(rep["warnings"])
-    assert ("overflow" in joined and "saturation" in joined
-            and "eviction storm" in joined)
-    assert not obs_timing.eviction_storm(dict(misses=3, max_size=64))
+    assert "overflow" in joined and "saturation" in joined
 
 
 # ---------------------------------------------------------------------------
