@@ -49,6 +49,7 @@ count. A blacklist with links reroutes the plan around them
 from __future__ import annotations
 
 import dataclasses
+import math
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Dict, NamedTuple, Tuple
@@ -298,7 +299,14 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
         and, from marks inside the trial body, the last trial of each call
         split into ``trial.emulation``, ``trial.rule`` (the reward, the
         rule and its weight-update count) and ``trial.carry`` (histories,
-        state copies, the step). On a card nothing waits for them; the
+        state copies, the step). With the vm rule a fourth mark, when
+        ``run_program`` returns, splits off ``trial.ppu_program`` (the
+        reward, both CADC reads, the program's operands and the
+        ``ppuvm_exec`` launch, the sensors' reset) before ``trial.rule``
+        (the scalar glue, the Dale write-back, the counts), and each call
+        adds the counters ``ppu.programs`` (one a trial) and
+        ``ppu.instructions`` (the program's words times its lanes, the
+        synapses of every instance). On a card nothing waits for them; the
         marks are event-record nodes of a second capture of the trial,
         which replays a call's last trial. ``False`` records nothing and
         captures one graph, without event nodes; the outputs are the same
@@ -412,6 +420,9 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
         dw_words = torch.as_tensor(programs.signed_dw_program(
             eta=ecfg.eta, eta_homeo=ecfg.eta_homeo,
             fire_thresh=ecfg.fire_thresh), device=device)
+        # a program's instructions: its words on every lane (synapse)
+        vm_instructions = (dw_words.numel() * math.prod(prefix) * 2 * I
+                           * c_loc)
 
     def _write_signed(syn, w_signed):
         """interleave exc/inh rows: row 2i exc, 2i+1 inh"""
@@ -463,14 +474,17 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
         return new_syn.weights.to(torch.float32), dict(
             mean_reward=mean_r, w_signed=w_signed)
 
-    def _vm_signed_update(cs, state, reward, xi, tele):
+    def _vm_signed_update(cs, state, reward, xi, tele, mark):
         """The §5 rule with its vector part as a PPU-VM program: register
         0 holds the per-row dw; the scalar core applies it to the signed
         float weights, adds the xi walk and rewrites both Dale rows, as
-        ``_signed_rule`` does (``repro/core/hybrid.py:383-398``)."""
+        ``_signed_rule`` does (``repro/core/hybrid.py:383-398``). ``mark``
+        (or ``None``) marks the end of the program's region."""
         qc, qa = ppu.read_correlation(cs.corr)
         mod = torch.stack([reward - state.mean_reward, reward])
         cs2, regs = ppu.run_program(cs, dw_words, mod=mod)
+        if mark is not None:
+            mark(2)
         tele = obs_trace.count_vm(tele, regs)
         dw = regs[0][..., 0::2, :].to(torch.float32) / isa.ONE
         w_signed = torch.clamp(state.w_signed + dw + xi, -45.0, 45.0)
@@ -485,7 +499,9 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
         ``stim`` in {0: none, 1: A, 2: B}, an int or a 0-d int32 tensor on
         the device; ``events`` [T, *prefix, 2I]; ``xi`` [*prefix, I, C].
         Inside ``scanned_training``'s loop body it marks the running
-        loop's regions 1 and 2 (``marking``)."""
+        loop's regions between the first and the last mark (``marking``):
+        1 and 2 (``TRIAL_REGIONS``), and with the vm rule 1, 2 and 3
+        (``VM_TRIAL_REGIONS``)."""
         mark = marking[0]
         if not isinstance(stim, torch.Tensor):
             if int(stim) not in stim_of:
@@ -507,7 +523,7 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
         tele = obs_trace.count_trial(tele, rates)
         if rule_impl == "vm":
             cs2, rule_state, obs, tele = _vm_signed_update(cs, state, r, xi,
-                                                           tele)
+                                                           tele, mark)
         else:
             cs2, rule_state, obs = ppu.apply_rule(
                 _signed_rule, cs,
@@ -517,7 +533,7 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
         tele = obs_trace.count_dw(tele, state.w_signed,
                                   rule_state["w_signed"])
         if mark is not None:
-            mark(2)
+            mark(len(trial_regions) - 1)
         new = ExperimentState(core=cs2, w_signed=rule_state["w_signed"],
                               mean_reward=rule_state["mean_reward"],
                               tele=tele, routed=core_out.get("routed"))
@@ -571,7 +587,7 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
                 loop = TrialLoop(trial, state, stims, draws)
         if not hit:
             timer.count("scan.loop_misses")
-            regions = timer.regions(TRIAL_REGIONS)
+            regions = timer.regions(trial_regions)
             steps = _steps(loop, regions)
             loops[key] = loop, regions, steps
         if regions is not None:
@@ -581,6 +597,10 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
                 step()
         if regions is not None:
             timer.take(regions)
+        if rule_impl == "vm":
+            # host counts of the call's programs: a replay runs no host code
+            timer.count("ppu.programs", loop.n)
+            timer.count("ppu.instructions", loop.n * vm_instructions)
         with timer.span("scan.clones"):
             return (clones(loop.state),
                     {k: v.clone() for k, v in loop.history().items()})
@@ -616,6 +636,7 @@ def make_experiment(cfg: BSS2Config = None, ecfg: RSTDPConfig = RSTDPConfig(),
     loops = scanned_training.loops = {}
     # the marking loop's ``Regions.mark`` (``_marked``), else None
     marking = [None]
+    trial_regions = VM_TRIAL_REGIONS if rule_impl == "vm" else TRIAL_REGIONS
     timer = scanned_training.timer = PhaseTimer(device, enabled=spans)
 
     meta = dict(cfg=cfg, ecfg=ecfg, inst=inst, core=core, ppu=ppu,
@@ -680,8 +701,10 @@ def column_part(cfg: BSS2Config, ecfg: RSTDPConfig, parts: int, part: int,
 
 
 # the regions of a trial body that ``TrialLoop`` marks (``make_experiment``'s
-# ``spans``)
+# ``spans``); with the vm rule the PPU program is a region of its own
 TRIAL_REGIONS = ("trial.emulation", "trial.rule", "trial.carry")
+VM_TRIAL_REGIONS = ("trial.emulation", "trial.ppu_program", "trial.rule",
+                    "trial.carry")
 
 
 class TrialLoop:
@@ -697,10 +720,11 @@ class TrialLoop:
     The histories are allocated by the first ``body()`` (from its metrics'
     shapes).
 
-    ``regions`` (an ``obs.timing.Regions`` of ``TRIAL_REGIONS``, which
-    ``scanned_training`` sets while it marks, or ``None``) is marked at
-    the body's start and end, and by the experiment's trial when the
-    emulation and the rule return: under a capture the marks are
+    ``regions`` (an ``obs.timing.Regions`` of ``TRIAL_REGIONS``, or of
+    ``VM_TRIAL_REGIONS`` with the vm rule, which ``scanned_training`` sets
+    while it marks, or ``None``) is marked at the body's start and end,
+    and by the experiment's trial when the emulation, the vm rule's
+    program and the rule return: under a capture the marks are
     event-record nodes, recorded again by every replay."""
 
     def __init__(self, trial, state: ExperimentState, stims, draws: Draws):
@@ -738,7 +762,7 @@ class TrialLoop:
         self._assign(new)
         self.step += 1
         if self.regions is not None:
-            self.regions.mark(3)
+            self.regions.mark(len(self.regions.names))
 
     def _assign(self, new: ExperimentState):
         """Copy ``new`` into the loop's state tensors (``graph.assign``)."""

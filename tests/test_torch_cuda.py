@@ -56,7 +56,9 @@ inside equal to the local transport, and path F's K = 4 runtime under 1,
 and one chip bit for bit. The spans: a span returns while its work
 runs; a captured trial's event-record regions add up to the replay
 within 1%; a call's load, replays and clones to the call within 2%; a
-second call of a shape captures nothing; spans off bit-equal to on.
+second call of a shape captures nothing; spans off bit-equal to on; the
+vm rule at the fleet's width: one ``ppuvm_exec`` launch a replay, its
+program's region, spans off bit-equal to on.
 """
 import dataclasses
 import math
@@ -2091,15 +2093,15 @@ def test_a_span_never_waits(cuda):
     assert s["sleep"]["count"] == 1 and s["sleep"]["best_us"] > 1e3
 
 
-def _fleet_with_spans(cuda, spans, n_inst=256):
-    """The benchmark cell's experiment (256 full chips, the python rule)
-    with three trials a call (A, B, none)."""
+def _fleet_with_spans(cuda, spans, n_inst=256, rule_impl="python"):
+    """The benchmark cells' experiment (256 full chips, the python rule or
+    the vm rule) with three trials a call (A, B, none)."""
     ecfg = th.RSTDPConfig(n_inputs=128, n_neurons=512, pattern_size=24,
                           trial_steps=128)
     init, _, meta = th.make_experiment(
         cfg=BSS2, ecfg=ecfg, prefix=(n_inst,), backend="blocked",
         generator=torch.Generator().manual_seed(31), device=cuda,
-        spans=spans)
+        spans=spans, rule_impl=rule_impl)
     stims = [1, 2, 0]
     draws = meta["draw"](torch.Generator().manual_seed(32), stims)
     return init, meta, stims, draws
@@ -2166,6 +2168,51 @@ def test_scanned_spans_on_card(cuda):
     per_trial = smp["scan.replays"][-1] / len(stims)
     assert 0.85 * per_trial <= last <= 1.01 * per_trial, (last, per_trial)
     init_f, meta_f, _, _ = _fleet_with_spans(cuda, False)
+    scanned_f = th.make_scanned_training(meta_f)
+    st_f, _ = scanned_f(init_f(), stims, draws)
+    st2_f, hist2_f = scanned_f(st_f, stims, draws)
+    for k in hist2:
+        assert torch.equal(hist2[k], hist2_f[k]), k
+    for x, y in zip(th._leaves(st2), th._leaves(st2_f)):
+        assert torch.equal(x, y)
+    assert meta_f["timer"].summary() == {}
+    (_, regions_f, steps_f), = meta_f["scanned_training"].loops.values()
+    assert regions_f is None and len({s.__self__ for s in steps_f}) == 1
+
+
+def test_vm_fleet_trial_on_card(cuda):
+    """The vm rule at the benchmark's width (256 full chips, [256, 256,
+    512] lanes): both captured trials launch ``ppuvm_exec`` once a replay;
+    the marked trial's five marks split it into ``VM_TRIAL_REGIONS``,
+    each positive, together within 1% of the replay timed by stream
+    events around it; a call adds a program a trial to ``ppu.programs``;
+    ``spans=False`` replays one graph and gives the same outputs bit for
+    bit over two calls."""
+    init, meta, stims, draws = _fleet_with_spans(cuda, True,
+                                                 rule_impl="vm")
+    scanned = th.make_scanned_training(meta)
+    st, _ = scanned(init(), stims, draws)
+    (loop, marks, steps), = scanned.loops.values()
+    assert [g.launches["ppuvm_exec"] for g in
+            (steps[0].__self__, steps[-1].__self__)] == [1, 1]
+    assert marks.names == th.VM_TRIAL_REGIONS
+    st2, hist2 = scanned(st, stims, draws)
+    assert meta["timer"].counters["ppu.programs"] == 2 * len(stims)
+    loop.reset()
+    for _ in stims:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        a.record()
+        steps[-1]()
+        b.record()
+        b.synchronize()
+        regions = dict(marks.read())
+        assert all(v > 0 for v in regions.values()), regions
+        whole = a.elapsed_time(b) * 1e-3
+        assert abs(sum(regions.values()) - whole) <= 0.01 * whole, (
+            regions, whole)
+    init_f, meta_f, _, _ = _fleet_with_spans(cuda, False, rule_impl="vm")
     scanned_f = th.make_scanned_training(meta_f)
     st_f, _ = scanned_f(init_f(), stims, draws)
     st2_f, hist2_f = scanned_f(st_f, stims, draws)

@@ -17,7 +17,8 @@
   card's test counts the timer's ``graph.captures``), not a new one.
 - Phase timer (spans, counters, regions, off), the kernel build's span and
   counters, ``scanned_training``'s spans (on and off bit-equal, one
-  sample a call), ``profile_phases``, the profiler hook, the run report,
+  sample a call; the vm rule's ``trial.ppu_program`` region and ``ppu.*``
+  counters; each marked trial's marks), ``profile_phases``, the profiler hook, the run report,
   and playback with telemetry (the golden traces replay unchanged with
   ``telemetry=True``).
 """
@@ -561,6 +562,60 @@ def test_scanned_spans_count_calls_and_regions():
         2, device=CPU, ecfg=th.RSTDPConfig(trial_steps=32))
     assert run_meta["timer"].summary()["scan.calls"] == dict(count=1)
     assert "spans" not in run_out
+
+
+def test_scanned_vm_spans_program_region_and_counters():
+    """With the vm rule the marked trial has a fourth region,
+    ``trial.ppu_program``, between the emulation and the rule (one sample
+    a call, together no longer than the call's replays), and each call
+    adds ``ppu.programs`` (a program a trial) and ``ppu.instructions``
+    (the program's words over every synapse of the fleet, a trial)."""
+    k, n, N = 3, 4, 2
+    init, _, meta = th.make_experiment(
+        ecfg=th.RSTDPConfig(trial_steps=32), rule_impl="vm", device=CPU,
+        prefix=(N,))
+    scanned = th.make_scanned_training(meta)
+    state = init()
+    for c in range(k):
+        draws = meta["draw"](torch.Generator().manual_seed(20 + c),
+                             th.stimuli(n))
+        state, _ = scanned(state, th.stimuli(n), draws)
+    s = meta["timer"].summary()
+    assert th.VM_TRIAL_REGIONS == ("trial.emulation", "trial.ppu_program",
+                                   "trial.rule", "trial.carry")
+    for name in th.VM_TRIAL_REGIONS:
+        assert s[name]["count"] == k and s[name]["best_us"] > 0, name
+    smp = meta["timer"].samples
+    for i in range(k):
+        assert (sum(smp[name][i] for name in th.VM_TRIAL_REGIONS)
+                <= smp["scan.replays"][i])
+    words = len(programs.signed_dw_program(eta=16.0, eta_homeo=0.4,
+                                           fire_thresh=1.0))
+    assert words == 19
+    lanes = N * 2 * 16 * 16
+    assert s["ppu.programs"] == dict(count=k * n)
+    assert s["ppu.instructions"] == dict(count=k * n * words * lanes)
+    _, _, py_meta = _spans_run(True, "python", calls=1)
+    py = py_meta["timer"].summary()
+    assert "trial.ppu_program" not in py and "ppu.programs" not in py
+
+
+@pytest.mark.parametrize("rule_impl,marks", [("python", [0, 1, 2, 3]),
+                                             ("vm", [0, 1, 2, 3, 4])])
+def test_marked_trial_marks(monkeypatch, rule_impl, marks):
+    """The marked trial records each of its marks once, in order: the
+    python rule's four (body start, emulation, rule, body end), the vm
+    rule's five (its program's end between the emulation's and the
+    rule's)."""
+    seen = []
+    real = obs_timing.Regions.mark
+
+    def mark(self, i):
+        seen.append(i)
+        real(self, i)
+    monkeypatch.setattr(obs_timing.Regions, "mark", mark)
+    _spans_run(True, rule_impl, calls=1, n=1)
+    assert seen == marks
 
 
 @pytest.mark.parametrize("backend", ["fused", "blocked"])
